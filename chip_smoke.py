@@ -1,0 +1,292 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+
+1. card   — the card's name and power limit (nvidia-smi); exits non-zero
+            without a CUDA device;
+2. build  — compiles every CUDA kernel of the port from ``sige_torch/csrc``
+            with nvcc for sm_90a (into ``build/sige_torch/``), all at once;
+3. kernels — holds each kernel against its plain PyTorch version at the
+            main path's shapes and at SD shapes (TF32 off for matmuls and
+            convs, so the plain versions are true fp32), and times the
+            kernel, the plain version and one library call that computes
+            the same function (a yardstick only; the port never calls it);
+4. slice  — the church256 DDPM SDEdit path at full width through
+            ``sige_torch.runners.DiffusionRunner(layout="tiles")``: the
+            sparse pass on the original image equals the full pass
+            (< 1e-4); a tiny U-Net on the card agrees with the same U-Net
+            on the CPU; ``generate`` runs 5 DDIM twin steps with the launch
+            counters reset just before and read just after; ``profile``
+            times dense and sparse forwards.
+
+The line before the last is the ``kernels`` JSON; the last line is the
+device JSON.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM published peaks: fp32 outside the tensor cores, HBM3 bandwidth
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+TOL = 1e-4
+FLASH_SOURCE = "sige_torch/csrc/flash_attn.cu"
+FLASH_REPLACES = "sige_tpu/ops/flash.py:48"  # _fwd_kernel (pallas_call :99)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, warmup: int = 5, iters: int = 20) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attention_bound(B, N, M, H, D, bias: bool):
+    """Least time for one attention call: bytes (q, k, v, bias read once,
+    out written once) over HBM bandwidth vs 4*N*M*D flops per head over
+    the fp32 rate."""
+    nbytes = 4 * (2 * B * N * H * D + 2 * B * M * H * D + (M if bias else 0))
+    flops = 4.0 * B * H * N * M * D
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernels(flash):
+    """Hold the flash kernel against its plain twin at shapes (a)-(e)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def live_bias(M, dead):
+        b = torch.zeros(M, device="cuda")
+        b[dead] = -1e9
+        return b
+
+    # (label, B, N, M, H, D, bias)
+    shapes = []
+    shapes.append(("a: DDPM 16px attention", 1, 256, 256, 1, 512, None))
+    shapes.append(("b: DDPM 8px mid attention", 1, 64, 64, 1, 512, None))
+    shapes.append(("c: SD 64x64 self-attention", 2, 4096, 4096, 8, 40, None))
+    dead77 = torch.randperm(77, generator=torch.Generator().manual_seed(1))[:8]
+    shapes.append(("d: ragged text KV M=77 with bias", 2, 1024, 77, 8, 80,
+                   live_bias(77, dead77.cuda())))
+    # (e) masked stale/fresh form: each of the 1024 fresh positions kills
+    # its stale copy, so exactly one copy of every position is live
+    Ms, Mf = 4096, 1024
+    stale_dead = torch.randperm(Ms, generator=torch.Generator().manual_seed(2))
+    bias_e = torch.cat([live_bias(Ms, stale_dead[:Mf].cuda()),
+                        torch.zeros(Mf, device="cuda")])
+    shapes.append(("e: masked stale/fresh K/V (SD)", 2, 1024, Ms + Mf, 8, 40,
+                   bias_e))
+
+    rows = []
+    for label, B, N, M, H, D, bias in shapes:
+        q, k, v = randn(B, N, H, D), randn(B, M, H, D), randn(B, M, H, D)
+        scale = D ** -0.5
+        out = flash.flash_mha(q, k, v, scale, bias)
+        torch.cuda.synchronize()
+        ref = flash.flash_mha_plain(q, k, v, scale, bias)
+        err = (out - ref).abs().max().item()
+        if not (err <= TOL):
+            raise AssertionError(f"{label}: kernel vs plain max err {err:.3e}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = time_ms(lambda: flash.flash_mha(q, k, v, scale, bias))
+        plain_ms = time_ms(lambda: flash.flash_mha_plain(q, k, v, scale, bias))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias, scale=scale))
+        bound_ms, bound_by = attention_bound(B, N, M, H, D, bias is not None)
+        rows.append({"shape": label, "B": B, "N": N, "M": M, "H": H, "D": D,
+                     "bias": bias is not None, "max_err": err,
+                     "kernel_ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+        print(f"  {label}: max err {err:.3e}  kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bound_ms:.5f} "
+              f"ms ({bound_by})", flush=True)
+    return rows
+
+
+def edit_pair(R: int):
+    """The ``__graft_entry__._build`` edit: a square of ~1.2% of the canvas
+    at (R/4, R/4) over a random image, both from default_rng(0)."""
+    rng = np.random.default_rng(0)
+    original = rng.random((R, R, 3)).astype(np.float32)
+    edited = original.copy()
+    side = max(4, int(round((0.012 * R * R) ** 0.5)))
+    edited[R // 4: R // 4 + side, R // 4: R // 4 + side] = rng.random(
+        (side, side, 3))
+    return original, edited
+
+
+def phase_small_reference():
+    """A tiny U-Net on the card against the same U-Net on the CPU (the CPU
+    port is the one the tests hold against sige_tpu)."""
+    from sige_torch.models.ddpm import DDPMUNetConfig
+    from sige_torch.runners import DiffusionRunConfig, DiffusionRunner
+
+    cfg = DDPMUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                         attn_resolutions=(16,), resolution=32,
+                         sparse_resolution_threshold=32)
+    rc = DiffusionRunConfig(sampler_type="ddim")
+    original, edited = edit_pair(32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        runner = DiffusionRunner(cfg, rc, layout="tiles", device=dev, seed=0)
+        x0, x1, _ = runner.preprocess(original, edited)
+        t = torch.full((1,), 17.0, device=dev)
+        outs[dev] = [runner.model.full(x0, t).cpu(),
+                     runner.model.sparse(x1, t).cpu()]
+    err = max((a - b).abs().max().item()
+              for a, b in zip(outs["cpu"], outs["cuda"]))
+    print(f"  tiny U-Net card vs CPU (full, sparse): max err {err:.3e}",
+          flush=True)
+    if not (err <= TOL):
+        raise AssertionError(f"tiny U-Net card vs CPU max err {err:.3e}")
+
+
+def phase_slice(flash):
+    from sige_torch.models.ddpm import DDPMUNetConfig
+    from sige_torch.runners import DiffusionRunConfig, DiffusionRunner
+
+    steps = 5
+    cfg = DDPMUNetConfig()
+    rc = DiffusionRunConfig(sampler_type="ddim", eta=0.0, sample_steps=steps,
+                            noise_level=500)
+    t0 = time.perf_counter()
+    runner = DiffusionRunner(cfg, rc, layout="tiles", device="cuda", seed=0)
+    R = cfg.resolution
+    original, edited = edit_pair(R)
+    x0, x1, mask = runner.preprocess(original, edited)
+    torch.cuda.synchronize()
+    print(f"  runner + preprocess: {time.perf_counter() - t0:.2f} s, edit "
+          f"ratio {runner.last_edit_ratio:.4f}, params "
+          f"{sum(p.numel() for p in runner.module.parameters()) / 1e6:.1f} M",
+          flush=True)
+
+    t = torch.zeros((1,), device="cuda")
+    y_full = runner.model.full(x0, t)
+    y_sparse = runner.model.sparse(x0, t)
+    err = (y_sparse - y_full).abs().max().item()
+    print(f"  sparse(x0) vs full(x0): max err {err:.3e}", flush=True)
+    if not (err < TOL):
+        raise AssertionError(f"sparse(x0) != full(x0): {err:.3e}")
+    y_edit = runner.model.sparse(x1, t)
+    y_dense = runner.model.dense(x1, t)
+    print(f"  sparse(x1) vs dense(x1): max err "
+          f"{(y_edit - y_dense).abs().max().item():.3e} (approximate by "
+          f"design: folded norms keep the original's statistics)", flush=True)
+
+    # the main path, through the runner's own entry point: reset the
+    # counters just before, read them just after
+    flash.flash_mha.launches = 0
+    t0 = time.perf_counter()
+    out = runner.generate(original, edited, seed=0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = flash.flash_mha.launches
+    per_forward = 6  # 5 attention blocks at 16 px + 1 mid block at 8 px
+    want = per_forward * (1 + 2 * steps)  # preprocess's full pass + twins
+    print(f"  generate: {steps} twin steps in {gen_s:.2f} s; flash launches "
+          f"{launches} = {per_forward} (preprocess full pass) + "
+          f"{(launches - per_forward) / steps:g} per twin step x {steps}",
+          flush=True)
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, expected {want} "
+                             f"(12 per twin step)")
+    if out.shape != (R, R, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"generate output {out.shape}, finite "
+                             f"{np.isfinite(out).all()}")
+
+    prof = {}
+    for mode in ("dense", "sparse"):
+        prof[mode] = runner.profile(original, edited, mode=mode)
+        p = prof[mode]
+        print(f"  profile {mode}: {p['latency_ms']:.3f} ms median "
+              f"(p90 {p['latency_p90_ms']:.3f}, n={p['iters']}), "
+              f"{p['macs_g']:.2f} GMACs, peak {p['peak_mb']:.1f} MB",
+              flush=True)
+    return launches, prof
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"card: {card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {name}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off for matmuls and cuDNN convs: plain versions are fp32",
+          flush=True)
+
+    from sige_torch.ops import flash
+
+    t0 = time.perf_counter()
+    flash.LIBRARY.load()
+    print(f"build: {FLASH_SOURCE} in {time.perf_counter() - t0:.2f} s "
+          f"-> {flash.LIBRARY.path}", flush=True)
+    print(flash.LIBRARY.build_log.strip(), flush=True)
+
+    print("kernels:", flush=True)
+    rows = phase_kernels(flash)
+    print("small reference:", flush=True)
+    phase_small_reference()
+    print("slice (church256, full width, layout=tiles):", flush=True)
+    launches, prof = phase_slice(flash)
+
+    main_row = rows[0]  # shape (a): the main path's 16 px call
+    kernels = [{
+        "name": "flash_attn_fwd_f32",
+        "route": "cuda",
+        "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "tpu_kernel": "sige_tpu/ops/flash.py:_fwd_kernel (flash_mha_bhsd)",
+        "launches": launches,
+        "max_abs_err": max(r["max_err"] for r in rows),
+        "ms": main_row["kernel_ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "shapes": rows,
+    }]
+    print(json.dumps({"slice": {m: prof[m] for m in prof},
+                      "card": card}), flush=True)
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,116 @@
+"""Where the time of one church256 DDPM forward goes, on the GPU, in the
+PyTorch port (sige_torch, tile layout).
+
+    python3 scripts/trace_torch_step.py
+
+For the dense and the sparse forward of the full-width U-Net (random
+weights from seed 0, the 1.2% square edit of ``chip_smoke.py``) it
+prints, as one JSON line:
+
+  * ``device_ms``: median time between two CUDA events around a forward;
+  * ``host_ms``: median host time to enqueue a forward (no sync) — when it
+    is close to ``device_ms`` the host bounds the step;
+  * ``busy_ms_per_forward``: the device time of all kernels in a
+    ``torch.profiler`` trace of 20 forwards, per forward;
+  * ``idle_share``: 1 - busy / device_ms, the share of an (unprofiled)
+    forward in which no kernel runs (the profiler's own host overhead
+    inflates its traced wall time, ``traced_wall_ms_per_forward``);
+  * ``launches``: kernels launched per forward; ``top``: the kernels with
+    the most device time per forward, and the flash kernel's share.
+
+TF32 is off for matmuls and cuDNN convs (the port's fp32 contract). GPU
+only: exits non-zero without a CUDA device.
+"""
+
+import json
+import os
+import statistics
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import card_line, edit_pair  # noqa: E402
+
+ITERS = 20  # forwards per measurement
+TOP = 12    # kernels listed per mode
+
+
+def _dev_time(e):
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+
+
+def measure(fwd, x, t, iters=ITERS, top=TOP):
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fwd(x, t)
+    torch.cuda.synchronize()
+    dev, host = [], []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        h0 = time.perf_counter()
+        fwd(x, t)
+        host.append((time.perf_counter() - h0) * 1e3)
+        e.record()
+        torch.cuda.synchronize()
+        dev.append(s.elapsed_time(e))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        for _ in range(iters):
+            fwd(x, t)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - w0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and _dev_time(e) > 0]
+    busy_ms = sum(_dev_time(e) for e in kernels) / 1e3 / iters
+    kernels.sort(key=_dev_time, reverse=True)
+    flash_ms = sum(_dev_time(e) for e in kernels if "flash_fwd_f32" in e.key)
+    device_ms = statistics.median(dev)
+    return {
+        "device_ms": device_ms,
+        "host_ms": statistics.median(host),
+        "traced_wall_ms_per_forward": wall_ms / iters,
+        "busy_ms_per_forward": busy_ms,
+        "idle_share": max(0.0, 1.0 - busy_ms / device_ms),
+        "launches_per_forward": sum(e.count for e in kernels) / iters,
+        "flash_ms_per_forward": flash_ms / 1e3 / iters,
+        "top": [{"kernel": e.key[:90], "ms_per_forward":
+                 _dev_time(e) / 1e3 / iters,
+                 "calls_per_forward": e.count / iters}
+                for e in kernels[:top]],
+    }
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("trace_torch_step: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from sige_torch.models.ddpm import DDPMUNetConfig
+    from sige_torch.runners import DiffusionRunConfig, DiffusionRunner
+
+    card = card_line()
+    cfg = DDPMUNetConfig()
+    runner = DiffusionRunner(cfg, DiffusionRunConfig(sampler_type="ddim"),
+                             layout="tiles", device="cuda", seed=0)
+    original, edited = edit_pair(cfg.resolution)
+    _, x1, _ = runner.preprocess(original, edited)
+    t = torch.zeros((1,), device="cuda")
+    out = {"card": card, "iters": ITERS}
+    for mode, fwd in (("dense", runner.model.dense),
+                      ("sparse", runner.model.sparse)):
+        out[mode] = measure(fwd, x1, t)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

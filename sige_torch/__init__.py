@@ -1,0 +1,14 @@
+"""sige_torch: the PyTorch/CUDA port of the Spatially Incremental
+Generative Engine.
+
+It runs beside ``sige_tpu`` (the JAX reference) and imports nothing of
+it, nor JAX. Activations are NHWC at module boundaries, as in
+``sige_tpu``. Entry points run on the GPU unless the caller passes
+``device="cpu"``; the attention kernel is hand-written CUDA for Hopper
+(``csrc/flash_attn.cu``), built with ``nvcc`` on first use.
+
+This slice ports the DDPM church256 SDEdit path in the tile layout:
+``sige_torch.runners.DiffusionRunner``.
+"""
+
+__version__ = "0.1.0"

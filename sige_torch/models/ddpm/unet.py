@@ -1,0 +1,518 @@
+"""DDPM U-Net (Ho et al. architecture) with SIGE sparse wiring, tile
+layout — the port of ``sige_tpu.models.ddpm.unet``.
+
+One module serves three execution modes through :class:`SIGECtx`:
+``dense`` (the vanilla baseline), ``full`` (dense + cache/affine
+refresh), and ``sparse`` (tile inference). The SIGE wiring mirrors the
+reference's ``SIGEFusedUNet``
+(reference: diffusion/models/ddpm_arch/sige_fused_unet.py):
+
+  * resblocks: gather(+folded norm1, swish) -> conv1 -> fused
+    scatter/re-gather(+folded norm2 with temb absorbed into the shift,
+    swish) -> conv2 -> scatter(+shortcut); shortcut uses its own
+    block-size-4 gather and the block-residual join when channels change;
+  * attention stays *global*: qkv tiles are scattered back onto the cached
+    full map before attention, and only proj_out runs on tiles;
+  * levels are sparse only at resolution >= ``sparse_resolution_threshold``
+    (64 for church256 — so attention at 16 runs dense with cached folded
+    norms);
+  * the per-block temb projections are fused into one linear layer
+    (reference: fused_unet.py:244-295), sliced per block in traversal
+    order;
+  * Downsample pads (0,1,0,1) asymmetrically in full/dense mode only; the
+    sparse path relies on gather offset 0
+    (reference: sige_fused_unet.py:243-246).
+
+Activations are NHWC; module names follow ``sige_tpu``'s flax names
+(``down_blocks_0_1`` there is ``down_blocks.0.1`` here), so the weight
+bridge and the plan trees map one to one.
+
+As in ``sige_tpu``, the attention block's folded norm keeps the full
+per-channel affine (the reference indexes it by cache id).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ...nn.module import (Gather, Scatter, ScatterGather,
+                          ScatterWithBlockResidual, SIGECtx, SIGEConv2d,
+                          SIGEModule, add_dense_macs, add_macs)
+from ...nn.norm import group_norm_with_affine
+from ...ops.attention import mha
+
+
+@dataclasses.dataclass(frozen=True)
+class DDPMUNetConfig:
+    """Architecture config (church256 defaults; reference:
+    diffusion/configs/church_ddpm256-sige.yml). The fields and defaults
+    are ``sige_tpu``'s; ``window_chain`` is read by the window layout,
+    which this port runs in a later slice."""
+
+    ch: int = 128
+    ch_mult: Tuple[int, ...] = (1, 1, 2, 2, 4, 4)
+    num_res_blocks: int = 2
+    attn_resolutions: Tuple[int, ...] = (16,)
+    in_ch: int = 3
+    out_ch: int = 3
+    resolution: int = 256
+    resamp_with_conv: bool = True
+    num_groups: int = 32
+    block_size_normal: Optional[int] = 6
+    block_size_instance: Optional[int] = 4
+    sparse_resolution_threshold: int = 64
+    window_chain: bool = True
+    #: SIGE-ify the tail (fold norm_out's affine from the full pass,
+    #: gather/scatter the conv_out); sparse == full on the original input
+    #: is preserved exactly.
+    sige_tail: bool = True
+    cache_slots: int = 1
+
+    @property
+    def temb_ch(self) -> int:
+        return self.ch * 4
+
+
+def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal timestep embedding (transformer/fairseq convention;
+    reference: diffusion/models/common.py:8-26)."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(10000.0)
+        * torch.arange(half, dtype=torch.float32, device=t.device) / (half - 1))
+    args = t.to(torch.float32)[:, None] * freqs[None, :]
+    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+    if dim % 2 == 1:
+        emb = nn.functional.pad(emb, (0, 1))
+    return emb
+
+
+def _swish(x):
+    return x * torch.sigmoid(x)
+
+
+def _affine(x, scale, shift):
+    """``x * scale + shift`` with [B, C] params over NHWC x."""
+    return x * scale[:, None, None, :] + shift[:, None, None, :]
+
+
+class _FoldedGroupNorm(SIGEModule):
+    """GroupNorm whose (scale, shift) affine is cached in
+    full mode and replayed in sparse mode."""
+
+    def __init__(self, channels: int, num_groups: int):
+        super().__init__()
+        self.num_groups = num_groups
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x, ctx: SIGECtx, pre_shift=None):
+        """In dense/full mode: normalize x and, in full mode, cache the
+        affine; ``pre_shift`` — a [B, C] offset already added to the
+        *input* (DDPM's additive temb) — folds in as
+        shift += pre_shift * scale (reference: sige_fused_unet.py:87-89).
+
+        In sparse mode: return the cached (scale, shift) for the gather
+        epilogues instead of touching x."""
+        if ctx.mode in ("dense", "full"):
+            xn, scale, shift = group_norm_with_affine(
+                x, self.num_groups, self.weight, self.bias, eps=1e-6)
+            if ctx.mode == "full":
+                if pre_shift is not None:
+                    shift = pre_shift * scale + shift
+                self.cache["scale"], self.cache["shift"] = scale, shift
+            return xn, None, None
+        if ctx.mode == "sparse":
+            return None, self.cache["scale"], self.cache["shift"]
+        raise ValueError(ctx.mode)
+
+
+class _FoldedNormAffine(SIGEModule):
+    """GroupNorm using externally-owned (w, b) params whose equivalent
+    per-channel affine is cached in full mode and replayed in
+    sparse mode (the model-tail variant of _FoldedGroupNorm)."""
+
+    def __init__(self, num_groups: int):
+        super().__init__()
+        self.num_groups = num_groups
+
+    def forward(self, x, w, b, ctx: SIGECtx):
+        if ctx.mode in ("dense", "full"):
+            xn, sc, sh = group_norm_with_affine(x, self.num_groups, w, b,
+                                                eps=1e-6)
+            if ctx.mode == "full":
+                self.cache["scale"], self.cache["shift"] = sc, sh
+            return xn, None, None
+        return None, self.cache["scale"], self.cache["shift"]
+
+
+class SIGEResnetBlock(SIGEModule):
+    """Reference: diffusion/models/ddpm_arch/sige_fused_unet.py:10-131."""
+
+    def __init__(self, cfg: DDPMUNetConfig, in_channels: int,
+                 out_channels: int, support_sparse: bool = False):
+        super().__init__()
+        cin, cout = in_channels, out_channels
+        self.in_channels, self.out_channels = cin, cout
+        self.main_sparse = support_sparse and cfg.block_size_normal is not None
+        self.shortcut_sparse = (self.main_sparse and cin != cout
+                                and cfg.block_size_instance is not None)
+        self.norm1 = _FoldedGroupNorm(cin, cfg.num_groups)
+        self.conv1 = SIGEConv2d(cin, cout, kernel_size=3, padding=1,
+                                tile_input=self.main_sparse)
+        self.norm2 = _FoldedGroupNorm(cout, cfg.num_groups)
+        self.conv2 = SIGEConv2d(cout, cout, kernel_size=3, padding=1,
+                                tile_input=self.main_sparse)
+        if self.main_sparse:
+            self.main_gather = Gather(
+                block_size=cfg.block_size_normal, kernel_size=3,
+                conv_stride=1, conv_padding=1, activation="swish")
+            self.sg = ScatterGather(self.main_gather, activation="swish")
+        if cin != cout:
+            self.nin_shortcut = SIGEConv2d(cin, cout, kernel_size=1,
+                                           padding=0,
+                                           tile_input=self.shortcut_sparse)
+            if self.shortcut_sparse:
+                self.shortcut_gather = Gather(
+                    block_size=cfg.block_size_instance, kernel_size=1,
+                    conv_stride=1, conv_padding=0)
+                self.join = ScatterWithBlockResidual(
+                    self.main_gather, self.shortcut_gather)
+            elif self.main_sparse:
+                self.join = Scatter(self.main_gather)
+        elif self.main_sparse:
+            self.join = Scatter(self.main_gather)
+
+    def forward(self, x, temb, ctx: SIGECtx):
+        """``temb``: [B, out_channels] slice of the fused projection (full /
+        dense modes; ignored in sparse — it lives in the cached shift).
+        ``x`` may be a tuple (h, skip): the U-Net's skip concatenation."""
+        if isinstance(x, tuple):
+            x = torch.cat(x, dim=-1)
+        h, xs = x, x
+        if self.in_channels != self.out_channels:
+            if self.shortcut_sparse:
+                xs = self.shortcut_gather(xs, ctx)
+            xs = self.nin_shortcut(xs, ctx)
+
+        if ctx.mode in ("dense", "full"):
+            if self.main_sparse:
+                h = self.main_gather(h, ctx)  # records geometry/resolution
+            h, _, _ = self.norm1(h, ctx)
+            h = _swish(h)
+            h = self.conv1(h, ctx)
+            if self.main_sparse:
+                h = self.sg(h, ctx)  # caches conv1 output (pre-temb)
+            h = h + temb[:, None, None, :]
+            h, _, _ = self.norm2(h, ctx, pre_shift=temb)
+            h = _swish(h)
+            h = self.conv2(h, ctx)
+        else:  # sparse
+            _, s1, b1 = self.norm1(h, ctx)
+            if self.main_sparse:
+                h = self.main_gather(h, ctx, scale=s1, shift=b1)  # swish fused
+            else:
+                h = _swish(_affine(h, s1, b1))
+            h = self.conv1(h, ctx)
+            _, s2, b2 = self.norm2(h, ctx)
+            if self.main_sparse:
+                h = self.sg(h, ctx, scale=s2, shift=b2)  # swish fused
+            else:
+                h = _swish(_affine(h, s2, b2))
+            h = self.conv2(h, ctx)
+
+        if self.main_sparse:
+            return self.join(h, ctx, residual=xs)
+        return h + xs
+
+
+class SIGEAttnBlock(SIGEModule):
+    """Global single-head attention; in sparse mode the qkv tiles are
+    scattered onto the cached full qkv map so K/V stay global
+    (reference: diffusion/models/ddpm_arch/sige_fused_unet.py:134-209).
+    The attention itself is :func:`sige_torch.ops.attention.mha`, which on
+    the GPU is the hand-written flash kernel."""
+
+    def __init__(self, cfg: DDPMUNetConfig, channels: int,
+                 support_sparse: bool = False):
+        super().__init__()
+        self.channels = channels
+        self.sparse_ok = support_sparse and cfg.block_size_instance is not None
+        self.norm = _FoldedGroupNorm(channels, cfg.num_groups)
+        self.qkv = SIGEConv2d(channels, 3 * channels, kernel_size=1,
+                              padding=0, tile_input=self.sparse_ok)
+        self.proj_out = SIGEConv2d(channels, channels, kernel_size=1,
+                                   padding=0, tile_input=self.sparse_ok)
+        if self.sparse_ok:
+            bs = cfg.block_size_instance
+            self.gather1 = Gather(block_size=bs, kernel_size=1,
+                                  conv_stride=1, conv_padding=0)
+            self.scatter1 = Scatter(self.gather1)
+            self.gather2 = Gather(block_size=bs, kernel_size=1,
+                                  conv_stride=1, conv_padding=0)
+            self.scatter2 = Scatter(self.gather2)
+
+    def _attend(self, qkv, ctx: SIGECtx):
+        B, H, W, _ = qkv.shape
+        C = self.channels
+        q, k, v = qkv.reshape(B, H * W, 3 * C).split(C, dim=-1)
+        out = mha(q, k, v, 1, C)
+        add_macs(ctx, 2 * B * H * W * H * W * C)
+        return out.reshape(B, H, W, C)
+
+    def forward(self, x, ctx: SIGECtx):
+        if ctx.mode in ("dense", "full"):
+            h = x
+            if self.sparse_ok:
+                h = self.gather1(h, ctx)
+            h, _, _ = self.norm(h, ctx)
+        else:
+            _, s, b = self.norm(x, ctx)
+            if self.sparse_ok:
+                h = self.gather1(x, ctx, scale=s, shift=b)
+            else:
+                h = _affine(x, s, b)
+        qkv = self.qkv(h, ctx)
+        if self.sparse_ok:
+            qkv = self.scatter1(qkv, ctx)  # full map: fresh tiles + cache
+        h = self._attend(qkv, ctx)
+        if self.sparse_ok:
+            h = self.gather2(h, ctx)
+        h = self.proj_out(h, ctx)
+        if self.sparse_ok:
+            return self.scatter2(h, ctx, residual=x)
+        return h + x
+
+
+class SIGEDownsample(SIGEModule):
+    """Stride-2 conv with (0,1,0,1) asymmetric padding in dense/full mode;
+    sparse tiles carry their own halo (gather padding 0)
+    (reference: sige_fused_unet.py:229-248)."""
+
+    def __init__(self, cfg: DDPMUNetConfig, channels: int,
+                 support_sparse: bool = False):
+        super().__init__()
+        self.sparse_ok = support_sparse and cfg.block_size_normal is not None
+        self.conv = SIGEConv2d(channels, channels, kernel_size=3, stride=2,
+                               padding=((0, 1), (0, 1)),
+                               tile_input=self.sparse_ok)
+        if self.sparse_ok:
+            self.g = Gather(block_size=cfg.block_size_normal, kernel_size=3,
+                            conv_stride=2, conv_padding=0)
+            self.s = Scatter(self.g)
+
+    def forward(self, x, ctx: SIGECtx):
+        if self.sparse_ok:
+            x = self.g(x, ctx)
+        x = self.conv(x, ctx)
+        if self.sparse_ok:
+            x = self.s(x, ctx)
+        return x
+
+
+class SIGEUpsample(SIGEModule):
+    """Nearest 2x upsample + 3x3 conv (reference: sige_fused_unet.py:212-227)."""
+
+    def __init__(self, cfg: DDPMUNetConfig, channels: int,
+                 support_sparse: bool = False):
+        super().__init__()
+        self.sparse_ok = support_sparse and cfg.block_size_normal is not None
+        self.conv = SIGEConv2d(channels, channels, kernel_size=3, padding=1,
+                               tile_input=self.sparse_ok)
+        if self.sparse_ok:
+            self.g = Gather(block_size=cfg.block_size_normal, kernel_size=3,
+                            conv_stride=1, conv_padding=1)
+            self.s = Scatter(self.g)
+
+    def forward(self, x, ctx: SIGECtx):
+        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        if self.sparse_ok:
+            x = self.g(x, ctx)
+        x = self.conv(x, ctx)
+        if self.sparse_ok:
+            x = self.s(x, ctx)
+        return x
+
+
+class SIGEFusedUNet(SIGEModule):
+    """The full U-Net. ``forward(x, t, ctx)`` with x [B, H, W, in_ch] and
+    t [B] timesteps."""
+
+    def __init__(self, cfg: DDPMUNetConfig = DDPMUNetConfig()):
+        super().__init__()
+        self.cfg = cfg
+        nres = len(cfg.ch_mult)
+        self.temb_dense0 = nn.Linear(cfg.ch, cfg.temb_ch)
+        self.temb_dense1 = nn.Linear(cfg.temb_ch, cfg.temb_ch)
+        self._head_sparse = (cfg.sige_tail
+                             and cfg.block_size_normal is not None
+                             and cfg.resolution
+                             >= cfg.sparse_resolution_threshold)
+        self.conv_in = SIGEConv2d(cfg.in_ch, cfg.ch, kernel_size=3, padding=1,
+                                  tile_input=self._head_sparse)
+        if self._head_sparse:
+            # param-free SIGE pair for the stem
+            self.in_gather = Gather(block_size=cfg.block_size_normal,
+                                    kernel_size=3, conv_stride=1,
+                                    conv_padding=1)
+            self.in_scatter = Scatter(self.in_gather)
+
+        in_mult = (1,) + tuple(cfg.ch_mult)
+        down_blocks, down_attns, downsamples = [], [], []
+        temb_slices = []  # (start, size) per resblock in traversal order
+        temb_dim = 0
+        curr_res = cfg.resolution
+        block_in = None
+        for i in range(nres):
+            blocks, attns = [], []
+            block_in = cfg.ch * in_mult[i]
+            block_out = cfg.ch * cfg.ch_mult[i]
+            sparse = curr_res >= cfg.sparse_resolution_threshold
+            for _ in range(cfg.num_res_blocks):
+                blocks.append(SIGEResnetBlock(cfg, block_in, block_out,
+                                              support_sparse=sparse))
+                temb_slices.append((temb_dim, block_out))
+                temb_dim += block_out
+                block_in = block_out
+                if curr_res in cfg.attn_resolutions:
+                    attns.append(SIGEAttnBlock(cfg, block_in,
+                                               support_sparse=sparse))
+            down_blocks.append(nn.ModuleList(blocks))
+            down_attns.append(nn.ModuleList(attns))
+            if i != nres - 1:
+                downsamples.append(SIGEDownsample(cfg, block_in,
+                                                  support_sparse=sparse))
+                curr_res //= 2
+        self.down_blocks = nn.ModuleList(down_blocks)
+        self.down_attns = nn.ModuleList(down_attns)
+        self.downsamples = nn.ModuleList(downsamples)
+
+        self.mid_block1 = SIGEResnetBlock(cfg, block_in, block_in)
+        temb_slices.append((temb_dim, block_in))
+        temb_dim += block_in
+        self.mid_attn = SIGEAttnBlock(cfg, block_in)
+        self.mid_block2 = SIGEResnetBlock(cfg, block_in, block_in)
+        temb_slices.append((temb_dim, block_in))
+        temb_dim += block_in
+
+        up_blocks, up_attns, upsamples = [], [], []
+        for i in reversed(range(nres)):
+            blocks, attns = [], []
+            block_out = cfg.ch * cfg.ch_mult[i]
+            skip_in = cfg.ch * cfg.ch_mult[i]
+            sparse = curr_res >= cfg.sparse_resolution_threshold
+            for ib in range(cfg.num_res_blocks + 1):
+                if ib == cfg.num_res_blocks:
+                    skip_in = cfg.ch * in_mult[i]
+                blocks.append(SIGEResnetBlock(cfg, block_in + skip_in,
+                                              block_out,
+                                              support_sparse=sparse))
+                temb_slices.append((temb_dim, block_out))
+                temb_dim += block_out
+                block_in = block_out
+                if curr_res in cfg.attn_resolutions:
+                    attns.append(SIGEAttnBlock(cfg, block_in,
+                                               support_sparse=sparse))
+            up_blocks.insert(0, nn.ModuleList(blocks))
+            up_attns.insert(0, nn.ModuleList(attns))
+            if i != 0:
+                upsamples.insert(0, SIGEUpsample(cfg, block_in,
+                                                 support_sparse=True))
+                curr_res *= 2
+        self.up_blocks = nn.ModuleList(up_blocks)
+        self.up_attns = nn.ModuleList(up_attns)
+        self.upsamples = nn.ModuleList(upsamples)
+        self._temb_slices = temb_slices
+        self.temb_proj_dim = temb_dim
+        # Fused per-block temb projection (reference: fused_unet.py:244-260).
+        self.temb_proj = nn.Linear(cfg.temb_ch, temb_dim)
+
+        self.norm_out_scale = nn.Parameter(torch.ones(block_in))
+        self.norm_out_bias = nn.Parameter(torch.zeros(block_in))
+        self._tail_sparse = (cfg.sige_tail
+                             and cfg.block_size_normal is not None)
+        self.conv_out = SIGEConv2d(block_in, cfg.out_ch, kernel_size=3,
+                                   padding=1, tile_input=self._tail_sparse)
+        if self._tail_sparse:
+            # param-free SIGE pair for the tail: norm_out's affine is
+            # folded from the full pass into the gather epilogue
+            self.norm_out_fold = _FoldedNormAffine(cfg.num_groups)
+            self.out_gather = Gather(block_size=cfg.block_size_normal,
+                                     kernel_size=3, conv_stride=1,
+                                     conv_padding=1, activation="swish")
+            self.out_scatter = Scatter(self.out_gather)
+
+    def _tail(self, h, ctx: SIGECtx):
+        if ctx.mode == "full":
+            hn, _, _ = self.norm_out_fold(
+                h, self.norm_out_scale, self.norm_out_bias, ctx)
+            self.out_gather(h, ctx)  # records meta
+            out = self.conv_out(_swish(hn), ctx)
+            return self.out_scatter(out, ctx)
+        _, sc, sh = self.norm_out_fold(
+            None, self.norm_out_scale, self.norm_out_bias, ctx)
+        ext = self.out_gather(h, ctx, scale=sc, shift=sh)
+        out = self.conv_out(ext, ctx)
+        return self.out_scatter(out, ctx)
+
+    def _temb(self, t, ctx: SIGECtx):
+        cfg = self.cfg
+        temb = timestep_embedding(t, cfg.ch)
+        add_dense_macs(ctx, temb, cfg.temb_ch)
+        temb = _swish(self.temb_dense0(temb))
+        add_dense_macs(ctx, temb, cfg.temb_ch)
+        temb = _swish(self.temb_dense1(temb))
+        add_dense_macs(ctx, temb, self.temb_proj_dim)
+        return self.temb_proj(temb)
+
+    def forward(self, x, t, ctx: SIGECtx):
+        cfg = self.cfg
+        nres = len(cfg.ch_mult)
+        temb = self._temb(t, ctx) if ctx.mode in ("dense", "full") else None
+        slices = iter(self._temb_slices)
+
+        def tslice():
+            start, size = next(slices)
+            return None if temb is None else temb[:, start:start + size]
+
+        if self._head_sparse and ctx.mode == "sparse":
+            hs = [self.in_scatter(self.conv_in(self.in_gather(x, ctx), ctx),
+                                  ctx)]
+        elif self._head_sparse and ctx.mode == "full":
+            self.in_gather(x, ctx)  # records meta
+            hs = [self.in_scatter(self.conv_in(x, ctx), ctx)]
+        else:
+            hs = [self.conv_in(x, ctx)]
+        for i in range(nres):
+            for ib in range(cfg.num_res_blocks):
+                h = self.down_blocks[i][ib](hs[-1], tslice(), ctx)
+                if len(self.down_attns[i]):
+                    h = self.down_attns[i][ib](h, ctx)
+                hs.append(h)
+            if i != nres - 1:
+                hs.append(self.downsamples[i](hs[-1], ctx))
+
+        h = hs[-1]
+        h = self.mid_block1(h, tslice(), ctx)
+        h = self.mid_attn(h, ctx)
+        h = self.mid_block2(h, tslice(), ctx)
+
+        for i in reversed(range(nres)):
+            for ib in range(cfg.num_res_blocks + 1):
+                h = self.up_blocks[i][ib]((h, hs.pop()), tslice(), ctx)
+                if len(self.up_attns[i]):
+                    h = self.up_attns[i][ib](h, ctx)
+            if i != 0:
+                h = self.upsamples[i - 1](h, ctx)
+
+        if self._tail_sparse and ctx.mode != "dense":
+            return self._tail(h, ctx)
+        h, _, _ = group_norm_with_affine(
+            h, cfg.num_groups, self.norm_out_scale, self.norm_out_bias,
+            eps=1e-6)
+        return self.conv_out(_swish(h), ctx)

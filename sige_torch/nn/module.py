@@ -1,0 +1,271 @@
+"""The SIGE module protocol as PyTorch modules (tile layout).
+
+The reference implements its engine as stateful torch modules with a
+broadcast mode switch and hidden per-module caches
+(reference: sige/nn/base.py, gather.py, scatter.py, scatter_gather.py).
+This port keeps that shape, with the conventions of ``sige_tpu.nn.module``:
+
+  * **mode** ("dense" | "full" | "sparse") travels in a :class:`SIGECtx`
+    passed to every ``forward``;
+  * **caches** (the full-mode activations of the original image) live in
+    each module's ``cache`` dict, one per module (``sige_tpu``'s per-slot
+    caches come with ``cache_slots`` in a later slice);
+  * **meta** (packed geometry and resolutions) is recorded by each Gather
+    in full mode in the packed form the planner reads, and the engine
+    gathers it into a tree keyed by module path;
+  * **plans** (tile indices, live counts, source maps) are produced
+    host-side by :mod:`sige_torch.nn.planner`; the engine hands each
+    Gather its entry, and paired scatters read it through the Gather;
+  * **pairing** (a Scatter must use its Gather's indices) is a plain
+    reference to the Gather, kept outside the module registry so every
+    Gather has exactly one path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.geometry import BlockGeometry
+from ..ops import (conv2d_nhwc, gather_tiles, scatter_gather_tiles,
+                   scatter_tiles_box, scatter_with_block_residual_box)
+
+IntPair = Tuple[int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class SIGECtx:
+    """Per-call engine context.
+
+    Modes:
+      * ``"dense"`` — plain inference, no caching (the baseline an
+        un-instrumented model would run);
+      * ``"full"`` — dense inference that also refreshes scatter caches,
+        folded-norm affines, and planning metadata;
+      * ``"sparse"`` — tile inference over the caches.
+
+    ``macs``, when a list, collects the analytic MACs of every layer the
+    call runs (the port of the ``"profile"`` collection).
+    """
+
+    mode: str = "full"
+    macs: Optional[List[float]] = None
+
+
+def _pair(v) -> IntPair:
+    if isinstance(v, int):
+        return (v, v)
+    return (int(v[0]), int(v[1]))
+
+
+def add_macs(ctx: SIGECtx, n: float) -> None:
+    """Record analytic MACs when the call collects them."""
+    if ctx.macs is not None:
+        ctx.macs.append(float(n))
+
+
+def add_dense_macs(ctx: SIGECtx, x: torch.Tensor, features: int) -> None:
+    """MACs of a linear layer applied to ``x``:
+    ``prod(batch_dims) * in_features * out_features``."""
+    add_macs(ctx, math.prod(x.shape[:-1]) * x.shape[-1] * features)
+
+
+def share(mod: nn.Module, name: str, other: nn.Module) -> None:
+    """Keep a reference to a module owned elsewhere without registering it
+    as a child (a Scatter's Gather)."""
+    object.__setattr__(mod, name, other)
+
+
+class SIGEModule(nn.Module):
+    """Base for engine layers: a ``cache`` dict of full-mode tensors. A
+    cache holds the activation itself, not a copy: activations are never
+    written in place."""
+
+    def __init__(self):
+        super().__init__()
+        self.cache: Dict[str, torch.Tensor] = {}
+
+
+class Gather(SIGEModule):
+    """Records geometry/resolution in full mode; extracts the active tile
+    batch (with optional fused norm epilogue) in sparse mode
+    (reference: sige/nn/gather.py).
+
+    Also the anchor for planning products: the engine sets ``plan`` (the
+    device tensors of this Gather's plan entry) and ``plan_host`` (the
+    numpy entry; bbox origins are read from it as host integers)."""
+
+    def __init__(self, block_size: Union[int, IntPair] = 6,
+                 kernel_size: Union[int, IntPair] = 3,
+                 conv_stride: Union[int, IntPair] = 1,
+                 conv_padding: Union[int, IntPair] = 0,
+                 activation: str = "identity"):
+        super().__init__()
+        self.geom = BlockGeometry.create(block_size, kernel_size, conv_stride,
+                                         conv_padding)
+        self.activation = activation
+        self.meta: Optional[Dict[str, Tuple[np.ndarray, ...]]] = None
+        self.plan: Dict[str, torch.Tensor] = {}
+        self.plan_host: Dict[str, np.ndarray] = {}
+
+    def forward(self, x, ctx: SIGECtx, scale=None, shift=None):
+        if ctx.mode == "dense":
+            return x
+        if ctx.mode == "full":
+            if scale is not None or shift is not None:
+                raise ValueError(
+                    "full mode never fuses epilogues; apply the norm densely")
+            g = self.geom
+            self.meta = {
+                "input_res": (np.array(x.shape[1:3], np.int32),),
+                "geom": (np.array([*g.block_size, *g.block_stride, *g.offset,
+                                   *g.kernel_size, *g.conv_stride], np.int32),),
+            }
+            return x
+        if ctx.mode == "sparse":
+            return gather_tiles(x, self.plan["indices"], self.plan["count"],
+                                self.geom, scale, shift, self.activation)
+        raise ValueError(f"unknown mode {ctx.mode}")
+
+    # --- services for paired scatters --------------------------------------
+    def _request(self, key: str, res) -> None:
+        self.meta[key] = self.meta.get(key, ()) + (
+            np.array(tuple(res), np.int32),)
+
+    def request_src_map(self, res) -> None:
+        self._request("scatter_res", res)
+
+    def request_sg(self, res) -> None:
+        self._request("sg_res", res)
+
+    def read_src_map(self, res):
+        """(box, origin): the bbox-cropped source map on the device and its
+        origin as host integers (see planner)."""
+        key = f"{res[0]}x{res[1]}"
+        return self.plan[f"srcbox_{key}"], self.plan_host[f"srcorg_{key}"]
+
+    def read_sg(self, res):
+        key = f"{res[0]}x{res[1]}"
+        return self.plan[f"sgsrc_{key}"], self.plan[f"sgflat_{key}"]
+
+
+class Scatter(SIGEModule):
+    """Caches full-mode output; scatters fresh tiles over the cache in
+    sparse mode (reference: sige/nn/scatter.py:9-63)."""
+
+    def __init__(self, gather: Gather):
+        super().__init__()
+        share(self, "gather", gather)
+
+    def forward(self, x, ctx: SIGECtx, residual=None):
+        if ctx.mode == "dense":
+            return x if residual is None else x + residual
+        if ctx.mode == "full":
+            out = x if residual is None else x + residual
+            self.gather.request_src_map(out.shape[1:3])
+            self.cache["original"] = out
+            return out
+        if ctx.mode == "sparse":
+            y = self.cache["original"]
+            box, org = self.gather.read_src_map(y.shape[1:3])
+            return scatter_tiles_box(x, y, box, org, self.gather.geom,
+                                     residual)
+        raise ValueError(f"unknown mode {ctx.mode}")
+
+
+class ScatterGather(SIGEModule):
+    """Fused scatter->re-gather between the two convs of a resblock, with
+    the second norm folded into the epilogue
+    (reference: sige/nn/scatter_gather.py)."""
+
+    def __init__(self, gather: Gather, activation: str = "identity"):
+        super().__init__()
+        share(self, "gather", gather)
+        self.activation = activation
+
+    def forward(self, x, ctx: SIGECtx, scale=None, shift=None):
+        if ctx.mode == "dense":
+            return x
+        if ctx.mode == "full":
+            self.gather.request_src_map(x.shape[1:3])
+            self.gather.request_sg(x.shape[1:3])
+            self.cache["original"] = x
+            return x
+        if ctx.mode == "sparse":
+            y = self.cache["original"]
+            sg_src, sg_flat = self.gather.read_sg(y.shape[1:3])
+            return scatter_gather_tiles(
+                x, y, sg_src, sg_flat, self.gather.geom, scale, shift,
+                self.activation)
+        raise ValueError(f"unknown mode {ctx.mode}")
+
+
+class ScatterWithBlockResidual(SIGEModule):
+    """Residual join for main/shortcut paths gathered with different block
+    sizes (reference: sige/nn/scatter.py:66-136)."""
+
+    def __init__(self, main_gather: Gather, shortcut_gather: Gather):
+        super().__init__()
+        share(self, "main_gather", main_gather)
+        share(self, "shortcut_gather", shortcut_gather)
+
+    def forward(self, x, ctx: SIGECtx, residual=None):
+        if ctx.mode == "dense":
+            return x + residual
+        if ctx.mode == "full":
+            out = x + residual
+            self.main_gather.request_src_map(out.shape[1:3])
+            self.shortcut_gather.request_src_map(out.shape[1:3])
+            self.cache["original"] = out
+            self.cache["residual"] = residual
+            return out
+        if ctx.mode == "sparse":
+            y0 = self.cache["original"]
+            y1 = self.cache["residual"]
+            res = y0.shape[1:3]
+            m_box, m_org = self.main_gather.read_src_map(res)
+            s_box, s_org = self.shortcut_gather.read_src_map(res)
+            return scatter_with_block_residual_box(
+                x, y0, residual, y1,
+                m_box, m_org, self.main_gather.geom,
+                s_box, s_org, self.shortcut_gather.geom)
+        raise ValueError(f"unknown mode {ctx.mode}")
+
+
+class SIGEConv2d(SIGEModule):
+    """Conv that pads normally in full/dense mode and runs VALID on
+    gathered tiles in sparse mode (reference: sige/nn/base.py:80-92).
+    The weight is stored as ``F.conv2d``'s OIHW; inputs are NHWC.
+
+    ``tile_input=False`` marks a conv that always sees full maps (e.g. the
+    stem conv, or resblock convs at non-sparse levels) so it keeps its
+    padding in sparse mode.
+    """
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: Union[int, IntPair] = 3,
+                 stride: Union[int, IntPair] = 1, padding: Any = 0,
+                 tile_input: bool = True):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride = stride
+        self.padding = padding
+        self.tile_input = tile_input
+        self.weight = nn.Parameter(torch.empty(features, in_channels, kh, kw))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x, ctx: SIGECtx):
+        if ctx.mode in ("full", "dense") or not self.tile_input:
+            padding = self.padding
+        else:
+            padding = 0
+        out = conv2d_nhwc(x, self.weight, self.bias, stride=self.stride,
+                          padding=padding)
+        _, cin, kh, kw = self.weight.shape
+        add_macs(ctx, out.numel() * kh * kw * cin)
+        return out

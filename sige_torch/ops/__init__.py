@@ -1,0 +1,38 @@
+"""Execution ops for tiling-based sparse convolution, in PyTorch.
+
+All ops take NHWC tensors, fixed-capacity padded index buffers and a
+static :class:`~sige_torch.core.geometry.BlockGeometry`. The tile ops are
+index_select/where compositions (the same formulations as
+``sige_tpu.ops``); attention runs through the hand-written flash kernel
+on CUDA tensors (:mod:`sige_torch.ops.flash`).
+"""
+
+from .attention import masked_mha, mha
+from .conv import conv2d_nhwc, tile_conv2d
+from .flash import flash_mha, flash_mha_plain
+from .gather import apply_epilogue, gather_tiles
+from .scatter import (
+    calibrate_residual,
+    materialize_tiles,
+    scatter_gather_tiles,
+    scatter_tiles,
+    scatter_tiles_box,
+    scatter_with_block_residual_box,
+)
+
+__all__ = [
+    "mha",
+    "masked_mha",
+    "flash_mha",
+    "flash_mha_plain",
+    "conv2d_nhwc",
+    "tile_conv2d",
+    "gather_tiles",
+    "apply_epilogue",
+    "scatter_tiles",
+    "scatter_tiles_box",
+    "scatter_gather_tiles",
+    "scatter_with_block_residual_box",
+    "materialize_tiles",
+    "calibrate_residual",
+]
