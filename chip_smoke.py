@@ -12,13 +12,24 @@ Phases (any failure raises and the script exits non-zero):
             main path's shapes and at SD shapes (TF32 off for matmuls and
             convs, so the plain versions are true fp32), and times the
             kernel, the plain version and one library call that computes
-            the same function (a yardstick only; the port never calls it);
+            the same function (a yardstick only; the port never calls it):
+            ``ms`` is CUDA-event time over back-to-back calls (what a
+            caller feels: the host's enqueue bounds it when it is slower
+            than the device); ``device_ms`` is the kernels' busy time per
+            call in a torch.profiler trace.
+            The attention kernel splits the key range when the query
+            blocks leave SMs idle (split-KV) and the combine kernel merges
+            the splits: each shape prints its split count S; at the main
+            path's shape (a) the kernels also run with S forced to 1 and
+            to the most tiles, and the split path is held against its
+            plain version (partials per key range, plain combine);
 4. slice  — the church256 DDPM SDEdit path at full width through
             ``sige_torch.runners.DiffusionRunner(layout="tiles")``: the
             sparse pass on the original image equals the full pass
             (< 1e-4); a tiny U-Net on the card agrees with the same U-Net
             on the CPU; ``generate`` runs 5 DDIM twin steps with the launch
-            counters reset just before and read just after; ``profile``
+            counters (attention and combine kernels) reset just before and
+            read just after, each held to its expected count; ``profile``
             times dense and sparse forwards.
 
 The line before the last is the ``kernels`` JSON; the last line is the
@@ -39,6 +50,7 @@ PEAK_BYTES_PER_S = 3.35e12
 TOL = 1e-4
 FLASH_SOURCE = "sige_torch/csrc/flash_attn.cu"
 FLASH_REPLACES = "sige_tpu/ops/flash.py:48"  # _fwd_kernel (pallas_call :99)
+FLASH_KERNELS = ["flash_fwd_f32", "flash_combine_f32"]
 
 
 def card_line() -> str:
@@ -49,8 +61,41 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def _dev_time(e):
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+
+
+def device_ms(fn, iters: int = 20, tries: int = 3):
+    """Device kernel time of one call of ``fn``: the summed busy time of
+    its kernels in a torch.profiler trace of ``iters`` calls, per call;
+    returns (total ms, {kernel name: ms}). Now and then a trace holds no
+    device activity at all; it is then taken again, up to ``tries``
+    times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {e.key: _dev_time(e) / 1e3 / iters
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and _dev_time(e) > 0}
+        if per:
+            return sum(per.values()), per
+    raise AssertionError(f"the profiler recorded no device time in {tries} "
+                         f"traces")
+
+
 def time_ms(fn, warmup: int = 5, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    """Mean time per call of ``fn`` over ``iters`` back-to-back calls
+    between two CUDA events."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -105,10 +150,12 @@ def phase_kernels(flash):
     shapes.append(("e: masked stale/fresh K/V (SD)", 2, 1024, Ms + Mf, 8, 40,
                    bias_e))
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for label, B, N, M, H, D, bias in shapes:
         q, k, v = randn(B, N, H, D), randn(B, M, H, D), randn(B, M, H, D)
         scale = D ** -0.5
+        splits = flash._num_splits(B * H, N, M, D, sms)
         out = flash.flash_mha(q, k, v, scale, bias)
         torch.cuda.synchronize()
         ref = flash.flash_mha_plain(q, k, v, scale, bias)
@@ -116,20 +163,74 @@ def phase_kernels(flash):
         if not (err <= TOL):
             raise AssertionError(f"{label}: kernel vs plain max err {err:.3e}")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms = time_ms(lambda: flash.flash_mha(q, k, v, scale, bias))
-        plain_ms = time_ms(lambda: flash.flash_mha_plain(q, k, v, scale, bias))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=bias, scale=scale))
+        fns = {"kernel": lambda: flash.flash_mha(q, k, v, scale, bias),
+               "plain": lambda: flash.flash_mha_plain(q, k, v, scale, bias),
+               "library": lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=bias, scale=scale)}
+        call = {n: time_ms(fn) for n, fn in fns.items()}
+        dev = {n: device_ms(fn)[0] for n, fn in fns.items()}
         bound_ms, bound_by = attention_bound(B, N, M, H, D, bias is not None)
         rows.append({"shape": label, "B": B, "N": N, "M": M, "H": H, "D": D,
-                     "bias": bias is not None, "max_err": err,
-                     "kernel_ms": ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by})
-        print(f"  {label}: max err {err:.3e}  kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bound_ms:.5f} "
-              f"ms ({bound_by})", flush=True)
+                     "bias": bias is not None, "splits": splits,
+                     "max_err": err, "kernel_ms": call["kernel"],
+                     "plain_ms": call["plain"], "library_ms": call["library"],
+                     "kernel_device_ms": dev["kernel"],
+                     "plain_device_ms": dev["plain"],
+                     "library_device_ms": dev["library"],
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"  {label}: S={splits}  max err {err:.3e}  ms (events): "
+              f"kernel {call['kernel']:.4f}  plain {call['plain']:.4f}  sdpa "
+              f"{call['library']:.4f}  bound {bound_ms:.5f} ({bound_by}); "
+              f"device ms (profiler): kernel {dev['kernel']:.4f}  plain "
+              f"{dev['plain']:.4f}  sdpa {dev['library']:.4f}", flush=True)
     return rows
+
+
+def phase_forced_splits(flash):
+    """Shape (a) through the wrapper's internal launch with S forced to 1,
+    to the wrapper's choice and to one split per tile, each held against
+    the plain version and, split, against the plain split path; the
+    combine kernel's own device time is read from the chosen S's trace."""
+    B, N, M, H, D = 1, 256, 256, 1, 512
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda")
+               for n in (N, M, M))
+    scale = D ** -0.5
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = flash._num_splits(B * H, N, M, D, sms)
+    tiles = -(-M // flash.BLOCK_K)
+    ref = flash.flash_mha_plain(q, k, v, scale)
+    forced = {}
+    for splits in sorted({1, chosen, tiles}):
+        out = flash._launch(q, k, v, scale, None, splits)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        split_ref = flash.flash_mha_plain_split(q, k, v, scale, None, splits)
+        split_err = (out - split_ref).abs().max().item()
+        if not (err <= TOL and split_err <= TOL):
+            raise AssertionError(f"(a) with S={splits}: max err {err:.3e} "
+                                 f"vs plain, {split_err:.3e} vs plain split")
+        ms, per = device_ms(
+            lambda: flash._launch(q, k, v, scale, None, splits))
+        forced[splits] = {"max_err": err, "max_err_vs_plain_split": split_err,
+                          "device_ms": ms, "by_kernel": per}
+        print(f"  (a) S={splits}{' (chosen)' if splits == chosen else ''}: "
+              f"max err {err:.3e} (plain), {split_err:.3e} (plain split)  "
+              f"device {ms:.4f} ms: " + ", ".join(
+                  f"{name.split('(')[0][-40:]} {t:.4f}"
+                  for name, t in per.items()), flush=True)
+    ms = sum(t for name, t in forced[chosen]["by_kernel"].items()
+             if "flash_combine_f32" in name)
+    parts = flash.flash_partials_plain(q, k, v, scale, None, chosen)
+    plain_ms = device_ms(lambda: flash.flash_combine_plain(*parts))[0]
+    # bytes: partials read once, output written once
+    nbytes = 4 * (chosen * B * H * N * (D + 2) + B * N * H * D)
+    combine = {"splits": chosen, "device_ms": ms, "plain_device_ms": plain_ms,
+               "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+    print(f"  combine kernel at (a), S={chosen}: device ms {ms:.4f}  plain "
+          f"{plain_ms:.4f}  bound {combine['bound_ms']:.5f} (bytes)",
+          flush=True)
+    return forced, combine
 
 
 def edit_pair(R: int):
@@ -171,6 +272,8 @@ def phase_small_reference():
 
 
 def phase_slice(flash):
+    """The main path at full width; returns the launch counts of
+    ``generate`` and the dense and sparse ``profile`` results."""
     from sige_torch.models.ddpm import DDPMUNetConfig
     from sige_torch.runners import DiffusionRunConfig, DiffusionRunner
 
@@ -205,20 +308,36 @@ def phase_slice(flash):
     # the main path, through the runner's own entry point: reset the
     # counters just before, read them just after
     flash.flash_mha.launches = 0
+    flash.flash_mha.combine_launches = 0
     t0 = time.perf_counter()
     out = runner.generate(original, edited, seed=0)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = flash.flash_mha.launches
-    per_forward = 6  # 5 attention blocks at 16 px + 1 mid block at 8 px
-    want = per_forward * (1 + 2 * steps)  # preprocess's full pass + twins
+    combines = flash.flash_mha.combine_launches
+    # attention calls per forward: 5 blocks at 16 px + 1 mid block at 8 px
+    calls = {256: 5, 64: 1}  # sequence length -> calls; one head
+    D = cfg.ch * cfg.ch_mult[-1]  # 512 at both levels
+    per_forward = sum(calls.values())
+    forwards = 1 + 2 * steps  # preprocess's full pass + twin steps
+    want = per_forward * forwards
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want_combines = forwards * sum(
+        n for seq, n in calls.items()
+        if flash._num_splits(1, seq, seq, D, sms) > 1)
     print(f"  generate: {steps} twin steps in {gen_s:.2f} s; flash launches "
           f"{launches} = {per_forward} (preprocess full pass) + "
           f"{(launches - per_forward) / steps:g} per twin step x {steps}",
           flush=True)
+    print(f"  generate: combine launches {combines} (one per attention "
+          f"call whose key range is split; expected {want_combines})",
+          flush=True)
     if launches != want:
         raise AssertionError(f"flash launches {launches}, expected {want} "
                              f"(12 per twin step)")
+    if combines != want_combines:
+        raise AssertionError(f"combine launches {combines}, expected "
+                             f"{want_combines}")
     if out.shape != (R, R, 3) or not np.isfinite(out).all():
         raise AssertionError(f"generate output {out.shape}, finite "
                              f"{np.isfinite(out).all()}")
@@ -231,7 +350,7 @@ def phase_slice(flash):
               f"(p90 {p['latency_p90_ms']:.3f}, n={p['iters']}), "
               f"{p['macs_g']:.2f} GMACs, peak {p['peak_mb']:.1f} MB",
               flush=True)
-    return launches, prof
+    return launches, combines, prof
 
 
 def main() -> int:
@@ -257,10 +376,12 @@ def main() -> int:
 
     print("kernels:", flush=True)
     rows = phase_kernels(flash)
+    print("forced splits at (a):", flush=True)
+    forced, combine = phase_forced_splits(flash)
     print("small reference:", flush=True)
     phase_small_reference()
     print("slice (church256, full width, layout=tiles):", flush=True)
-    launches, prof = phase_slice(flash)
+    launches, combines, prof = phase_slice(flash)
 
     main_row = rows[0]  # shape (a): the main path's 16 px call
     kernels = [{
@@ -269,14 +390,25 @@ def main() -> int:
         "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "tpu_kernel": "sige_tpu/ops/flash.py:_fwd_kernel (flash_mha_bhsd)",
+        "kernels": FLASH_KERNELS,
         "launches": launches,
-        "max_abs_err": max(r["max_err"] for r in rows),
+        "combine_launches": combines,
+        "splits": main_row["splits"],
+        "max_abs_err": max([r["max_err"] for r in rows]
+                           + [f["max_err"] for f in forced.values()]
+                           + [f["max_err_vs_plain_split"]
+                              for f in forced.values()]),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "device_ms": main_row["kernel_device_ms"],
+        "plain_device_ms": main_row["plain_device_ms"],
+        "library_device_ms": main_row["library_device_ms"],
         "shapes": rows,
+        "forced_splits_a": {str(s): f for s, f in forced.items()},
+        "combine_a": combine,
     }]
     print(json.dumps({"slice": {m: prof[m] for m in prof},
                       "card": card}), flush=True)

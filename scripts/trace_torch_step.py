@@ -16,7 +16,9 @@ prints, as one JSON line:
     forward in which no kernel runs (the profiler's own host overhead
     inflates its traced wall time, ``traced_wall_ms_per_forward``);
   * ``launches``: kernels launched per forward; ``top``: the kernels with
-    the most device time per forward, and the flash kernel's share.
+    the most device time per forward; ``flash_ms_per_forward`` and
+    ``flash_launches_per_forward``: every kernel of
+    ``sige_torch/csrc/flash_attn.cu`` (attention and split combine).
 
 TF32 is off for matmuls and cuDNN convs (the port's fp32 contract). GPU
 only: exits non-zero without a CUDA device.
@@ -31,15 +33,11 @@ import time
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import card_line, edit_pair  # noqa: E402
+from chip_smoke import (FLASH_KERNELS, _dev_time, card_line,  # noqa: E402
+                        edit_pair)
 
 ITERS = 20  # forwards per measurement
 TOP = 12    # kernels listed per mode
-
-
-def _dev_time(e):
-    return getattr(e, "self_device_time_total", None) or getattr(
-        e, "self_cuda_time_total", 0.0)
 
 
 def measure(fwd, x, t, iters=ITERS, top=TOP):
@@ -71,7 +69,8 @@ def measure(fwd, x, t, iters=ITERS, top=TOP):
                and _dev_time(e) > 0]
     busy_ms = sum(_dev_time(e) for e in kernels) / 1e3 / iters
     kernels.sort(key=_dev_time, reverse=True)
-    flash_ms = sum(_dev_time(e) for e in kernels if "flash_fwd_f32" in e.key)
+    flash = [e for e in kernels if any(n in e.key for n in FLASH_KERNELS)]
+    flash_ms = sum(_dev_time(e) for e in flash)
     device_ms = statistics.median(dev)
     return {
         "device_ms": device_ms,
@@ -81,6 +80,7 @@ def measure(fwd, x, t, iters=ITERS, top=TOP):
         "idle_share": max(0.0, 1.0 - busy_ms / device_ms),
         "launches_per_forward": sum(e.count for e in kernels) / iters,
         "flash_ms_per_forward": flash_ms / 1e3 / iters,
+        "flash_launches_per_forward": sum(e.count for e in flash) / iters,
         "top": [{"kernel": e.key[:90], "ms_per_forward":
                  _dev_time(e) / 1e3 / iters,
                  "calls_per_forward": e.count / iters}

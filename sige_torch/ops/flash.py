@@ -1,25 +1,28 @@
-"""Flash attention forward: the hand-written Hopper kernel, its plain
-PyTorch twin, and the wrapper that picks between them by device.
+"""Flash attention forward: the hand-written Hopper kernels, their plain
+PyTorch twins, and the wrapper that picks between them by device.
 
-The kernel (``sige_torch/csrc/flash_attn.cu``) replaces the Pallas TPU
+The kernels (``sige_torch/csrc/flash_attn.cu``) replace the Pallas TPU
 kernel ``sige_tpu/ops/flash.py:_fwd_kernel`` (launched by
-``flash_mha_bhsd``). It computes
+``flash_mha_bhsd``). Together they compute
 
     out = softmax(q . k^T * scale + bias[M]) . v
 
 per (batch, head), online softmax with fp32 running max and sum, fp32
-data. What bounds it on the H100 and how the design addresses that is in
-the header of the CUDA source: at DDPM's single-head D = 512 shapes the
-fp32 FMA rate bounds the work, and with one (batch, head) the grid
-covers few SMs; the logits never leave shared memory, tiles are sized
-for the 227 KB of shared memory per block, and ragged N and M are masked
-in the kernel, so no shape gate or padding exists.
+data. ``flash_fwd_f32`` walks the key range in 32-key tiles staged with
+``cp.async``; when the grid of query blocks is smaller than the card's
+SM count, :func:`_num_splits` cuts the key range into ``splits`` runs of
+whole tiles (split-KV), each block writes an unnormalised partial, and
+``flash_combine_f32`` merges the partials. What bounds the kernels on
+the H100 and how the design addresses that is in the header of the CUDA
+source.
 
 The shared library is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/sige_torch/`` (beside the package) on first use and loaded with
-ctypes. ``flash_mha`` on a CPU tensor runs :func:`flash_mha_plain`; on a
-CUDA tensor it launches the kernel or raises. ``flash_mha.launches``
-counts kernel launches.
+ctypes. ``flash_mha`` on CPU tensors runs :func:`flash_mha_plain`; on
+CUDA tensors it launches the kernels or raises. ``flash_mha.launches``
+counts launches of the attention kernel (one per call),
+``flash_mha.combine_launches`` those of the combine kernel (one per call
+whose key range is split).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -39,6 +43,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sige_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_HEAD_DIM = 512
+BLOCK_K = 32  # keys per tile: must match kBK in the CUDA source
 
 
 class _Library:
@@ -78,11 +83,11 @@ class _Library:
         return out
 
     def load(self):
+        """Build if needed; returns the C entry."""
         if self.fn is None:
             self.path = self.build()
-            lib = ctypes.CDLL(str(self.path))
-            fn = lib.sige_flash_attn_f32
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            fn = ctypes.CDLL(str(self.path)).sige_flash_attn_f32
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                            + [ctypes.c_float] + [ctypes.c_int64] * 12
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -103,6 +108,75 @@ def flash_mha_plain(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
         s = s + bias.to(s.dtype)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhnm,bmhd->bnhd", p, vh)
+
+
+def block_q(D: int) -> int:
+    """Query rows per block of the attention kernel (must match
+    ``block_q`` in the CUDA source): wider blocks for narrower heads."""
+    return 64 if D <= 64 else (32 if D <= 128 else 16)
+
+
+def _num_splits(G: int, N: int, M: int, D: int, sms: int) -> int:
+    """How many key ranges the kernel splits M into: enough blocks to
+    cover the SMs when the query blocks alone do not, never more ranges
+    than 32-key tiles (so none is empty), 1 when the grid fills the card."""
+    blocks = -(-N // block_q(D)) * G
+    if blocks >= sms:
+        return 1
+    return min(-(-M // BLOCK_K), -(-sms // blocks))
+
+
+def _split_bounds(M: int, splits: int):
+    """[(first key, end key)] of each split: whole 32-key tiles, split s
+    taking tiles [s*T//splits, (s+1)*T//splits) as the kernel does."""
+    tiles = -(-M // BLOCK_K)
+    if not 1 <= splits <= tiles:
+        raise ValueError(f"splits must be in [1, {tiles}] for M = {M}, "
+                         f"got {splits}")
+    return [(s * tiles // splits * BLOCK_K,
+             min((s + 1) * tiles // splits * BLOCK_K, M))
+            for s in range(splits)]
+
+
+def flash_combine_plain(o_part: torch.Tensor, m_part: torch.Tensor,
+                        l_part: torch.Tensor) -> torch.Tensor:
+    """Plain version of the combine kernel: o_part [S, B, H, N, D]
+    unnormalised partial outputs, m_part / l_part [S, B, H, N] their row
+    max and sum -> [B, N, H, D] =
+    sum_s e^(m_s - m*) O_s / sum_s e^(m_s - m*) l_s, m* = max_s m_s."""
+    w = torch.exp(m_part - m_part.amax(dim=0))
+    out = (w[..., None] * o_part).sum(0) / (w * l_part).sum(0)[..., None]
+    return out.permute(0, 2, 1, 3)
+
+
+def flash_partials_plain(qh: torch.Tensor, kh: torch.Tensor,
+                         vh: torch.Tensor, scale: float,
+                         bias: Optional[torch.Tensor], splits: int):
+    """Each split's unnormalised partial output, row max and row sum, in
+    the layout the attention kernel writes them ([S, B, H, N, D] and
+    [S, B, H, N])."""
+    s = torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale
+    if bias is not None:
+        s = s + bias.to(s.dtype)
+    o, m, l = [], [], []
+    for kb, ke in _split_bounds(kh.shape[1], splits):
+        ss = s[..., kb:ke]
+        mx = ss.amax(dim=-1)
+        p = torch.exp(ss - mx[..., None])
+        o.append(torch.einsum("bhnm,bmhd->bhnd", p, vh[:, kb:ke]))
+        m.append(mx)
+        l.append(p.sum(dim=-1))
+    return torch.stack(o), torch.stack(m), torch.stack(l)
+
+
+def flash_mha_plain_split(qh: torch.Tensor, kh: torch.Tensor,
+                          vh: torch.Tensor, scale: float,
+                          bias: Optional[torch.Tensor] = None,
+                          splits: int = 1) -> torch.Tensor:
+    """Plain version of the split path: partials per key range, then
+    :func:`flash_combine_plain`. Equals :func:`flash_mha_plain`."""
+    return flash_combine_plain(
+        *flash_partials_plain(qh, kh, vh, scale, bias, splits))
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
@@ -136,31 +210,65 @@ def _check(qh, kh, vh, bias) -> Tuple[int, int, int, int, int]:
     return B, N, H, D, M
 
 
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+            scale: float, bias: Optional[torch.Tensor],
+            splits: Optional[int] = None) -> torch.Tensor:
+    """Launch the kernels on CUDA tensors with ``splits`` key ranges
+    (None: :func:`_num_splits`'s choice). With ``splits`` > 1 the
+    attention kernel writes its partials into scratch allocated with the
+    output, and the combine kernel merges them into the output."""
+    B, N, H, D, M = _check(qh, kh, vh, bias)
+    index = qh.device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(qh, kh, vh, scale, bias, splits)
+    tiles = -(-M // BLOCK_K)
+    if splits is None:
+        splits = _num_splits(B * H, N, M, D, _sm_count(index))
+    elif not 1 <= splits <= tiles:
+        raise ValueError(f"splits must be in [1, {tiles}] for M = {M}, "
+                         f"got {splits}")
+    fn = LIBRARY.fn or LIBRARY.load()
+    q, k, v = _kernel_ready(qh), _kernel_ready(kh), _kernel_ready(vh)
+    b = None if bias is None else bias.contiguous()
+    # one allocation: out [B, N, H, D], then with splits > 1 the partials
+    # o_part [S, B, H, N, D], m_part and l_part [S, B, H, N]
+    size = B * N * H * D
+    extra = 0 if splits == 1 else splits * B * H * N * (D + 2)
+    buf = torch.empty(size + extra, dtype=torch.float32, device=qh.device)
+    out = buf[:size].view(B, N, H, D)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if b is None else b.data_ptr(), buf.data_ptr(),
+             None if splits == 1 else buf.data_ptr() + 4 * size,
+             B, H, N, M, D, splits, float(scale),
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *out.stride()[:3], torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
+    flash_mha.launches += 1
+    if splits > 1:
+        flash_mha.combine_launches += 1
+    return out
+
+
 def flash_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
               scale: float, bias: Optional[torch.Tensor] = None
               ) -> torch.Tensor:
     """qh [B, N, H, D], kh/vh [B, M, H, D], bias optional [M] fp32.
-    Returns [B, N, H, D]. Runs the kernel on CUDA tensors and the plain
-    version on CPU tensors."""
+    Returns [B, N, H, D]. Runs the kernels on CUDA tensors (split-KV when
+    the query blocks alone leave SMs idle) and the plain version on CPU
+    tensors."""
     if qh.device.type == "cpu":
         return flash_mha_plain(qh, kh, vh, scale, bias)
     if qh.device.type != "cuda":
         raise ValueError(f"flash_mha: unsupported device {qh.device}")
-    B, N, H, D, M = _check(qh, kh, vh, bias)
-    fn = LIBRARY.load()
-    q, k, v = _kernel_ready(qh), _kernel_ready(kh), _kernel_ready(vh)
-    b = None if bias is None else bias.contiguous()
-    out = torch.empty((B, N, H, D), dtype=torch.float32, device=qh.device)
-    with torch.cuda.device(qh.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 None if b is None else b.data_ptr(), out.data_ptr(),
-                 B, H, N, M, D, float(scale),
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3], torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
-    flash_mha.launches += 1
-    return out
+    return _launch(qh, kh, vh, scale, bias)
 
 
 flash_mha.launches = 0
+flash_mha.combine_launches = 0
