@@ -23,14 +23,25 @@ Phases (any failure raises and the script exits non-zero):
             path's shape (a) the kernels also run with S forced to 1 and
             to the most tiles, and the split path is held against its
             plain version (partials per key range, plain combine);
-4. slice  — the church256 DDPM SDEdit path at full width through
-            ``sige_torch.runners.DiffusionRunner(layout="tiles")``: the
+4. small  — a tiny U-Net on the card agrees with the same U-Net on the
+            CPU, in the tile layout and in the window layout with chains;
+5. paths  — the church256 DDPM SDEdit path at full width through
+            ``sige_torch.runners.DiffusionRunner``, three times:
+            * ``main``: the runner's default, ``layout="auto"``, which
+              resolves to the window layout (with chains) on this edit,
+              DDIM eta 0, 5 steps from noise level 500;
+            * ``tiles``: the same with ``layout="tiles"``;
+            * ``dpm_solver``: the main path's layout with DPM-Solver++
+              (configs/church_dpmsolver256-sige.yml: order 2, 5 steps,
+              noise level 500).
+            Each asserts the layout it ran; for the two DDIM paths the
             sparse pass on the original image equals the full pass
-            (< 1e-4); a tiny U-Net on the card agrees with the same U-Net
-            on the CPU; ``generate`` runs 5 DDIM twin steps with the launch
-            counters (attention and combine kernels) reset just before and
-            read just after, each held to its expected count; ``profile``
-            times dense and sparse forwards.
+            (< 1e-4), again after a sparse pass on the edited image (a
+            join that wrote into its cache would show there), and
+            ``profile`` times dense and sparse forwards (median, p90,
+            GMACs, peak MB). ``generate`` runs with the launch counters
+            (attention and combine kernels) set to 0 just before and read
+            just after, each held to its exact expected count.
 
 The line before the last is the ``kernels`` JSON; the last line is the
 device JSON.
@@ -247,7 +258,8 @@ def edit_pair(R: int):
 
 def phase_small_reference():
     """A tiny U-Net on the card against the same U-Net on the CPU (the CPU
-    port is the one the tests hold against sige_tpu)."""
+    port is the one the tests hold against sige_tpu), in the tile layout
+    and in the window layout with chains."""
     from sige_torch.models.ddpm import DDPMUNetConfig
     from sige_torch.runners import DiffusionRunConfig, DiffusionRunner
 
@@ -256,57 +268,86 @@ def phase_small_reference():
                          sparse_resolution_threshold=32)
     rc = DiffusionRunConfig(sampler_type="ddim")
     original, edited = edit_pair(32)
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        runner = DiffusionRunner(cfg, rc, layout="tiles", device=dev, seed=0)
-        x0, x1, _ = runner.preprocess(original, edited)
-        t = torch.full((1,), 17.0, device=dev)
-        outs[dev] = [runner.model.full(x0, t).cpu(),
-                     runner.model.sparse(x1, t).cpu()]
-    err = max((a - b).abs().max().item()
-              for a, b in zip(outs["cpu"], outs["cuda"]))
-    print(f"  tiny U-Net card vs CPU (full, sparse): max err {err:.3e}",
-          flush=True)
-    if not (err <= TOL):
-        raise AssertionError(f"tiny U-Net card vs CPU max err {err:.3e}")
+    for layout in ("tiles", "window"):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            runner = DiffusionRunner(cfg, rc, layout=layout, device=dev,
+                                     seed=0)
+            x0, x1, _ = runner.preprocess(original, edited)
+            if runner.active_layout != layout:
+                raise AssertionError(f"ran {runner.active_layout}, asked "
+                                     f"for {layout}")
+            t = torch.full((1,), 17.0, device=dev)
+            outs[dev] = [runner.model.full(x0, t).cpu(),
+                         runner.model.sparse(x1, t).cpu()]
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(outs["cpu"], outs["cuda"]))
+        print(f"  tiny U-Net card vs CPU, {layout} (full, sparse): max err "
+              f"{err:.3e}", flush=True)
+        if not (err <= TOL):
+            raise AssertionError(f"tiny U-Net card vs CPU ({layout}) max err "
+                                 f"{err:.3e}")
 
 
-def phase_slice(flash):
-    """The main path at full width; returns the launch counts of
-    ``generate`` and the dense and sparse ``profile`` results."""
+STEPS = 5  # sampling steps of every full-width generate
+
+
+def expected_launches(flash, cfg):
+    """Attention and combine launches of one full-width ``generate``:
+    5 attention calls at 16 px + 1 at 8 px per forward, one forward in
+    preprocess plus two per step (DDIM and DPM-Solver alike)."""
+    calls = {256: 5, 64: 1}  # sequence length -> calls; one head
+    D = cfg.ch * cfg.ch_mult[-1]  # 512 at both levels
+    forwards = 1 + 2 * STEPS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    combines = forwards * sum(
+        n for seq, n in calls.items()
+        if flash._num_splits(1, seq, seq, D, sms) > 1)
+    return forwards * sum(calls.values()), combines
+
+
+def phase_path(flash, name, layout, want_layout, rc, profile_iters):
+    """One full-width path through ``DiffusionRunner`` (``layout=None``:
+    the runner's default); returns its launch counts of ``generate`` and,
+    with ``profile_iters``, the dense and sparse ``profile`` results."""
     from sige_torch.models.ddpm import DDPMUNetConfig
-    from sige_torch.runners import DiffusionRunConfig, DiffusionRunner
+    from sige_torch.runners import DiffusionRunner
 
-    steps = 5
     cfg = DDPMUNetConfig()
-    rc = DiffusionRunConfig(sampler_type="ddim", eta=0.0, sample_steps=steps,
-                            noise_level=500)
     t0 = time.perf_counter()
-    runner = DiffusionRunner(cfg, rc, layout="tiles", device="cuda", seed=0)
+    kw = {} if layout is None else {"layout": layout}
+    runner = DiffusionRunner(cfg, rc, device="cuda", seed=0, **kw)
     R = cfg.resolution
     original, edited = edit_pair(R)
     x0, x1, mask = runner.preprocess(original, edited)
     torch.cuda.synchronize()
-    print(f"  runner + preprocess: {time.perf_counter() - t0:.2f} s, edit "
-          f"ratio {runner.last_edit_ratio:.4f}, params "
+    print(f"  [{name}] runner + preprocess: {time.perf_counter() - t0:.2f} s,"
+          f" layout {runner.model.layout!r} ran {runner.active_layout!r}, "
+          f"edit ratio {runner.last_edit_ratio:.4f}, params "
           f"{sum(p.numel() for p in runner.module.parameters()) / 1e6:.1f} M",
           flush=True)
+    if runner.active_layout != want_layout:
+        raise AssertionError(f"{name}: ran {runner.active_layout}, expected "
+                             f"{want_layout}")
 
-    t = torch.zeros((1,), device="cuda")
-    y_full = runner.model.full(x0, t)
-    y_sparse = runner.model.sparse(x0, t)
-    err = (y_sparse - y_full).abs().max().item()
-    print(f"  sparse(x0) vs full(x0): max err {err:.3e}", flush=True)
-    if not (err < TOL):
-        raise AssertionError(f"sparse(x0) != full(x0): {err:.3e}")
-    y_edit = runner.model.sparse(x1, t)
-    y_dense = runner.model.dense(x1, t)
-    print(f"  sparse(x1) vs dense(x1): max err "
-          f"{(y_edit - y_dense).abs().max().item():.3e} (approximate by "
-          f"design: folded norms keep the original's statistics)", flush=True)
+    if profile_iters:
+        t = torch.zeros((1,), device="cuda")
+        y_full = runner.model.full(x0, t)
+        errs = [(runner.model.sparse(x0, t) - y_full).abs().max().item()]
+        y_edit = runner.model.sparse(x1, t)
+        errs.append((runner.model.sparse(x0, t) - y_full).abs().max().item())
+        print(f"  [{name}] sparse(x0) vs full(x0): max err {errs[0]:.3e}; "
+              f"after a sparse(x1): {errs[1]:.3e}", flush=True)
+        if not all(e < TOL for e in errs):
+            raise AssertionError(f"{name}: sparse(x0) != full(x0): {errs}")
+        y_dense = runner.model.dense(x1, t)
+        print(f"  [{name}] sparse(x1) vs dense(x1): max err "
+              f"{(y_edit - y_dense).abs().max().item():.3e} (approximate by "
+              f"design: folded norms keep the original's statistics)",
+              flush=True)
 
-    # the main path, through the runner's own entry point: reset the
-    # counters just before, read them just after
+    # the path, through the runner's own entry point: counters set to 0
+    # just before, read just after
     flash.flash_mha.launches = 0
     flash.flash_mha.combine_launches = 0
     t0 = time.perf_counter()
@@ -315,42 +356,36 @@ def phase_slice(flash):
     gen_s = time.perf_counter() - t0
     launches = flash.flash_mha.launches
     combines = flash.flash_mha.combine_launches
-    # attention calls per forward: 5 blocks at 16 px + 1 mid block at 8 px
-    calls = {256: 5, 64: 1}  # sequence length -> calls; one head
-    D = cfg.ch * cfg.ch_mult[-1]  # 512 at both levels
-    per_forward = sum(calls.values())
-    forwards = 1 + 2 * steps  # preprocess's full pass + twin steps
-    want = per_forward * forwards
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    want_combines = forwards * sum(
-        n for seq, n in calls.items()
-        if flash._num_splits(1, seq, seq, D, sms) > 1)
-    print(f"  generate: {steps} twin steps in {gen_s:.2f} s; flash launches "
-          f"{launches} = {per_forward} (preprocess full pass) + "
-          f"{(launches - per_forward) / steps:g} per twin step x {steps}",
-          flush=True)
-    print(f"  generate: combine launches {combines} (one per attention "
-          f"call whose key range is split; expected {want_combines})",
-          flush=True)
+    want, want_combines = expected_launches(flash, cfg)
+    print(f"  [{name}] generate: {STEPS} steps in {gen_s:.2f} s; flash "
+          f"launches {launches} (expected {want}), combine launches "
+          f"{combines} (one per attention call whose key range is split; "
+          f"expected {want_combines})", flush=True)
     if launches != want:
-        raise AssertionError(f"flash launches {launches}, expected {want} "
-                             f"(12 per twin step)")
+        raise AssertionError(f"{name}: flash launches {launches}, expected "
+                             f"{want}")
     if combines != want_combines:
-        raise AssertionError(f"combine launches {combines}, expected "
-                             f"{want_combines}")
+        raise AssertionError(f"{name}: combine launches {combines}, "
+                             f"expected {want_combines}")
     if out.shape != (R, R, 3) or not np.isfinite(out).all():
-        raise AssertionError(f"generate output {out.shape}, finite "
+        raise AssertionError(f"{name}: generate output {out.shape}, finite "
                              f"{np.isfinite(out).all()}")
 
     prof = {}
-    for mode in ("dense", "sparse"):
-        prof[mode] = runner.profile(original, edited, mode=mode)
+    for mode in ("dense", "sparse") if profile_iters else ():
+        prof[mode] = runner.profile(original, edited, mode=mode,
+                                    iters=profile_iters)
         p = prof[mode]
-        print(f"  profile {mode}: {p['latency_ms']:.3f} ms median "
+        print(f"  [{name}] profile {mode}: {p['latency_ms']:.3f} ms median "
               f"(p90 {p['latency_p90_ms']:.3f}, n={p['iters']}), "
               f"{p['macs_g']:.2f} GMACs, peak {p['peak_mb']:.1f} MB",
               flush=True)
-    return launches, combines, prof
+    result = {"layout": runner.active_layout, "launches": launches,
+              "combine_launches": combines, "generate_s": gen_s,
+              "profile": prof}
+    del runner
+    torch.cuda.empty_cache()
+    return result
 
 
 def main() -> int:
@@ -380,8 +415,20 @@ def main() -> int:
     forced, combine = phase_forced_splits(flash)
     print("small reference:", flush=True)
     phase_small_reference()
-    print("slice (church256, full width, layout=tiles):", flush=True)
-    launches, combines, prof = phase_slice(flash)
+    from sige_torch.runners import DiffusionRunConfig
+
+    ddim = DiffusionRunConfig(sampler_type="ddim", eta=0.0,
+                              sample_steps=STEPS, noise_level=500)
+    dpm = DiffusionRunConfig(sampler_type="dpm_solver",
+                             algorithm_type="dpmsolver++", order=2,
+                             solver_type="dpmsolver", lower_order_final=True,
+                             sample_steps=STEPS, noise_level=500)
+    print("paths (church256, full width):", flush=True)
+    paths = {
+        "main": phase_path(flash, "main", None, "window", ddim, 100),
+        "tiles": phase_path(flash, "tiles", "tiles", "tiles", ddim, 100),
+        "dpm_solver": phase_path(flash, "dpm_solver", None, "window", dpm, 0),
+    }
 
     main_row = rows[0]  # shape (a): the main path's 16 px call
     kernels = [{
@@ -391,8 +438,11 @@ def main() -> int:
         "replaces": FLASH_REPLACES,
         "tpu_kernel": "sige_tpu/ops/flash.py:_fwd_kernel (flash_mha_bhsd)",
         "kernels": FLASH_KERNELS,
-        "launches": launches,
-        "combine_launches": combines,
+        "launches": paths["main"]["launches"],
+        "combine_launches": paths["main"]["combine_launches"],
+        "launches_by_path": {n: p["launches"] for n, p in paths.items()},
+        "combine_launches_by_path": {n: p["combine_launches"]
+                                     for n, p in paths.items()},
         "splits": main_row["splits"],
         "max_abs_err": max([r["max_err"] for r in rows]
                            + [f["max_err"] for f in forced.values()]
@@ -410,8 +460,7 @@ def main() -> int:
         "forced_splits_a": {str(s): f for s, f in forced.items()},
         "combine_a": combine,
     }]
-    print(json.dumps({"slice": {m: prof[m] for m in prof},
-                      "card": card}), flush=True)
+    print(json.dumps({"paths": paths, "card": card}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Where the time of one church256 DDPM forward goes, on the GPU, in the
-PyTorch port (sige_torch, tile layout).
+PyTorch port (sige_torch), for each layout asked for.
 
-    python3 scripts/trace_torch_step.py
+    python3 scripts/trace_torch_step.py [--layout tiles window auto]
 
-For the dense and the sparse forward of the full-width U-Net (random
-weights from seed 0, the 1.2% square edit of ``chip_smoke.py``) it
-prints, as one JSON line:
+For each layout in turn (default: ``tiles window window tiles``, one
+process, so that drift on the host shows as a difference between the two
+runs of one layout) and for the dense and the sparse forward of the
+full-width U-Net (random weights from seed 0, the 1.2% square edit of
+``chip_smoke.py``) it prints, as one JSON line (``runs``, in order):
 
   * ``device_ms``: median time between two CUDA events around a forward;
   * ``host_ms``: median host time to enqueue a forward (no sync) — when it
@@ -18,12 +20,17 @@ prints, as one JSON line:
   * ``launches``: kernels launched per forward; ``top``: the kernels with
     the most device time per forward; ``flash_ms_per_forward`` and
     ``flash_launches_per_forward``: every kernel of
-    ``sige_torch/csrc/flash_attn.cu`` (attention and split combine).
+    ``sige_torch/csrc/flash_attn.cu`` (attention and split combine);
+  * ``macs_g``: the forward's analytic GMACs; ``peak_mb``: the peak device
+    memory allocated by one forward (params and caches resident);
+  * per run, ``layout`` as asked and ``active_layout``, what the planner
+    ran (``auto`` resolves per edit).
 
 TF32 is off for matmuls and cuDNN convs (the port's fp32 contract). GPU
 only: exits non-zero without a CUDA device.
 """
 
+import argparse
 import json
 import os
 import statistics
@@ -38,6 +45,14 @@ from chip_smoke import (FLASH_KERNELS, _dev_time, card_line,  # noqa: E402
 
 ITERS = 20  # forwards per measurement
 TOP = 12    # kernels listed per mode
+
+
+def peak_mb(fwd, x, t) -> float:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd(x, t)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
 
 
 def measure(fwd, x, t, iters=ITERS, top=TOP):
@@ -89,6 +104,11 @@ def measure(fwd, x, t, iters=ITERS, top=TOP):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layout", nargs="+",
+                    default=["tiles", "window", "window", "tiles"],
+                    choices=["tiles", "window", "auto"])
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_torch_step: no CUDA device", file=sys.stderr)
         return 1
@@ -99,15 +119,22 @@ def main():
 
     card = card_line()
     cfg = DDPMUNetConfig()
-    runner = DiffusionRunner(cfg, DiffusionRunConfig(sampler_type="ddim"),
-                             layout="tiles", device="cuda", seed=0)
     original, edited = edit_pair(cfg.resolution)
-    _, x1, _ = runner.preprocess(original, edited)
     t = torch.zeros((1,), device="cuda")
-    out = {"card": card, "iters": ITERS}
-    for mode, fwd in (("dense", runner.model.dense),
-                      ("sparse", runner.model.sparse)):
-        out[mode] = measure(fwd, x1, t)
+    out = {"card": card, "iters": ITERS, "runs": []}
+    for layout in args.layout:
+        runner = DiffusionRunner(cfg, DiffusionRunConfig(sampler_type="ddim"),
+                                 layout=layout, device="cuda", seed=0)
+        _, x1, _ = runner.preprocess(original, edited)
+        res = {"layout": layout, "active_layout": runner.active_layout}
+        for mode, fwd in (("dense", runner.model.dense),
+                          ("sparse", runner.model.sparse)):
+            res[mode] = measure(fwd, x1, t)
+            res[mode]["macs_g"] = runner.count_macs(x1, mode) / 1e9
+            res[mode]["peak_mb"] = peak_mb(fwd, x1, t)
+        out["runs"].append(res)
+        del runner
+        torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
 

@@ -7,8 +7,9 @@ it, nor JAX. Activations are NHWC at module boundaries, as in
 ``device="cpu"``; the attention kernel is hand-written CUDA for Hopper
 (``csrc/flash_attn.cu``), built with ``nvcc`` on first use.
 
-This slice ports the DDPM church256 SDEdit path in the tile layout:
-``sige_torch.runners.DiffusionRunner``.
+It runs the DDPM church256 SDEdit path in the tile and window layouts
+(``layout="auto"`` picks per edit) with the DDPM, DDIM and DPM-Solver
+samplers: ``sige_torch.runners.DiffusionRunner``.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
-"""DDPM U-Net (Ho et al. architecture) with SIGE sparse wiring, tile
-layout — the port of ``sige_tpu.models.ddpm.unet``.
+"""DDPM U-Net (Ho et al. architecture) with SIGE sparse wiring — the port
+of ``sige_tpu.models.ddpm.unet``.
 
 One module serves three execution modes through :class:`SIGECtx`:
 ``dense`` (the vanilla baseline), ``full`` (dense + cache/affine
@@ -21,7 +21,11 @@ reference's ``SIGEFusedUNet``
     order;
   * Downsample pads (0,1,0,1) asymmetrically in full/dense mode only; the
     sparse path relies on gather offset 0
-    (reference: sige_fused_unet.py:243-246).
+    (reference: sige_fused_unet.py:243-246);
+  * in the window layout with ``window_chain``, resblocks, skip joins,
+    resamples, the stem and the tail thread (window, cache) state
+    (:class:`~sige_torch.nn.module.WindowState`) and full maps
+    materialize only at chain breaks (attention, the non-chain paths).
 
 Activations are NHWC; module names follow ``sige_tpu``'s flax names
 (``down_blocks_0_1`` there is ``down_blocks.0.1`` here), so the weight
@@ -42,17 +46,31 @@ from torch import nn
 
 from ...nn.module import (Gather, Scatter, ScatterGather,
                           ScatterWithBlockResidual, SIGECtx, SIGEConv2d,
-                          SIGEModule, add_dense_macs, add_macs)
+                          SIGEModule, WindowState, add_dense_macs, add_macs,
+                          chain_rel)
 from ...nn.norm import group_norm_with_affine
 from ...ops.attention import mha
+from ...ops.window import (window_chain_extend, window_chain_extend_up2,
+                           window_epilogue, window_gather, window_slice)
+
+
+def _to_map(x):
+    """Materialize a chain state at a chain break."""
+    return x.to_map() if isinstance(x, WindowState) else x
+
+
+def _up2(x):
+    """Nearest 2x upsample of NHWC ``x`` in one copy."""
+    B, H, W, C = x.shape
+    return x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(
+        B, 2 * H, 2 * W, C)
 
 
 @dataclasses.dataclass(frozen=True)
 class DDPMUNetConfig:
     """Architecture config (church256 defaults; reference:
     diffusion/configs/church_ddpm256-sige.yml). The fields and defaults
-    are ``sige_tpu``'s; ``window_chain`` is read by the window layout,
-    which this port runs in a later slice."""
+    are ``sige_tpu``'s."""
 
     ch: int = 128
     ch_mult: Tuple[int, ...] = (1, 1, 2, 2, 4, 4)
@@ -66,6 +84,9 @@ class DDPMUNetConfig:
     block_size_normal: Optional[int] = 6
     block_size_instance: Optional[int] = 4
     sparse_resolution_threshold: int = 64
+    #: window-layout chains: thread (window, cache) state through
+    #: resblocks, skip concatenations and upsamples (full maps only at
+    #: attention, downsamples without a chain marker and non-chain paths)
     window_chain: bool = True
     #: SIGE-ify the tail (fold norm_out's affine from the full pass,
     #: gather/scatter the conv_out); sparse == full on the original input
@@ -159,6 +180,7 @@ class SIGEResnetBlock(SIGEModule):
         super().__init__()
         cin, cout = in_channels, out_channels
         self.in_channels, self.out_channels = cin, cout
+        self.window_chain = cfg.window_chain
         self.main_sparse = support_sparse and cfg.block_size_normal is not None
         self.shortcut_sparse = (self.main_sparse and cin != cout
                                 and cfg.block_size_instance is not None)
@@ -191,9 +213,16 @@ class SIGEResnetBlock(SIGEModule):
     def forward(self, x, temb, ctx: SIGECtx):
         """``temb``: [B, out_channels] slice of the fused projection (full /
         dense modes; ignored in sparse — it lives in the cached shift).
-        ``x`` may be a tuple (h, skip): the U-Net's skip concatenation."""
+        ``x`` may be a tuple (h, skip): the U-Net's skip concatenation.
+        Dense/full/tile modes concatenate the maps here; the window-chain
+        sparse path extends each part's window and concatenates windows."""
+        if (ctx.mode == "sparse" and self.main_sparse and self.window_chain
+                and self.main_gather.planned_window()):
+            return self._chain_window(x, ctx)
         if isinstance(x, tuple):
-            x = torch.cat(x, dim=-1)
+            x = torch.cat([_to_map(a) for a in x], dim=-1)
+        else:
+            x = _to_map(x)
         h, xs = x, x
         if self.in_channels != self.out_channels:
             if self.shortcut_sparse:
@@ -229,6 +258,60 @@ class SIGEResnetBlock(SIGEModule):
         if self.main_sparse:
             return self.join(h, ctx, residual=xs)
         return h + xs
+
+    # -- window-resident sparse path -------------------------------------
+    @staticmethod
+    def _extend_part(p, meta, edge, rel=None):
+        if isinstance(p, WindowState):
+            return window_chain_extend(p.win, p.org, p.cache, meta, edge,
+                                       rel=rel)
+        return window_gather(p, meta, edge)
+
+    @staticmethod
+    def _part_window(p, org, shape):
+        if isinstance(p, WindowState):
+            return p.win
+        return window_slice(p, org, shape)
+
+    def _chain_window(self, x, ctx: SIGECtx) -> WindowState:
+        g = self.main_gather
+        meta, edge = g.read_window()
+        org = g.window_origin()
+        parts = x if isinstance(x, tuple) else (x,)
+
+        _, s1, b1 = self.norm1(None, ctx)
+        rel = chain_rel(g)
+        ext = [self._extend_part(p, meta, edge, rel) for p in parts]
+        ext = ext[0] if len(ext) == 1 else torch.cat(ext, dim=-1)
+        ext = window_epilogue(ext, None if len(meta) == 2 else edge, s1, b1,
+                              "swish")
+        h = self.conv1(ext, ctx)
+        _, s2, b2 = self.norm2(h, ctx)  # cached affine includes temb shift
+        h = self.sg(h, ctx, scale=s2, shift=b2)
+        h = self.conv2(h, ctx)
+
+        cache = self.join.cache["original"]
+        res = cache.shape[1:3]
+        _, cov = g.read_wsc(res)
+        WH, WW = cov.shape
+        xs = [self._part_window(p, org, (WH, WW)) for p in parts]
+        xs = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
+        y0w = window_slice(cache, org, (WH, WW))
+        m = cov[None, :, :, None]
+        if self.in_channels != self.out_channels:
+            xs = self.nin_shortcut(xs, ctx)
+            if self.shortcut_sparse:
+                # the two-mask block-residual join (as
+                # window_scatter_block_residual and the tile engine):
+                # out = where(m, main + y1, y0) + where(s, short - y1, 0)
+                _, cov_s = self.shortcut_gather.read_wsc(res)
+                y1w = window_slice(self.join.cache["residual"], org, (WH, WW))
+                s = cov_s[None, :, :, None]
+                zero = torch.zeros((), dtype=h.dtype, device=h.device)
+                out = (torch.where(m, h + y1w, y0w)
+                       + torch.where(s, xs - y1w, zero))
+                return WindowState(out, cache, org)
+        return WindowState(torch.where(m, h + xs, y0w), cache, org)
 
 
 class SIGEAttnBlock(SIGEModule):
@@ -266,6 +349,7 @@ class SIGEAttnBlock(SIGEModule):
         return out.reshape(B, H, W, C)
 
     def forward(self, x, ctx: SIGECtx):
+        x = _to_map(x)  # global attention needs the full map (chain break)
         if ctx.mode in ("dense", "full"):
             h = x
             if self.sparse_ok:
@@ -307,6 +391,24 @@ class SIGEDownsample(SIGEModule):
             self.s = Scatter(self.g)
 
     def forward(self, x, ctx: SIGECtx):
+        if (self.sparse_ok and ctx.mode == "sparse"
+                and self.g.planned_window() and "wdn_ok" in self.g.plan_host):
+            # window-resident across the downsample: the stride-2
+            # extraction window spans ~2x the coarse canonical window,
+            # which the planner's nesting makes cover the carried fine
+            # window
+            meta, edge = self.g.read_window()
+            if isinstance(x, WindowState):
+                ext = window_chain_extend(x.win, x.org, x.cache, meta, edge)
+            else:
+                ext = window_gather(x, meta, edge)
+            h = self.conv(ext, ctx)
+            cache = self.s.cache["original"]
+            org, cov = self.g.read_wsc(cache.shape[1:3])
+            y0w = window_slice(cache, org, cov.shape)
+            return WindowState(torch.where(cov[None, :, :, None], h, y0w),
+                               cache, org)
+        x = _to_map(x)
         if self.sparse_ok:
             x = self.g(x, ctx)
         x = self.conv(x, ctx)
@@ -330,7 +432,21 @@ class SIGEUpsample(SIGEModule):
             self.s = Scatter(self.g)
 
     def forward(self, x, ctx: SIGECtx):
-        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        if (isinstance(x, WindowState) and self.sparse_ok
+                and self.g.planned_window() and "wup_ok" in self.g.plan_host):
+            # window-resident across the resample: the doubled carried
+            # window covers the extraction window
+            meta, edge = self.g.read_window()
+            ext = window_chain_extend_up2(
+                _up2(x.win), (2 * x.org[0], 2 * x.org[1]), meta, edge)
+            h = self.conv(ext, ctx)
+            cache = self.s.cache["original"]
+            org = self.g.window_origin()
+            _, cov = self.g.read_wsc(cache.shape[1:3])
+            y0w = window_slice(cache, org, cov.shape)
+            return WindowState(torch.where(cov[None, :, :, None], h, y0w),
+                               cache, org)
+        x = _up2(_to_map(x))
         if self.sparse_ok:
             x = self.g(x, ctx)
         x = self.conv(x, ctx)
@@ -449,6 +565,7 @@ class SIGEFusedUNet(SIGEModule):
 
     def _tail(self, h, ctx: SIGECtx):
         if ctx.mode == "full":
+            h = _to_map(h)
             hn, _, _ = self.norm_out_fold(
                 h, self.norm_out_scale, self.norm_out_bias, ctx)
             self.out_gather(h, ctx)  # records meta
@@ -456,7 +573,13 @@ class SIGEFusedUNet(SIGEModule):
             return self.out_scatter(out, ctx)
         _, sc, sh = self.norm_out_fold(
             None, self.norm_out_scale, self.norm_out_bias, ctx)
-        ext = self.out_gather(h, ctx, scale=sc, shift=sh)
+        if isinstance(h, WindowState) and self.out_gather.planned_window():
+            meta, edge = self.out_gather.read_window()
+            ext = window_chain_extend(h.win, h.org, h.cache, meta, edge, sc,
+                                      sh, "swish",
+                                      rel=chain_rel(self.out_gather))
+        else:
+            ext = self.out_gather(_to_map(h), ctx, scale=sc, shift=sh)
         out = self.conv_out(ext, ctx)
         return self.out_scatter(out, ctx)
 
@@ -481,8 +604,17 @@ class SIGEFusedUNet(SIGEModule):
             return None if temb is None else temb[:, start:start + size]
 
         if self._head_sparse and ctx.mode == "sparse":
-            hs = [self.in_scatter(self.conv_in(self.in_gather(x, ctx), ctx),
-                                  ctx)]
+            hwin = self.conv_in(self.in_gather(x, ctx), ctx)
+            if cfg.window_chain and self.in_gather.planned_window():
+                # start the window chain at the stem (its state also
+                # rides the last skip)
+                cache = self.in_scatter.cache["original"]
+                org, cov = self.in_gather.read_wsc(cache.shape[1:3])
+                y0w = window_slice(cache, org, cov.shape)
+                hs = [WindowState(torch.where(cov[None, :, :, None], hwin,
+                                              y0w), cache, org)]
+            else:
+                hs = [self.in_scatter(hwin, ctx)]
         elif self._head_sparse and ctx.mode == "full":
             self.in_gather(x, ctx)  # records meta
             hs = [self.in_scatter(self.conv_in(x, ctx), ctx)]
@@ -512,6 +644,7 @@ class SIGEFusedUNet(SIGEModule):
 
         if self._tail_sparse and ctx.mode != "dense":
             return self._tail(h, ctx)
+        h = _to_map(h)
         h, _, _ = group_norm_with_affine(
             h, cfg.num_groups, self.norm_out_scale, self.norm_out_bias,
             eps=1e-6)

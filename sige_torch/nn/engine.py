@@ -5,7 +5,7 @@ which method you call, plus ``set_masks`` / ``clear_cache``
 (reference: sige/nn/base.py:95-129) — and the methods of
 ``sige_tpu.nn.engine.SIGEModel``: :meth:`full` and :meth:`sparse` run the
 module eagerly under ``torch.inference_mode``; :meth:`set_masks` plans on
-the host and moves the plan's integer leaves to the device in one copy.
+the host and moves the plan's leaves to the device in one copy.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from .module import Gather, SIGECtx, SIGEModule
-from .planner import build_plan, plan_stats
+from .planner import build_plan, choose_layout, plan_stats
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,7 +34,7 @@ def resolve_device(device=None) -> torch.device:
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it comes with a later slice of the "
-        "port (see ROADMAP.md); this slice runs the fp32 tile layout")
+        "port (see ROADMAP.md); this slice runs fp32 caches, one per module")
 
 
 def _set_path(tree: Dict, path: Tuple[str, ...], value) -> None:
@@ -51,8 +51,9 @@ def _get_path(tree: Mapping, path: Tuple[str, ...]):
 
 def upload_plan(plan: Mapping, device: torch.device) -> Dict:
     """The plan tree with every leaf a tensor on ``device``, moved in ONE
-    copy: the integer leaves are packed into one int64 buffer and split
-    into views on the device."""
+    copy: the leaves are packed into one int64 buffer and split into views
+    on the device; bool leaves (window coverage and edge masks) are cast
+    back to bool there."""
     leaves = []
 
     def walk(node, path):
@@ -69,7 +70,8 @@ def upload_plan(plan: Mapping, device: torch.device) -> Dict:
     out: Dict = {}
     pos = 0
     for path, a in leaves:
-        _set_path(out, path, buf[pos:pos + a.size].view(a.shape))
+        t = buf[pos:pos + a.size].view(a.shape)
+        _set_path(out, path, t.bool() if a.dtype == np.bool_ else t)
         pos += a.size
     return out
 
@@ -82,13 +84,22 @@ class SIGEModel:
         model.init(seed=0)                   # or load_state_dict
         y0 = model.full(x_original)          # refresh caches, record meta
         model.set_masks(mask_pyramid)        # host planning
-        y1 = model.sparse(x_edited)          # sparse tile inference
+        y1 = model.sparse(x_edited)          # sparse inference
+
+    ``layout``: ``"tiles"`` (fixed-capacity tile buffers — scattered
+    multi-region edits), ``"window"`` (one contiguous bucketed crop
+    window per resolution — compact edits; see ops/window.py), or
+    ``"auto"`` (picked per edit by :func:`~.planner.choose_layout`;
+    ``active_layout`` records the choice). ``chain_nesting=False`` when
+    the model runs no window chains (skips the planner's
+    cross-resolution window growth).
     """
 
     def __init__(self, module: nn.Module, bucket_min: int = 2,
-                 layout: str = "tiles", cache_dtype=None, device=None):
-        if layout != "tiles":
-            raise _later(f"layout={layout!r}")
+                 layout: str = "tiles", chain_nesting: bool = True,
+                 cache_dtype=None, device=None):
+        if layout not in ("tiles", "window", "auto"):
+            raise ValueError(f"unknown layout {layout!r}")
         if cache_dtype is not None:
             raise _later("cache_dtype")
         if getattr(getattr(module, "cfg", None), "cache_slots", 1) != 1:
@@ -97,6 +108,8 @@ class SIGEModel:
         self.module = module.to(self.device).eval().requires_grad_(False)
         self.bucket_min = bucket_min
         self.layout = layout
+        self.active_layout = layout
+        self.chain_nesting = chain_nesting
         self.meta: Optional[Dict] = None
         self.plan: Dict = {}
         self.plan_host: Optional[Dict] = None
@@ -145,13 +158,18 @@ class SIGEModel:
         return y
 
     def set_masks(self, masks: Mapping, capacities: Optional[Dict] = None):
-        """Host-side planning: mask pyramid -> indices/source maps, moved
-        to the device and handed to every Gather. ``capacities`` pins
-        buffer and box shapes (see :func:`~.planner.plan_pins`)."""
+        """Host-side planning: mask pyramid -> indices/source maps or
+        windows, moved to the device and handed to every Gather.
+        ``capacities`` pins buffer and box shapes (see
+        :func:`~.planner.plan_pins`)."""
         if self.meta is None:
             raise RuntimeError("run a full() pass before set_masks()")
-        plan = build_plan(self.meta, masks, self.bucket_min,
-                          capacities, layout=self.layout)
+        layout = self.layout
+        if layout == "auto":
+            layout = choose_layout(masks)
+        self.active_layout = layout
+        plan = build_plan(self.meta, masks, self.bucket_min, capacities,
+                          layout=layout, chain_nesting=self.chain_nesting)
         dev = upload_plan(plan, self.device)
         for path, g in self._gathers:
             g.plan_host = _get_path(plan, path)
@@ -161,7 +179,7 @@ class SIGEModel:
 
     @torch.inference_mode()
     def sparse(self, *args, sparse_update: bool = False, **kwargs):
-        """Sparse tile inference on the edited input."""
+        """Sparse inference on the edited input."""
         if sparse_update:
             raise _later("sparse_update")
         if not self.plan:

@@ -1,4 +1,4 @@
-"""The SIGE module protocol as PyTorch modules (tile layout).
+"""The SIGE module protocol as PyTorch modules (tile and window layouts).
 
 The reference implements its engine as stateful torch modules with a
 broadcast mode switch and hidden per-module caches
@@ -13,9 +13,11 @@ This port keeps that shape, with the conventions of ``sige_tpu.nn.module``:
   * **meta** (packed geometry and resolutions) is recorded by each Gather
     in full mode in the packed form the planner reads, and the engine
     gathers it into a tree keyed by module path;
-  * **plans** (tile indices, live counts, source maps) are produced
-    host-side by :mod:`sige_torch.nn.planner`; the engine hands each
-    Gather its entry, and paired scatters read it through the Gather;
+  * **plans** (tile indices, live counts, source maps, or canonical
+    windows and their coverage masks) are produced host-side by
+    :mod:`sige_torch.nn.planner`; the engine hands each Gather its entry,
+    and paired scatters read it through the Gather (the layout of a
+    Gather's entry picks the ops each module runs);
   * **pairing** (a Scatter must use its Gather's indices) is a plain
     reference to the Gather, kept outside the module registry so every
     Gather has exactly one path.
@@ -33,7 +35,10 @@ from torch import nn
 
 from ..core.geometry import BlockGeometry
 from ..ops import (conv2d_nhwc, gather_tiles, scatter_gather_tiles,
-                   scatter_tiles_box, scatter_with_block_residual_box)
+                   scatter_tiles_box, scatter_with_block_residual_box,
+                   window_gather, window_scatter,
+                   window_scatter_block_residual, window_scatter_gather,
+                   window_state_materialize)
 
 IntPair = Tuple[int, int]
 
@@ -91,6 +96,38 @@ class SIGEModule(nn.Module):
         self.cache: Dict[str, torch.Tensor] = {}
 
 
+class WindowState:
+    """Carried state of a window-resident chain: the canonical window of
+    the current layer's output, the cache that supplies the rest of the
+    map, and the window's origin as host integers. The triple is the
+    exact full map (inside the window the carried values, outside the
+    cache — they agree on the uncovered interior), so consumers rebuild
+    any extraction window from a window-sized cache slice plus one
+    overlay, and full maps materialize only at chain breaks (see the
+    chain ops of :mod:`sige_torch.ops.window`)."""
+
+    def __init__(self, win: torch.Tensor, cache: torch.Tensor,
+                 org: Tuple[int, int]):
+        self.win = win          # [B, WH, WW, C]
+        self.cache = cache      # [B, H, W, C]
+        self.org = org          # (r0, c0)
+
+    def to_map(self) -> torch.Tensor:
+        return window_state_materialize(self.cache, self.win, self.org)
+
+
+def chain_rel(gather: "Gather"):
+    """The carried window's offset inside ``gather``'s extraction window,
+    when it does not depend on the plan: for a stride-1 consumer it is the
+    conv offset. None for strided gathers."""
+    g = gather.geom
+    return g.offset if g.conv_stride == (1, 1) else None
+
+
+def _host_ints(a) -> Tuple[int, ...]:
+    return tuple(int(v) for v in np.asarray(a).reshape(-1))
+
+
 class Gather(SIGEModule):
     """Records geometry/resolution in full mode; extracts the active tile
     batch (with optional fused norm epilogue) in sparse mode
@@ -98,7 +135,8 @@ class Gather(SIGEModule):
 
     Also the anchor for planning products: the engine sets ``plan`` (the
     device tensors of this Gather's plan entry) and ``plan_host`` (the
-    numpy entry; bbox origins are read from it as host integers)."""
+    numpy entry; bbox origins, window metas and window origins are read
+    from it as host integers)."""
 
     def __init__(self, block_size: Union[int, IntPair] = 6,
                  kernel_size: Union[int, IntPair] = 3,
@@ -128,6 +166,10 @@ class Gather(SIGEModule):
             }
             return x
         if ctx.mode == "sparse":
+            if self.planned_window():
+                meta, edge = self.read_window()
+                return window_gather(x, meta, edge, scale, shift,
+                                     self.activation)
             return gather_tiles(x, self.plan["indices"], self.plan["count"],
                                 self.geom, scale, shift, self.activation)
         raise ValueError(f"unknown mode {ctx.mode}")
@@ -153,6 +195,30 @@ class Gather(SIGEModule):
         key = f"{res[0]}x{res[1]}"
         return self.plan[f"sgsrc_{key}"], self.plan[f"sgflat_{key}"]
 
+    # --- window layout (ops/window.py; planner layout="window") ----------
+    def planned_window(self) -> bool:
+        return "win_in" in self.plan_host
+
+    def read_window(self):
+        """(meta as host ints, edge mask on the device) of the conv input
+        window."""
+        return _host_ints(self.plan_host["win_in"]), self.plan["win_edge"]
+
+    def window_origin(self) -> Tuple[int, int]:
+        return _host_ints(self.plan_host["win_org"])
+
+    def read_wsc(self, res):
+        """(origin as host ints, coverage mask on the device) of the
+        canonical window at output resolution ``res``."""
+        key = f"{res[0]}x{res[1]}"
+        return (_host_ints(self.plan_host[f"wsc_org_{key}"]),
+                self.plan[f"wsc_cov_{key}"])
+
+    def read_wsg(self, res):
+        key = f"{res[0]}x{res[1]}"
+        return (_host_ints(self.plan_host[f"wsg_in_{key}"]),
+                self.plan[f"wsg_edge_{key}"], self.plan[f"wsg_cov_{key}"])
+
 
 class Scatter(SIGEModule):
     """Caches full-mode output; scatters fresh tiles over the cache in
@@ -172,6 +238,9 @@ class Scatter(SIGEModule):
             return out
         if ctx.mode == "sparse":
             y = self.cache["original"]
+            if self.gather.planned_window():
+                org, cov = self.gather.read_wsc(y.shape[1:3])
+                return window_scatter(x, y, org, cov, residual)
             box, org = self.gather.read_src_map(y.shape[1:3])
             return scatter_tiles_box(x, y, box, org, self.gather.geom,
                                      residual)
@@ -198,6 +267,11 @@ class ScatterGather(SIGEModule):
             return x
         if ctx.mode == "sparse":
             y = self.cache["original"]
+            if self.gather.planned_window():
+                meta, edge, cov = self.gather.read_wsg(y.shape[1:3])
+                return window_scatter_gather(
+                    x, y, meta, edge, cov, self.gather.geom.offset, scale,
+                    shift, self.activation)
             sg_src, sg_flat = self.gather.read_sg(y.shape[1:3])
             return scatter_gather_tiles(
                 x, y, sg_src, sg_flat, self.gather.geom, scale, shift,
@@ -228,6 +302,11 @@ class ScatterWithBlockResidual(SIGEModule):
             y0 = self.cache["original"]
             y1 = self.cache["residual"]
             res = y0.shape[1:3]
+            if self.main_gather.planned_window():
+                org, cov_m = self.main_gather.read_wsc(res)
+                _, cov_s = self.shortcut_gather.read_wsc(res)
+                return window_scatter_block_residual(
+                    x, y0, residual, y1, org, cov_m, cov_s)
             m_box, m_org = self.main_gather.read_src_map(res)
             s_box, s_org = self.shortcut_gather.read_src_map(res)
             return scatter_with_block_residual_box(

@@ -9,9 +9,11 @@ input resolution, and the output resolutions its paired scatters need
 source maps for. :func:`build_plan` mirrors that tree into a plan tree of
 numpy arrays, which the engine moves to the device in one pass.
 
-A numpy-only copy of the tile-layout paths of ``sige_tpu.nn.planner``:
+A numpy-only copy of the tile and window paths of ``sige_tpu.nn.planner``:
 for the same meta and masks the two produce equal plans key by key. The
-window layout is planned by a later slice of the port.
+mod-16 window lattice and ``max_cover`` are copied as they are, so that
+the plans stay equal. The pre-pool window chain (``wdnp_*``, PD's) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -50,12 +52,176 @@ def _is_gather_record(node: Mapping) -> bool:
     return isinstance(node, Mapping) and "geom" in node and "input_res" in node
 
 
+def _fit_window(lo: int, hi: int, limit: int, mult: int,
+                min_size: int = 0) -> Tuple[int, int]:
+    """Bucket [lo, hi) into a window whose size is ≡ -2 (mod mult), so a
+    stride-1 3x3 consumer's conv INPUT (size + 2 halo) lands on the
+    lattice (``sige_tpu``'s TPU layout policy, copied so plans stay
+    equal). ``min_size`` (extent pins) comes from previous fits, i.e. the
+    same lattice.
+
+    The start anchors at ``lo`` but nudges into [1, limit-size-1] when
+    the coverage range allows, so a window that nearly fills the canvas
+    keeps its stride-1 conv halo in image (2-form metas)."""
+    size = min(max(-(-(hi - lo + 2) // mult) * mult - 2, min_size), limit)
+    s_min = max(hi - size, 0)          # still covers [lo, hi)
+    s_max = min(int(lo), limit - size)
+    start = s_max
+    if s_min <= s_max and size + 2 <= limit:
+        h_min, h_max = max(s_min, 1), min(s_max, limit - size - 1)
+        if h_min <= h_max:  # a +-1-halo-in-image start exists
+            start = h_max
+    return max(start, 0), size
+
+
+def _mask_bounds(mask: np.ndarray, mult: int):
+    H, W = mask.shape
+    rows = np.flatnonzero(mask.any(axis=1))
+    cols = np.flatnonzero(mask.any(axis=0))
+    if rows.size == 0:
+        return 0, min(mult, H), 0, min(mult, W)
+    return rows[0], rows[-1] + 1, cols[0], cols[-1] + 1
+
+
+def _gather_out_reses(node, geom: BlockGeometry, in_res: IntPair):
+    """Conv output resolutions of one gather record: the recorded
+    scatter/sg resolutions, else the geometry's."""
+    reses = {tuple(int(i) for i in np.asarray(a))
+             for key in ("scatter_res", "sg_res")
+             for a in node.get(key, ())}
+    if not reses:
+        kh, kw = geom.kernel_size
+        sh, sw = geom.conv_stride
+        oh, ow = geom.offset
+        reses = {((in_res[0] + 2 * oh - kh) // sh + 1,
+                  (in_res[1] + 2 * ow - kw) // sw + 1)}
+    return reses
+
+
+def _collect_window_reses(meta: Mapping) -> set:
+    """Every conv-output resolution some gather windows at — the only
+    resolutions canonical windows exist for (tiny mask-pyramid tails no
+    gather consumes must not join the nesting, or their whole-canvas
+    minimum windows cascade)."""
+    out = set()
+    for node in meta.values():
+        if _is_gather_record(node):
+            geom = _unpack_geom(_first(node["geom"]))
+            in_res = tuple(int(i) for i in np.asarray(_first(node["input_res"])))
+            out |= _gather_out_reses(node, geom, in_res)
+        elif isinstance(node, Mapping):
+            out |= _collect_window_reses(node)
+    return out
+
+
+def _plan_canonical_windows(masks: Mapping[IntPair, np.ndarray],
+                            mult: int = 16,
+                            consumed: Optional[set] = None,
+                            nesting: bool = True,
+                            max_cover: float = 0.75,
+                            ext_pins: Optional[Mapping[IntPair, IntPair]] = None,
+                            ) -> Dict[IntPair, Tuple]:
+    """{res: (r0, c0, WH, WW)} — THE bucketed window every gather/scatter
+    at a resolution shares (alignment keeps window joins elementwise).
+
+    Cross-resolution nesting for window-resident chains: the window at
+    (h, w) covers the ceil-half of the window at (2h, 2w) plus a 1px
+    halo, so a carried window DOUBLED across an upsample covers the finer
+    consumer's whole extraction window. Growth cascades to coarser
+    resolutions only.
+
+    ``consumed`` restricts the planned resolutions to those some gather
+    windows at (:func:`_collect_window_reses`).
+
+    ``max_cover`` drops resolutions whose pre-nesting bucketed window
+    would cover more than that fraction of the canvas; gathers there run
+    the tile layout (hybrid plan), and dropped resolutions leave the
+    nesting fixpoint.
+
+    ``ext_pins`` ({res: (WH, WW)} minimum extents) pins the windowed
+    resolution set to the pinned keys and every window to at least its
+    pinned extent, so plans for different masks share leaf shapes."""
+    if consumed is not None:
+        masks = {res: m for res, m in masks.items() if res in consumed}
+    if ext_pins is not None:
+        masks = {res: m for res, m in masks.items() if res in ext_pins}
+    reses = sorted(masks.keys())
+
+    def _mult(res):
+        # finer bucketing at small canvases (a 16-multiple window is the
+        # whole canvas at 16^2)
+        return mult if min(res) >= 64 else 4
+
+    lo: Dict[IntPair, list] = {
+        res: list(_mask_bounds(np.asarray(masks[res], bool), _mult(res)))
+        for res in reses}
+    if max_cover < 1.0 and ext_pins is None:
+        def _cover(res):
+            r_lo, r_hi, c_lo, c_hi = lo[res]
+            _, wh = _fit_window(r_lo, r_hi, res[0], _mult(res))
+            _, ww = _fit_window(c_lo, c_hi, res[1], _mult(res))
+            return (wh * ww) / float(res[0] * res[1])
+        reses = [res for res in reses if _cover(res) <= max_cover]
+        lo = {res: lo[res] for res in reses}
+
+    def fit(res):
+        r_lo, r_hi, c_lo, c_hi = lo[res]
+        pin = ext_pins.get(res, (0, 0)) if ext_pins else (0, 0)
+        r0, wh = _fit_window(r_lo, r_hi, res[0], _mult(res), pin[0])
+        c0, ww = _fit_window(c_lo, c_hi, res[1], _mult(res), pin[1])
+        return (r0, c0, wh, ww)
+
+    def grow(res, r_lo, r_hi, c_lo, c_hi) -> bool:
+        b = lo[res]
+        want = [min(b[0], max(r_lo, 0)), max(b[1], min(r_hi, res[0])),
+                min(b[2], max(c_lo, 0)), max(b[3], min(c_hi, res[1]))]
+        if want != b:
+            lo[res] = want
+            return True
+        return False
+
+    # iterate on the FITTED extents until a fixpoint: extents only grow
+    # and are canvas-capped, so this terminates
+    while nesting:
+        fitted = {res: fit(res) for res in reses}
+        changed = False
+        for res in reses:           # fine -> coarse: cover finer/2 + halo
+            dbl = (res[0] * 2, res[1] * 2)
+            if dbl in fitted:
+                r0, c0, wh, ww = fitted[dbl]
+                changed |= grow(res, r0 // 2 - 1, -(-(r0 + wh) // 2) + 1,
+                                c0 // 2 - 1, -(-(c0 + ww) // 2) + 1)
+        if not changed:
+            break
+    return {res: fit(res) for res in reses}
+
+
+def _window_meta(idx0: IntPair, ext: IntPair, limit: IntPair,
+                 static_fast: bool = True):
+    """Meta + in-image edge mask for a (possibly virtual) window origin
+    (see :mod:`sige_torch.ops.window`): the 2-form ``int32[2]`` start when
+    the window is fully in image (and ``static_fast``), else the 4-form
+    ``(clamped_r, clamped_c, roll_r, roll_c)``."""
+    cl = [max(min(idx0[a], limit[a] - ext[a]), 0) for a in (0, 1)]
+    er = (np.arange(ext[0]) + idx0[0] >= 0) & (np.arange(ext[0]) + idx0[0] < limit[0])
+    ec = (np.arange(ext[1]) + idx0[1] >= 0) & (np.arange(ext[1]) + idx0[1] < limit[1])
+    edge = er[:, None] & ec[None, :]
+    if static_fast and all(
+            0 <= idx0[a] and idx0[a] + ext[a] <= limit[a] for a in (0, 1)):
+        # fully in image (an extent wider than the canvas clamps to the
+        # same origin while poking out the far side: 4-form)
+        return np.array([cl[0], cl[1]], np.int32), edge
+    meta = np.array([cl[0], cl[1], cl[0] - idx0[0], cl[1] - idx0[1]], np.int32)
+    return meta, edge
+
+
 def build_plan(
     meta: Mapping,
     masks: Mapping[IntPair, np.ndarray],
     bucket_min: int = 8,
     capacities: Optional[Dict[Tuple, int]] = None,
     layout: str = "tiles",
+    chain_nesting: bool = True,
     _path: Tuple = (),
     _memo: Optional[Dict] = None,
 ) -> Dict:
@@ -68,21 +234,35 @@ def build_plan(
       bucket_min: smallest index-buffer capacity bucket.
       capacities: optional {path: capacity} pinning buffer sizes, and
         {path + (box leaf name,): (BH, BW)} pinning source-map box shapes
-        (see :func:`plan_pins`).
-      layout: only ``"tiles"`` in this port.
+        (see :func:`plan_pins`). The window layout also reads
+        ``("__winext__",)`` -> {(h, w): (WH, WW)} extent pins and
+        ``("__metafast__",)`` (the meta form of pinned plans).
+      layout: ``"tiles"`` or ``"window"``.
+      chain_nesting: grow canonical windows so window chains nest across
+        resolutions (False when the model runs no chains).
 
     Returns a nested dict mirroring the module tree with, at each Gather:
-      ``indices`` [K, 2] int32, ``count`` int32 scalar, per scatter output
-      resolution a bbox-cropped ``srcbox_{h}x{w}`` map and its
-      ``srcorg_{h}x{w}`` origin, and ``sgsrc_/sgflat_{h}x{w}`` lookups per
-      fused re-gather resolution.
+      ``indices`` [K, 2] int32, ``count`` int32 scalar, and either the
+      tile products — per scatter output resolution a bbox-cropped
+      ``srcbox_{h}x{w}`` map and its ``srcorg_{h}x{w}`` origin,
+      ``sgsrc_/sgflat_{h}x{w}`` lookups per fused re-gather resolution —
+      or the window products of :func:`_window_entry`.
     """
-    if layout != "tiles":
-        raise NotImplementedError(
-            f"layout={layout!r}: the window layout is planned by a later "
-            "slice of the port; use layout='tiles'")
+    if layout not in ("tiles", "window"):
+        raise ValueError(f"unknown layout {layout!r}")
     if _memo is None:
         _memo = {}
+    if layout == "window" and "windows" not in _memo:
+        cap_pins = (capacities or {}).get(("__winext__",))
+        ext_pins = None if cap_pins is None else {
+            tuple(int(i) for i in k): tuple(v) for k, v in cap_pins.items()}
+        _memo["windows"] = _plan_canonical_windows(
+            masks, consumed=_collect_window_reses(meta),
+            nesting=chain_nesting, ext_pins=ext_pins)
+        _memo["chain_nesting"] = chain_nesting
+        cap_fast = (capacities or {}).get(("__metafast__",))
+        _memo["static_fast"] = (ext_pins is None if cap_fast is None
+                                else bool(cap_fast))
     plan: Dict = {}
     for name, node in meta.items():
         if _is_gather_record(node):
@@ -117,6 +297,16 @@ def build_plan(
                 return sorted({tuple(int(i) for i in np.asarray(a))
                                for a in node.get(key, ())})
 
+            if layout == "window" and all(
+                    ores in _memo["windows"]
+                    for ores in _gather_out_reses(node, geom, res)):
+                # hybrid layout: a gather whose output resolution was
+                # dropped from the canonical-window set falls through to
+                # tile products
+                _window_entry(entry, node, geom, res, indices, count,
+                              _reses, _memo)
+                plan[name] = entry
+                continue
             # Scatter source maps ship bbox-cropped: the join then costs
             # the edit's bbox, not the canvas; the box shape is bucketed
             # so similar edits share shapes.
@@ -146,10 +336,108 @@ def build_plan(
             plan[name] = entry
         elif isinstance(node, Mapping):
             sub = build_plan(node, masks, bucket_min, capacities, layout,
-                             _path + (name,), _memo)
+                             chain_nesting, _path + (name,), _memo)
             if sub:
                 plan[name] = sub
     return plan
+
+
+def _window_entry(entry, node, geom: BlockGeometry, in_res, indices, count,
+                  _reses, _memo) -> None:
+    """Window-layout products for one gather (see
+    :mod:`sige_torch.ops.window`): every gather/scatter at an output
+    resolution shares one canonical bucketed window, so window joins and
+    norm epilogues stay elementwise-aligned across module pairings."""
+    kh, kw = geom.kernel_size
+    sh, sw = geom.conv_stride
+    oh, ow = geom.offset
+    out_reses = sorted(set(_reses("scatter_res")) | set(_reses("sg_res")))
+    if not out_reses:
+        # pure re-gather: the conv output resolution follows from the
+        # geometry alone
+        out_reses = [(
+            (in_res[0] + 2 * oh - kh) // sh + 1,
+            (in_res[1] + 2 * ow - kw) // sw + 1,
+        )]
+    if len(out_reses) != 1:
+        raise ValueError(f"window layout expects one conv output resolution "
+                         f"per gather, got {out_reses}")
+    ores = out_reses[0]
+    if ores not in _memo["windows"]:
+        raise KeyError(f"no mask for window resolution {ores}")
+    r0, c0, WH, WW = _memo["windows"][ores]
+
+    # gather input window (conv input extent incl. halo)
+    fast = _memo.get("static_fast", True)
+    ext = ((WH - 1) * sh + kh, (WW - 1) * sw + kw)
+    v_org = (r0 * sh - oh, c0 * sw - ow)
+    meta, edge = _window_meta(v_org, ext, in_res, fast)
+    entry["win_in"] = meta
+    entry["win_edge"] = edge
+    entry["win_org"] = np.array([r0, c0], np.int32)
+
+    def _covers(outer_org, outer_ext, note):
+        """The containment the chain ops rely on (an overlay or slice
+        that does not fit would be clamped and misaligned, not fail): the
+        in-image part of this gather's extraction window must sit inside
+        the carried window ``(outer_org, outer_ext)``."""
+        lo = tuple(max(v_org[a], 0) for a in (0, 1))
+        hi = tuple(min(v_org[a] + ext[a], in_res[a]) for a in (0, 1))
+        ok = all(outer_org[a] <= lo[a] and hi[a] <= outer_org[a] + outer_ext[a]
+                 for a in (0, 1))
+        if not ok:
+            raise ValueError(
+                f"window nesting violated at {note}: extraction window "
+                f"org={v_org} ext={ext} (in-image [{lo},{hi})) not covered "
+                f"by carried window org={outer_org} ext={outer_ext}")
+
+    # chain-across-upsample marker: the DOUBLED carried window at
+    # in_res//2 covers this extraction window (window_chain_extend_up2);
+    # never emitted without nesting
+    half = (in_res[0] // 2, in_res[1] // 2)
+    if (_memo.get("chain_nesting", True)
+            and (sh, sw) == (1, 1) and half in _memo["windows"]
+            and in_res[0] % 2 == 0 and in_res[1] % 2 == 0):
+        hr0, hc0, HWH, HWW = _memo["windows"][half]
+        _covers((2 * hr0, 2 * hc0), (2 * HWH, 2 * HWW), "wup_ok (up2 chain)")
+        entry["wup_ok"] = np.int32(1)
+
+    # chain-across-downsample marker: for a stride-2 consumer the carried
+    # FINE window must sit inside this extraction window
+    # (window_chain_extend overlays it)
+    if (_memo.get("chain_nesting", True) and (sh, sw) == (2, 2)
+            and in_res == (2 * ores[0], 2 * ores[1])
+            and in_res in _memo["windows"]):
+        fr0, fc0, FWH, FWW = _memo["windows"][in_res]
+        if not all(v_org[a] <= o and o + e <= v_org[a] + ext[a]
+                   for a, (o, e) in enumerate(((fr0, FWH), (fc0, FWW)))):
+            raise ValueError(
+                f"window nesting violated at wdn_ok (stride-2 chain): "
+                f"carried window ({fr0},{fc0})+({FWH},{FWW}) at {in_res} "
+                f"not inside extraction window org={v_org} ext={ext}")
+        entry["wdn_ok"] = np.int32(1)
+
+    if "prepool" in node:
+        raise NotImplementedError(
+            "the pre-pool window chain (wdnp_*) comes with the PD slice of "
+            "the port")
+
+    skey = ("srcmap", in_res, geom, None, ores, "w")
+    if skey not in _memo:
+        _memo[skey] = build_src_map(indices, count, geom, ores)
+    cov = _memo[skey][r0:r0 + WH, c0:c0 + WW] >= 0
+
+    for sres in _reses("scatter_res"):
+        entry[f"wsc_org_{sres[0]}x{sres[1]}"] = np.array([r0, c0], np.int32)
+        entry[f"wsc_cov_{sres[0]}x{sres[1]}"] = cov
+    for gres in _reses("sg_res"):
+        if (sh, sw) != (1, 1):
+            raise ValueError("a fused re-gather requires stride 1")
+        ext2 = (WH + kh - 1, WW + kw - 1)
+        meta2, edge2 = _window_meta((r0 - oh, c0 - ow), ext2, gres, fast)
+        entry[f"wsg_in_{gres[0]}x{gres[1]}"] = meta2
+        entry[f"wsg_edge_{gres[0]}x{gres[1]}"] = edge2
+        entry[f"wsg_cov_{gres[0]}x{gres[1]}"] = cov
 
 
 def plan_pins(plan: Mapping, _path: Tuple = ()) -> Dict[Tuple, object]:

@@ -2,9 +2,9 @@
 
 All ops take NHWC tensors, fixed-capacity padded index buffers and a
 static :class:`~sige_torch.core.geometry.BlockGeometry`. The tile ops are
-index_select/where compositions (the same formulations as
-``sige_tpu.ops``); attention runs through the hand-written flash kernel
-on CUDA tensors (:mod:`sige_torch.ops.flash`).
+index_select/where compositions and the window ops slices and selects
+(the same formulations as ``sige_tpu.ops``); attention runs through the
+hand-written flash kernel on CUDA tensors (:mod:`sige_torch.ops.flash`).
 """
 
 from .attention import masked_mha, mha
@@ -18,6 +18,17 @@ from .scatter import (
     scatter_tiles,
     scatter_tiles_box,
     scatter_with_block_residual_box,
+)
+from .window import (
+    window_chain_extend,
+    window_chain_extend_up2,
+    window_epilogue,
+    window_gather,
+    window_scatter,
+    window_scatter_block_residual,
+    window_scatter_gather,
+    window_slice,
+    window_state_materialize,
 )
 
 __all__ = [
@@ -35,4 +46,13 @@ __all__ = [
     "scatter_with_block_residual_box",
     "materialize_tiles",
     "calibrate_residual",
+    "window_gather",
+    "window_epilogue",
+    "window_scatter_gather",
+    "window_scatter",
+    "window_slice",
+    "window_chain_extend",
+    "window_chain_extend_up2",
+    "window_state_materialize",
+    "window_scatter_block_residual",
 ]

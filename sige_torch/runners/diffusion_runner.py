@@ -5,7 +5,8 @@ difference mask from the original/edited pair, dilate, pre-run the model
 in full mode to record shapes, build the mask pyramid down to the
 bottleneck resolution, set masks, then for each denoising step run the
 full pass on the original trajectory and the sparse pass on the edited
-one (:mod:`sige_torch.samplers.ddim_ddpm`). ``profile`` times one forward
+one (:mod:`sige_torch.samplers.ddim_ddpm`,
+:mod:`sige_torch.samplers.dpm_solver`). ``profile`` times one forward
 with CUDA events and counts its analytic MACs.
 """
 
@@ -22,16 +23,15 @@ from ..models.ddpm import DDPMUNetConfig, SIGEFusedUNet
 from ..nn.engine import SIGEModel, resolve_device
 from ..nn.module import SIGECtx
 from ..samplers import (DDIMSampler, DDPMSampler, DiffusionSchedule,
-                        get_sampling_sequence)
+                        DPMSolverSampler, get_sampling_sequence)
 
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionRunConfig:
     """Sampling config (church256 defaults;
-    reference: diffusion/configs/church_ddpm256-sige.yml sampling section).
-    The dpm_solver sampler and its fields come with a later slice."""
+    reference: diffusion/configs/church_ddpm256-sige.yml sampling section)."""
 
-    sampler_type: str = "ddpm"          # "ddpm" | "ddim"
+    sampler_type: str = "ddpm"          # "ddpm" | "ddim" | "dpm_solver"
     total_steps: int = 1000
     sample_steps: int = 500
     noise_level: int = 500
@@ -43,6 +43,11 @@ class DiffusionRunConfig:
     eps: float = 1e-2                    # difference-mask threshold
     mask_dilate_radius: int = 5
     rescaled: bool = True                # data in [0,1] -> [-1,1]
+    # dpm_solver knobs (reference: configs/church_dpmsolver256-sige.yml)
+    algorithm_type: str = "dpmsolver++"
+    order: int = 2
+    solver_type: str = "dpmsolver"
+    lower_order_final: bool = True
 
 
 def data_transform(x: np.ndarray, rescaled: bool) -> np.ndarray:
@@ -59,13 +64,14 @@ class DiffusionRunner:
     ``params`` is a state dict for the U-Net (e.g. from
     :func:`sige_torch.utils.from_jax.state_dict_from_flax`); without one
     the weights are drawn from ``seed``. ``device=None`` means the GPU and
-    raises when there is none. Only ``layout="tiles"`` runs in this slice
-    (``sige_tpu``'s default ``"auto"`` needs the window layout)."""
+    raises when there is none. ``layout="auto"`` (the default, as in
+    ``sige_tpu``) picks the window or tile layout per edit;
+    ``active_layout`` says which the last edit ran."""
 
     def __init__(self, model_cfg: DDPMUNetConfig = DDPMUNetConfig(),
                  run_cfg: DiffusionRunConfig = DiffusionRunConfig(),
                  params: Optional[Mapping[str, torch.Tensor]] = None,
-                 seed: int = 0, bucket_min: int = 2, layout: str = "tiles",
+                 seed: int = 0, bucket_min: int = 2, layout: str = "auto",
                  device=None):
         self.model_cfg = model_cfg
         self.run_cfg = run_cfg
@@ -84,11 +90,19 @@ class DiffusionRunner:
             self.sampler = DDIMSampler(sched, eta=run_cfg.eta)
         elif run_cfg.sampler_type == "ddpm":
             self.sampler = DDPMSampler(sched)
+        elif run_cfg.sampler_type == "dpm_solver":
+            self.sampler = DPMSolverSampler(
+                sched, algorithm_type=run_cfg.algorithm_type,
+                order=run_cfg.order, solver_type=run_cfg.solver_type,
+                lower_order_final=run_cfg.lower_order_final)
         else:
-            raise NotImplementedError(
-                f"sampler_type={run_cfg.sampler_type!r} comes with a later "
-                "slice of the port")
+            raise ValueError(f"sampler_type {run_cfg.sampler_type!r}")
         self.last_edit_ratio = None
+
+    @property
+    def active_layout(self) -> str:
+        """The layout the last planned edit runs ("tiles" or "window")."""
+        return self.model.active_layout
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
@@ -126,7 +140,8 @@ class DiffusionRunner:
         """SDEdit: noise both images to ``noise_level``, denoise with the
         twin full/sparse trajectory, return the edited result in [0, 1]
         ([H, W, C] numpy). The noise comes from a ``torch.Generator``
-        seeded with ``seed`` on the runner's device."""
+        seeded with ``seed`` on the runner's device. The layout the edit
+        ran is :attr:`active_layout`."""
         rc = self.run_cfg
         x0, x1, mask = self.preprocess(original, edited)
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -157,7 +172,8 @@ class DiffusionRunner:
         90th percentile of ``iters`` forwards, each between two CUDA
         events, after ``warmup``), its analytic MACs and the peak device
         memory it allocates (the reference times the sparse forward alone;
-        reference: diffusion/runner.py:214-246). GPU only."""
+        reference: diffusion/runner.py:214-246), and the layout it ran
+        (``active_layout``). GPU only."""
         if self.device.type != "cuda":
             raise RuntimeError("profile measures the GPU; this runner is on "
                                f"{self.device}")
@@ -187,4 +203,5 @@ class DiffusionRunner:
             "macs_g": self.count_macs(x1, mode) / 1e9,
             "edit_ratio": float(np.mean(mask)),
             "peak_mb": peak_mb,
+            "active_layout": self.active_layout,
         }

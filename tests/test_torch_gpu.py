@@ -95,3 +95,96 @@ def test_split_path_matches_plain_split_on_card(D):
     assert flash.flash_mha.combine_launches == combines + 1
     want = flash.flash_mha_plain_split(q, k, v, D ** -0.5, None, splits)
     assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v_org,ext", [((3, 4), (6, 7)),     # 2-form meta
+                                       ((-1, 9), (6, 7)),    # border
+                                       ((-1, -1), (14, 16))  # wider
+                                       ])
+def test_window_ops_card_match_cpu(v_org, ext):
+    """Each window op on CUDA tensors against the same op on the CPU
+    (which the CPU tests hold against sige_tpu)."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    from sige_torch.nn.planner import _window_meta
+    from sige_torch.ops import window as w
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H, W, C = 12, 14, 5
+    meta, edge = _window_meta(v_org, ext, (H, W))
+    WH, WW = ext[0] - 2, ext[1] - 2
+    org = (max(v_org[0] + 1, 0), max(v_org[1] + 1, 0))
+    WH, WW = min(WH, H - org[0]), min(WW, W - org[1])
+    gen = torch.Generator().manual_seed(0)
+    x, cache, y1 = (torch.randn(1, H, W, C, generator=gen) for _ in range(3))
+    win, short = (torch.randn(1, WH, WW, C, generator=gen) for _ in range(2))
+    scale, shift = (torch.randn(1, C, generator=gen) for _ in range(2))
+    cov = torch.rand(WH, WW, generator=gen) < 0.6
+    cov_s = torch.rand(WH, WW, generator=gen) < 0.4
+    edge = torch.from_numpy(edge)
+
+    def run(dev):
+        d = lambda t: t.to(dev)  # noqa: E731
+        ring = d(edge)
+        outs = [
+            w.window_gather(d(x), meta, ring, d(scale), d(shift), "swish"),
+            w.window_chain_extend(d(win), org, d(cache), meta, ring,
+                                  d(scale), d(shift), "swish"),
+            w.window_scatter(d(win), d(cache), org, d(cov), d(x)),
+            w.window_state_materialize(d(cache), d(win), org),
+            w.window_scatter_block_residual(d(win), d(cache), d(short),
+                                            d(y1), org, d(cov), d(cov_s)),
+        ]
+        if (WH, WW) == (ext[0] - 2, ext[1] - 2):
+            outs.append(w.window_scatter_gather(
+                d(win), d(cache), meta, ring, d(cov), (1, 1), d(scale),
+                d(shift), "swish"))
+        return [o.cpu() for o in outs]
+
+    for got, want in zip(run("cuda"), run("cpu")):
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chain", [True, False])
+def test_tiny_window_unet_card_matches_cpu(chain):
+    """A tiny DDPM U-Net in the window layout (chains on and off) on the
+    card against the same U-Net on the CPU; its attention runs the flash
+    kernel on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    import numpy as np
+
+    from sige_torch.core.masks import dilate_mask, downsample_mask
+    from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
+    from sige_torch.nn import SIGEModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DDPMUNetConfig(ch=32, ch_mult=(1, 2, 2), num_res_blocks=1,
+                         attn_resolutions=(8,), resolution=32,
+                         sparse_resolution_threshold=16, window_chain=chain)
+    rng = np.random.default_rng(7)
+    x0 = torch.from_numpy(rng.standard_normal((1, 32, 32, 3)).astype(
+        np.float32))
+    mask = np.zeros((32, 32), bool)
+    mask[10:18, 12:22] = True
+    x1 = x0 + 0.5 * torch.from_numpy(mask)[None, :, :, None]
+    masks = downsample_mask(dilate_mask(mask, 2), min_res=8)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = SIGEModel(SIGEFusedUNet(cfg), layout="window", device=dev)
+        model.init(0)
+        t = torch.full((1,), 5.0, device=dev)
+        full = model.full(x0.to(dev), t)
+        model.set_masks(masks)
+        before = flash.flash_mha.launches
+        outs[dev] = [full.cpu(), model.sparse(x1.to(dev), t).cpu(),
+                     model.sparse(x0.to(dev), t).cpu()]
+        if dev == "cuda":
+            assert flash.flash_mha.launches > before
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert (got - want).abs().max().item() <= 1e-4
+    assert (outs["cuda"][2] - outs["cuda"][0]).abs().max().item() <= 1e-4

@@ -161,7 +161,7 @@ def runners():
         DiffusionRunConfig(sampler_type="ddim", sample_steps=2,
                            noise_level=100),
         params=state_dict_from_flax(jax.device_get(jr.model.params)),
-        device="cpu")
+        layout="tiles", device="cpu")
     return jr, tr
 
 
