@@ -9,7 +9,7 @@ Phases (any failure raises and the script exits non-zero):
 2. build  — compiles every CUDA kernel of the port from ``sige_torch/csrc``
             with nvcc for sm_90a (into ``build/sige_torch/``), all at once;
 3. kernels — holds each kernel against its plain PyTorch version at the
-            main path's shapes and at SD shapes (TF32 off for matmuls and
+            main path's shapes and at synthetic SD shapes (a)-(e) (TF32 off for matmuls and
             convs, so the plain versions are true fp32), and times the
             kernel, the plain version and one library call that computes
             the same function (a yardstick only; the port never calls it):
@@ -41,7 +41,21 @@ Phases (any failure raises and the script exits non-zero):
             ``profile`` times dense and sparse forwards (median, p90,
             GMACs, peak MB). ``generate`` runs with the launch counters
             (attention and combine kernels) set to 0 just before and read
-            just after, each held to its exact expected count.
+            just after, each held to its exact expected count;
+6. sd     — the Stable Diffusion SDEdit path at full width through
+            ``sige_torch.runners.SDRunner`` (SD v1 U-Net with guidance 7.5
+            at batch 2, the VAE at 512^2, 5 twin steps): ``sdedit`` with
+            the launch counters set to 0 just before and read just after,
+            held to the count derived from the config and the plans;
+            sparse = full on the original for the encoder, U-Net and
+            decoder, also after a sparse pass on the edit; per model and
+            mode the launches, latency, GMACs and peak MB;
+7. sd kernels — the flash kernel against its plain version at every
+            distinct (B, N, M, H, D) the SD path's forwards give it, the
+            masked rows with the biases the models built from their plans:
+            (f) the decoder's mid attention, (g) its masked stale/fresh
+            form, (h) the encoder's masked form, then each U-Net self-,
+            cross- and masked self-attention.
 
 The line before the last is the ``kernels`` JSON; the last line is the
 device JSON.
@@ -132,12 +146,6 @@ def attention_bound(B, N, M, H, D, bias: bool):
 
 def phase_kernels(flash):
     """Hold the flash kernel against its plain twin at shapes (a)-(e)."""
-    import torch.nn.functional as F
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda")
 
     def live_bias(M, dead):
         b = torch.zeros(M, device="cuda")
@@ -161,40 +169,47 @@ def phase_kernels(flash):
     shapes.append(("e: masked stale/fresh K/V (SD)", 2, 1024, Ms + Mf, 8, 40,
                    bias_e))
 
+    return [kernel_row(flash, *shape) for shape in shapes]
+
+
+def kernel_row(flash, label, B, N, M, H, D, bias):
+    """Hold the flash kernel against its plain twin at one shape (random
+    q, k, v) and time it, the plain version and SDPA."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(N + M + D)
+    q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda")
+               for n in (N, M, M))
+    scale = D ** -0.5
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rows = []
-    for label, B, N, M, H, D, bias in shapes:
-        q, k, v = randn(B, N, H, D), randn(B, M, H, D), randn(B, M, H, D)
-        scale = D ** -0.5
-        splits = flash._num_splits(B * H, N, M, D, sms)
-        out = flash.flash_mha(q, k, v, scale, bias)
-        torch.cuda.synchronize()
-        ref = flash.flash_mha_plain(q, k, v, scale, bias)
-        err = (out - ref).abs().max().item()
-        if not (err <= TOL):
-            raise AssertionError(f"{label}: kernel vs plain max err {err:.3e}")
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        fns = {"kernel": lambda: flash.flash_mha(q, k, v, scale, bias),
-               "plain": lambda: flash.flash_mha_plain(q, k, v, scale, bias),
-               "library": lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, attn_mask=bias, scale=scale)}
-        call = {n: time_ms(fn) for n, fn in fns.items()}
-        dev = {n: device_ms(fn)[0] for n, fn in fns.items()}
-        bound_ms, bound_by = attention_bound(B, N, M, H, D, bias is not None)
-        rows.append({"shape": label, "B": B, "N": N, "M": M, "H": H, "D": D,
-                     "bias": bias is not None, "splits": splits,
-                     "max_err": err, "kernel_ms": call["kernel"],
-                     "plain_ms": call["plain"], "library_ms": call["library"],
-                     "kernel_device_ms": dev["kernel"],
-                     "plain_device_ms": dev["plain"],
-                     "library_device_ms": dev["library"],
-                     "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"  {label}: S={splits}  max err {err:.3e}  ms (events): "
-              f"kernel {call['kernel']:.4f}  plain {call['plain']:.4f}  sdpa "
-              f"{call['library']:.4f}  bound {bound_ms:.5f} ({bound_by}); "
-              f"device ms (profiler): kernel {dev['kernel']:.4f}  plain "
-              f"{dev['plain']:.4f}  sdpa {dev['library']:.4f}", flush=True)
-    return rows
+    splits = flash._num_splits(B * H, N, M, D, sms)
+    out = flash.flash_mha(q, k, v, scale, bias)
+    torch.cuda.synchronize()
+    ref = flash.flash_mha_plain(q, k, v, scale, bias)
+    err = (out - ref).abs().max().item()
+    if not (err <= TOL):
+        raise AssertionError(f"{label}: kernel vs plain max err {err:.3e}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fns = {"kernel": lambda: flash.flash_mha(q, k, v, scale, bias),
+           "plain": lambda: flash.flash_mha_plain(q, k, v, scale, bias),
+           "library": lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=bias, scale=scale)}
+    call = {n: time_ms(fn) for n, fn in fns.items()}
+    dev = {n: device_ms(fn)[0] for n, fn in fns.items()}
+    bound_ms, bound_by = attention_bound(B, N, M, H, D, bias is not None)
+    print(f"  {label}: S={splits}  max err {err:.3e}  ms (events): "
+          f"kernel {call['kernel']:.4f}  plain {call['plain']:.4f}  sdpa "
+          f"{call['library']:.4f}  bound {bound_ms:.5f} ({bound_by}); "
+          f"device ms (profiler): kernel {dev['kernel']:.4f}  plain "
+          f"{dev['plain']:.4f}  sdpa {dev['library']:.4f}", flush=True)
+    return {"shape": label, "B": B, "N": N, "M": M, "H": H, "D": D,
+            "bias": bias is not None, "splits": splits,
+            "max_err": err, "kernel_ms": call["kernel"],
+            "plain_ms": call["plain"], "library_ms": call["library"],
+            "kernel_device_ms": dev["kernel"],
+            "plain_device_ms": dev["plain"],
+            "library_device_ms": dev["library"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_forced_splits(flash):
@@ -388,6 +403,308 @@ def phase_path(flash, name, layout, want_layout, rc, profile_iters):
     return result
 
 
+SD_STEPS, SD_STRENGTH, SD_GUIDANCE = 10, 0.5, 7.5  # 5 twin steps
+SD_ITERS = 20  # timed forwards per model and mode
+
+
+def sd_transformer_shapes(cfg, latent):
+    """[(map side, channels)] of the SD U-Net's transformers in module
+    order, from the config: in blocks, middle, out blocks."""
+    mc, levels = cfg.model_channels, len(cfg.channel_mult)
+    out, ds = [], 1
+    for level, mult in enumerate(cfg.channel_mult):
+        if ds in cfg.attention_resolutions:
+            out += [(latent // ds, mult * mc)] * cfg.num_res_blocks
+        if level != levels - 1:
+            ds *= 2
+    out.append((latent // ds, cfg.channel_mult[-1] * mc))
+    for level, mult in reversed(list(enumerate(cfg.channel_mult))):
+        if ds in cfg.attention_resolutions:
+            out += [(latent // ds, mult * mc)] * (cfg.num_res_blocks + 1)
+        if level:
+            ds //= 2
+    return out
+
+
+def _sparse_tokens(sparse_ok, gather, res):
+    """(query tokens per batch row, whether the masked stale/fresh form
+    runs) of one sparse-mode attention, from its gather's plan."""
+    if not sparse_ok:
+        return res * res, False
+    if gather.planned_window():
+        return gather.read_wsc((res, res))[1].numel(), True
+    bh, bw = gather.geom.block_size
+    return gather.plan["indices"].shape[0] * bh * bw, False
+
+
+def sd_unet_calls(runner, mode):
+    """(B, N, M, heads, D) of every flash call of one U-Net forward with
+    guidance (batch 2): per transformer block a self-attention (masked
+    stale/fresh in the window chain) and a cross-attention over 77
+    tokens."""
+    from sige_torch.models.sd import SIGESpatialTransformer
+
+    cfg = runner.unet_cfg
+    mods = [m for m in runner.unet.module.modules()
+            if isinstance(m, SIGESpatialTransformer)]
+    shapes = sd_transformer_shapes(cfg, runner.latent_hw[0])
+    if len(mods) != len(shapes):
+        raise AssertionError(f"{len(mods)} transformers, config gives "
+                             f"{len(shapes)}")
+    calls = []
+    for m, (res, ch) in zip(mods, shapes):
+        H = cfg.num_heads
+        N = M = res * res
+        if mode == "sparse":
+            N, masked = _sparse_tokens(m.sparse_ok, getattr(m, "gather", None),
+                                       res)
+            M = res * res + (N if masked and cfg.window_chain else 0)
+        calls += [(2, N, M, H, ch // H), (2, N, 77, H, ch // H)] * len(
+            m.blocks)
+    return calls
+
+
+def sd_vae_calls(model, mode):
+    """The flash call of one encoder or decoder forward (the mid block's
+    single-head attention)."""
+    m = model.module.mid_attn
+    cfg = model.module.cfg
+    res = cfg.resolution // 2 ** (len(cfg.ch_mult) - 1)
+    N = M = res * res
+    if mode == "sparse":
+        N, masked = _sparse_tokens(m.sparse_ok, m.gather, res)
+        M = res * res + (N if masked and cfg.window_chain else 0)
+    return [(1, N, M, 1, m.channels)]
+
+
+def expected_counts(flash, calls):
+    """(attention launches, combine launches) of a list of flash calls."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return len(calls), sum(flash._num_splits(B * H, N, M, D, sms) > 1
+                           for B, N, M, H, D in calls)
+
+
+def forward_stats(flash, name, model, args, mode, calls, iters=SD_ITERS):
+    """One model's forward in ``mode``: flash launches (asserted against
+    ``calls``), latency (CUDA events around each of ``iters`` forwards,
+    after 3 warm-ups: median and p90), analytic GMACs and peak MB."""
+    from sige_torch.nn.module import SIGECtx
+
+    fwd = {"full": model.full, "sparse": model.sparse}[mode]
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    fwd(*args)
+    torch.cuda.synchronize()
+    got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+    want = expected_counts(flash, calls)
+    if got != want:
+        raise AssertionError(f"{name} {mode}: flash launches {got}, "
+                             f"expected {want}")
+    for _ in range(3):
+        fwd(*args)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        start.record()
+        fwd(*args)
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in events)
+    ctx = SIGECtx(mode=mode, macs=[])
+    with torch.inference_mode():
+        model.module(*args, ctx=ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd(*args)
+    torch.cuda.synchronize()
+    res = {"launches": got[0], "combine_launches": got[1],
+           "latency_ms": float(np.median(times)),
+           "latency_p90_ms": float(np.percentile(times, 90)),
+           "iters": iters, "macs_g": sum(ctx.macs) / 1e9,
+           "peak_mb": torch.cuda.max_memory_allocated() / 2**20}
+    print(f"  [sd {name}] {mode}: {res['latency_ms']:.3f} ms median (p90 "
+          f"{res['latency_p90_ms']:.3f}, n={iters}), {res['macs_g']:.2f} "
+          f"GMACs, peak {res['peak_mb']:.1f} MB, flash launches {got[0]} + "
+          f"{got[1]} combine (expected {want[0]} + {want[1]})", flush=True)
+    return res
+
+
+def resident_mb(model):
+    """Parameters and caches of one model, in MB (storages counted once)."""
+    seen, total = set(), 0
+    tensors = list(model.module.parameters()) + [
+        t for m in model.module.modules() for t in getattr(
+            m, "cache", {}).values()]
+    for t in tensors:
+        key = t.untyped_storage().data_ptr()
+        if key not in seen:
+            seen.add(key)
+            total += t.untyped_storage().nbytes()
+    return total / 2**20
+
+
+def phase_sd(flash):
+    """The SD SDEdit path at full width through ``SDRunner``: the SD v1
+    U-Net (batch 2 with guidance 7.5), the VAE at 512^2, 10 DDIM steps at
+    strength 0.5 (5 twin steps), random weights from seed 0, random text
+    embeddings; the 512^2 form of the DDPM paths' edit."""
+    from sige_torch.models.sd import SDUNetConfig, SDVAEConfig
+    from sige_torch.runners import SDRunConfig, SDRunner
+
+    rc = SDRunConfig(ddim_steps=SD_STEPS, strength=SD_STRENGTH,
+                     guidance_scale=SD_GUIDANCE)
+    t0 = time.perf_counter()
+    runner = SDRunner(SDUNetConfig(), SDVAEConfig(resolution=512), rc,
+                      seed=0, device="cuda")
+    torch.cuda.synchronize()
+    models = {"unet": runner.unet, "encoder": runner.encoder,
+              "decoder": runner.decoder}
+    params = {n: sum(p.numel() for p in m.module.parameters()) / 1e6
+              for n, m in models.items()}
+    print(f"  [sd] runner: {time.perf_counter() - t0:.2f} s, params (M): "
+          + ", ".join(f"{n} {v:.1f}" for n, v in params.items()),
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    uc, c = (torch.randn(1, 77, 768, generator=gen, device="cuda")
+             for _ in range(2))
+    original, edited = edit_pair(runner.vae_cfg.resolution)
+    init, edit = 2.0 * original - 1.0, 2.0 * edited - 1.0
+
+    # the path, through the runner's own entry point: counters set to 0
+    # just before, read just after
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    t0 = time.perf_counter()
+    out = runner.sdedit(init, edit, uc=uc, c=c, seed=0)
+    torch.cuda.synchronize()
+    sdedit_s = time.perf_counter() - t0
+    launches = flash.flash_mha.launches
+    combines = flash.flash_mha.combine_launches
+    t_enc = int(rc.strength * rc.ddim_steps)
+    calls = {(n, mode): (sd_unet_calls(runner, mode) if n == "unet"
+                         else sd_vae_calls(m, mode))
+             for n, m in models.items() for mode in ("full", "sparse")}
+    path_calls = (calls["encoder", "full"] + calls["encoder", "sparse"]
+                  + calls["unet", "full"] * (1 + t_enc)
+                  + calls["unet", "sparse"] * t_enc
+                  + calls["decoder", "full"] + calls["decoder", "sparse"])
+    want, want_combines = expected_counts(flash, path_calls)
+    print(f"  [sd] sdedit: {t_enc} twin steps in {sdedit_s:.2f} s; flash "
+          f"launches {launches} (expected {want}), combine launches "
+          f"{combines} (expected {want_combines})", flush=True)
+    if (launches, combines) != (want, want_combines):
+        raise AssertionError(f"sd: launches {launches} + {combines}, "
+                             f"expected {want} + {want_combines}")
+    R = runner.vae_cfg.resolution
+    if out.shape != (R, R, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"sd: sdedit output {out.shape}, finite "
+                             f"{np.isfinite(out).all()}")
+
+    # sparse = full on the original, also after a sparse pass on the edit,
+    # over the plans sdedit set
+    x0, x1 = runner._image(init), runner._image(edit)
+    z0 = runner.encode(x0)
+    z1 = runner.encode(x1, mode="sparse")
+    t = torch.full((2,), 501.0, device="cuda")
+    ctx = torch.cat([uc, c])
+    args = {"encoder": ((x0,), (x1,)),
+            "unet": ((torch.cat([z0, z0]), t, ctx),
+                     (torch.cat([z1, z1]), t, ctx)),
+            "decoder": ((runner._pre_decode(z0),),
+                        (runner._pre_decode(z1),))}
+    exact = {}
+    for n, (a0, a1) in args.items():
+        model = models[n]
+        full = model.full(*a0)
+        errs = [(model.sparse(*a0) - full).abs().max().item()]
+        model.sparse(*a1)
+        errs.append((model.sparse(*a0) - full).abs().max().item())
+        scale = max(1.0, full.abs().max().item())
+        exact[n] = {"max_err": errs[0], "max_err_after_edit": errs[1],
+                    "scale": scale, "tol": TOL * scale}
+        print(f"  [sd {n}] sparse(x0) vs full(x0): max err {errs[0]:.3e}; "
+              f"after a sparse(x1): {errs[1]:.3e}; tolerance 1e-4 * "
+              f"max(1, max|full| = {scale:.3f}) = {TOL * scale:.3e}",
+              flush=True)
+        if not all(e <= TOL * scale for e in errs):
+            raise AssertionError(f"sd {n}: sparse(x0) != full(x0): {errs}")
+
+    # every distinct flash call of one full and one sparse forward per
+    # model, with the biases the models built: the shapes of the SD kernel
+    # rows (decoder first: (f) its mid attention, (g) the masked form), and
+    # the launch counts' derivation checked against them
+    recorded = record_flash_calls({n: (models[n], args[n])
+                                   for n in ("decoder", "encoder", "unet")})
+    derived = {(B, N, M, H, D) for n in models for mode in ("full", "sparse")
+               for B, N, M, H, D in calls[n, mode]}
+    if {k[:5] for k in recorded} != derived:
+        raise AssertionError(f"sd: flash calls {sorted(recorded)}, derived "
+                             f"{sorted(derived)}")
+    print(f"  [sd] {len(recorded)} distinct flash calls (B, N, M, H, D, "
+          f"masked): {sorted(recorded)}", flush=True)
+
+    prof = {n: {mode: forward_stats(flash, n, models[n], args[n][0]
+                                    if mode == "full" else args[n][1], mode,
+                                    calls[n, mode])
+                for mode in ("full", "sparse")}
+            for n in ("unet", "decoder", "encoder")}
+    resident = {n: resident_mb(m) for n, m in models.items()}
+    print("  [sd] resident (params + caches) MB: " + ", ".join(
+        f"{n} {v:.1f}" for n, v in resident.items()), flush=True)
+
+    result = {"sdedit_s": sdedit_s, "launches": launches,
+              "combine_launches": combines, "twin_steps": t_enc,
+              "params_m": params, "exact": exact, "profile": prof,
+              "resident_mb": resident,
+              "unet_calls": {m: len(calls["unet", m]) for m in
+                             ("full", "sparse")}}
+    del runner, models, args
+    torch.cuda.empty_cache()
+    return result, recorded
+
+
+def record_flash_calls(models):
+    """One full and one sparse forward of each model (``{name: (model,
+    (full args, sparse args))}``) with the attention entry recording its
+    flash calls: ``{(B, N, M, H, D, masked): (label, bias)}`` in the
+    order of first call, each bias a copy of the one the model built."""
+    from sige_torch.ops import attention
+
+    real, seen = attention.flash_mha, {}
+    for name, (model, (a0, a1)) in models.items():
+        for mode, fwd, args in (("full", model.full, a0),
+                                ("sparse", model.sparse, a1)):
+            def rec(qh, kh, vh, scale, bias=None, where=f"{name} {mode}"):
+                B, N, H, D = qh.shape
+                key = (B, N, kh.shape[1], H, D, bias is not None)
+                if key not in seen:
+                    seen[key] = (where, None if bias is None
+                                 else bias.clone())
+                return real(qh, kh, vh, scale, bias=bias)
+
+            attention.flash_mha = rec
+            try:
+                fwd(*args)
+            finally:
+                attention.flash_mha = real
+    torch.cuda.synchronize()
+    return seen
+
+
+def phase_sd_kernels(flash, recorded):
+    """Kernel rows (f) on, one at every distinct flash call of the SD path:
+    random q, k, v and the bias the model built."""
+    rows = []
+    for key, (where, bias) in recorded.items():
+        B, N, M, H, D, masked = key
+        kind = ("mid attention" if not where.startswith("unet") else
+                "cross-attention over 77 text tokens" if M == 77 else
+                "self-attention")
+        label = (f"{chr(ord('f') + len(rows))}: SD {where} "
+                 f"{'masked stale/fresh ' if masked else ''}{kind} "
+                 f"(B {B}, N {N}, M {M}, H {H}, D {D})")
+        rows.append(kernel_row(flash, label, B, N, M, H, D, bias))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -429,6 +746,10 @@ def main() -> int:
         "tiles": phase_path(flash, "tiles", "tiles", "tiles", ddim, 100),
         "dpm_solver": phase_path(flash, "dpm_solver", None, "window", dpm, 0),
     }
+    print("sd (SD v1 U-Net, VAE at 512^2, full width):", flush=True)
+    sd, recorded = phase_sd(flash)
+    print("kernels at the SD path's shapes:", flush=True)
+    rows += phase_sd_kernels(flash, recorded)
 
     main_row = rows[0]  # shape (a): the main path's 16 px call
     kernels = [{
@@ -440,9 +761,12 @@ def main() -> int:
         "kernels": FLASH_KERNELS,
         "launches": paths["main"]["launches"],
         "combine_launches": paths["main"]["combine_launches"],
-        "launches_by_path": {n: p["launches"] for n, p in paths.items()},
-        "combine_launches_by_path": {n: p["combine_launches"]
-                                     for n, p in paths.items()},
+        "launches_by_path": dict(
+            {n: p["launches"] for n, p in paths.items()},
+            sd_sdedit=sd["launches"]),
+        "combine_launches_by_path": dict(
+            {n: p["combine_launches"] for n, p in paths.items()},
+            sd_sdedit=sd["combine_launches"]),
         "splits": main_row["splits"],
         "max_abs_err": max([r["max_err"] for r in rows]
                            + [f["max_err"] for f in forced.values()]
@@ -460,7 +784,7 @@ def main() -> int:
         "forced_splits_a": {str(s): f for s, f in forced.items()},
         "combine_a": combine,
     }]
-    print(json.dumps({"paths": paths, "card": card}), flush=True)
+    print(json.dumps({"paths": paths, "sd": sd, "card": card}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ it, nor JAX. Activations are NHWC at module boundaries, as in
 
 It runs the DDPM church256 SDEdit path in the tile and window layouts
 (``layout="auto"`` picks per edit) with the DDPM, DDIM and DPM-Solver
-samplers: ``sige_torch.runners.DiffusionRunner``.
+samplers (``sige_torch.runners.DiffusionRunner``), and the Stable
+Diffusion SDEdit and inpainting path (``sige_torch.runners.SDRunner``).
 """
 
 __version__ = "0.1.0"

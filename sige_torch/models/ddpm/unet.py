@@ -44,26 +44,13 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ...nn.module import (Gather, Scatter, ScatterGather,
-                          ScatterWithBlockResidual, SIGECtx, SIGEConv2d,
-                          SIGEModule, WindowState, add_dense_macs, add_macs,
-                          chain_rel)
+from ...nn.module import (Gather, Scatter, SIGECtx, SIGEConv2d, SIGEModule,
+                          WindowState, add_dense_macs, add_macs, chain_rel)
 from ...nn.norm import group_norm_with_affine
 from ...ops.attention import mha
-from ...ops.window import (window_chain_extend, window_chain_extend_up2,
-                           window_epilogue, window_gather, window_slice)
-
-
-def _to_map(x):
-    """Materialize a chain state at a chain break."""
-    return x.to_map() if isinstance(x, WindowState) else x
-
-
-def _up2(x):
-    """Nearest 2x upsample of NHWC ``x`` in one copy."""
-    B, H, W, C = x.shape
-    return x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(
-        B, 2 * H, 2 * W, C)
+from ...ops.window import window_chain_extend, window_slice
+from ..blocks import (FoldedGroupNorm, FoldedNormAffine, ResBlock,
+                      SIGEDownsample, SIGEUpsample, affine, swish, to_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,205 +100,19 @@ def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
     return emb
 
 
-def _swish(x):
-    return x * torch.sigmoid(x)
-
-
-def _affine(x, scale, shift):
-    """``x * scale + shift`` with [B, C] params over NHWC x."""
-    return x * scale[:, None, None, :] + shift[:, None, None, :]
-
-
-class _FoldedGroupNorm(SIGEModule):
-    """GroupNorm whose (scale, shift) affine is cached in
-    full mode and replayed in sparse mode."""
-
-    def __init__(self, channels: int, num_groups: int):
-        super().__init__()
-        self.num_groups = num_groups
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-    def forward(self, x, ctx: SIGECtx, pre_shift=None):
-        """In dense/full mode: normalize x and, in full mode, cache the
-        affine; ``pre_shift`` — a [B, C] offset already added to the
-        *input* (DDPM's additive temb) — folds in as
-        shift += pre_shift * scale (reference: sige_fused_unet.py:87-89).
-
-        In sparse mode: return the cached (scale, shift) for the gather
-        epilogues instead of touching x."""
-        if ctx.mode in ("dense", "full"):
-            xn, scale, shift = group_norm_with_affine(
-                x, self.num_groups, self.weight, self.bias, eps=1e-6)
-            if ctx.mode == "full":
-                if pre_shift is not None:
-                    shift = pre_shift * scale + shift
-                self.cache["scale"], self.cache["shift"] = scale, shift
-            return xn, None, None
-        if ctx.mode == "sparse":
-            return None, self.cache["scale"], self.cache["shift"]
-        raise ValueError(ctx.mode)
-
-
-class _FoldedNormAffine(SIGEModule):
-    """GroupNorm using externally-owned (w, b) params whose equivalent
-    per-channel affine is cached in full mode and replayed in
-    sparse mode (the model-tail variant of _FoldedGroupNorm)."""
-
-    def __init__(self, num_groups: int):
-        super().__init__()
-        self.num_groups = num_groups
-
-    def forward(self, x, w, b, ctx: SIGECtx):
-        if ctx.mode in ("dense", "full"):
-            xn, sc, sh = group_norm_with_affine(x, self.num_groups, w, b,
-                                                eps=1e-6)
-            if ctx.mode == "full":
-                self.cache["scale"], self.cache["shift"] = sc, sh
-            return xn, None, None
-        return None, self.cache["scale"], self.cache["shift"]
-
-
-class SIGEResnetBlock(SIGEModule):
+class SIGEResnetBlock(ResBlock):
     """Reference: diffusion/models/ddpm_arch/sige_fused_unet.py:10-131."""
 
     def __init__(self, cfg: DDPMUNetConfig, in_channels: int,
                  out_channels: int, support_sparse: bool = False):
-        super().__init__()
-        cin, cout = in_channels, out_channels
-        self.in_channels, self.out_channels = cin, cout
-        self.window_chain = cfg.window_chain
-        self.main_sparse = support_sparse and cfg.block_size_normal is not None
-        self.shortcut_sparse = (self.main_sparse and cin != cout
-                                and cfg.block_size_instance is not None)
-        self.norm1 = _FoldedGroupNorm(cin, cfg.num_groups)
-        self.conv1 = SIGEConv2d(cin, cout, kernel_size=3, padding=1,
-                                tile_input=self.main_sparse)
-        self.norm2 = _FoldedGroupNorm(cout, cfg.num_groups)
-        self.conv2 = SIGEConv2d(cout, cout, kernel_size=3, padding=1,
-                                tile_input=self.main_sparse)
-        if self.main_sparse:
-            self.main_gather = Gather(
-                block_size=cfg.block_size_normal, kernel_size=3,
-                conv_stride=1, conv_padding=1, activation="swish")
-            self.sg = ScatterGather(self.main_gather, activation="swish")
-        if cin != cout:
-            self.nin_shortcut = SIGEConv2d(cin, cout, kernel_size=1,
-                                           padding=0,
-                                           tile_input=self.shortcut_sparse)
-            if self.shortcut_sparse:
-                self.shortcut_gather = Gather(
-                    block_size=cfg.block_size_instance, kernel_size=1,
-                    conv_stride=1, conv_padding=0)
-                self.join = ScatterWithBlockResidual(
-                    self.main_gather, self.shortcut_gather)
-            elif self.main_sparse:
-                self.join = Scatter(self.main_gather)
-        elif self.main_sparse:
-            self.join = Scatter(self.main_gather)
+        super().__init__(in_channels, out_channels, cfg.num_groups,
+                         cfg.block_size_normal if support_sparse else None,
+                         cfg.block_size_instance, cfg.window_chain)
 
     def forward(self, x, temb, ctx: SIGECtx):
         """``temb``: [B, out_channels] slice of the fused projection (full /
-        dense modes; ignored in sparse — it lives in the cached shift).
-        ``x`` may be a tuple (h, skip): the U-Net's skip concatenation.
-        Dense/full/tile modes concatenate the maps here; the window-chain
-        sparse path extends each part's window and concatenates windows."""
-        if (ctx.mode == "sparse" and self.main_sparse and self.window_chain
-                and self.main_gather.planned_window()):
-            return self._chain_window(x, ctx)
-        if isinstance(x, tuple):
-            x = torch.cat([_to_map(a) for a in x], dim=-1)
-        else:
-            x = _to_map(x)
-        h, xs = x, x
-        if self.in_channels != self.out_channels:
-            if self.shortcut_sparse:
-                xs = self.shortcut_gather(xs, ctx)
-            xs = self.nin_shortcut(xs, ctx)
-
-        if ctx.mode in ("dense", "full"):
-            if self.main_sparse:
-                h = self.main_gather(h, ctx)  # records geometry/resolution
-            h, _, _ = self.norm1(h, ctx)
-            h = _swish(h)
-            h = self.conv1(h, ctx)
-            if self.main_sparse:
-                h = self.sg(h, ctx)  # caches conv1 output (pre-temb)
-            h = h + temb[:, None, None, :]
-            h, _, _ = self.norm2(h, ctx, pre_shift=temb)
-            h = _swish(h)
-            h = self.conv2(h, ctx)
-        else:  # sparse
-            _, s1, b1 = self.norm1(h, ctx)
-            if self.main_sparse:
-                h = self.main_gather(h, ctx, scale=s1, shift=b1)  # swish fused
-            else:
-                h = _swish(_affine(h, s1, b1))
-            h = self.conv1(h, ctx)
-            _, s2, b2 = self.norm2(h, ctx)
-            if self.main_sparse:
-                h = self.sg(h, ctx, scale=s2, shift=b2)  # swish fused
-            else:
-                h = _swish(_affine(h, s2, b2))
-            h = self.conv2(h, ctx)
-
-        if self.main_sparse:
-            return self.join(h, ctx, residual=xs)
-        return h + xs
-
-    # -- window-resident sparse path -------------------------------------
-    @staticmethod
-    def _extend_part(p, meta, edge, rel=None):
-        if isinstance(p, WindowState):
-            return window_chain_extend(p.win, p.org, p.cache, meta, edge,
-                                       rel=rel)
-        return window_gather(p, meta, edge)
-
-    @staticmethod
-    def _part_window(p, org, shape):
-        if isinstance(p, WindowState):
-            return p.win
-        return window_slice(p, org, shape)
-
-    def _chain_window(self, x, ctx: SIGECtx) -> WindowState:
-        g = self.main_gather
-        meta, edge = g.read_window()
-        org = g.window_origin()
-        parts = x if isinstance(x, tuple) else (x,)
-
-        _, s1, b1 = self.norm1(None, ctx)
-        rel = chain_rel(g)
-        ext = [self._extend_part(p, meta, edge, rel) for p in parts]
-        ext = ext[0] if len(ext) == 1 else torch.cat(ext, dim=-1)
-        ext = window_epilogue(ext, None if len(meta) == 2 else edge, s1, b1,
-                              "swish")
-        h = self.conv1(ext, ctx)
-        _, s2, b2 = self.norm2(h, ctx)  # cached affine includes temb shift
-        h = self.sg(h, ctx, scale=s2, shift=b2)
-        h = self.conv2(h, ctx)
-
-        cache = self.join.cache["original"]
-        res = cache.shape[1:3]
-        _, cov = g.read_wsc(res)
-        WH, WW = cov.shape
-        xs = [self._part_window(p, org, (WH, WW)) for p in parts]
-        xs = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
-        y0w = window_slice(cache, org, (WH, WW))
-        m = cov[None, :, :, None]
-        if self.in_channels != self.out_channels:
-            xs = self.nin_shortcut(xs, ctx)
-            if self.shortcut_sparse:
-                # the two-mask block-residual join (as
-                # window_scatter_block_residual and the tile engine):
-                # out = where(m, main + y1, y0) + where(s, short - y1, 0)
-                _, cov_s = self.shortcut_gather.read_wsc(res)
-                y1w = window_slice(self.join.cache["residual"], org, (WH, WW))
-                s = cov_s[None, :, :, None]
-                zero = torch.zeros((), dtype=h.dtype, device=h.device)
-                out = (torch.where(m, h + y1w, y0w)
-                       + torch.where(s, xs - y1w, zero))
-                return WindowState(out, cache, org)
-        return WindowState(torch.where(m, h + xs, y0w), cache, org)
+        dense modes; None in sparse — it lives in the cached shift)."""
+        return self._run(x, ctx, lambda: temb)
 
 
 class SIGEAttnBlock(SIGEModule):
@@ -326,7 +127,7 @@ class SIGEAttnBlock(SIGEModule):
         super().__init__()
         self.channels = channels
         self.sparse_ok = support_sparse and cfg.block_size_instance is not None
-        self.norm = _FoldedGroupNorm(channels, cfg.num_groups)
+        self.norm = FoldedGroupNorm(channels, cfg.num_groups)
         self.qkv = SIGEConv2d(channels, 3 * channels, kernel_size=1,
                               padding=0, tile_input=self.sparse_ok)
         self.proj_out = SIGEConv2d(channels, channels, kernel_size=1,
@@ -349,7 +150,7 @@ class SIGEAttnBlock(SIGEModule):
         return out.reshape(B, H, W, C)
 
     def forward(self, x, ctx: SIGECtx):
-        x = _to_map(x)  # global attention needs the full map (chain break)
+        x = to_map(x)  # global attention needs the full map (chain break)
         if ctx.mode in ("dense", "full"):
             h = x
             if self.sparse_ok:
@@ -360,7 +161,7 @@ class SIGEAttnBlock(SIGEModule):
             if self.sparse_ok:
                 h = self.gather1(x, ctx, scale=s, shift=b)
             else:
-                h = _affine(x, s, b)
+                h = affine(x, s, b)
         qkv = self.qkv(h, ctx)
         if self.sparse_ok:
             qkv = self.scatter1(qkv, ctx)  # full map: fresh tiles + cache
@@ -371,88 +172,6 @@ class SIGEAttnBlock(SIGEModule):
         if self.sparse_ok:
             return self.scatter2(h, ctx, residual=x)
         return h + x
-
-
-class SIGEDownsample(SIGEModule):
-    """Stride-2 conv with (0,1,0,1) asymmetric padding in dense/full mode;
-    sparse tiles carry their own halo (gather padding 0)
-    (reference: sige_fused_unet.py:229-248)."""
-
-    def __init__(self, cfg: DDPMUNetConfig, channels: int,
-                 support_sparse: bool = False):
-        super().__init__()
-        self.sparse_ok = support_sparse and cfg.block_size_normal is not None
-        self.conv = SIGEConv2d(channels, channels, kernel_size=3, stride=2,
-                               padding=((0, 1), (0, 1)),
-                               tile_input=self.sparse_ok)
-        if self.sparse_ok:
-            self.g = Gather(block_size=cfg.block_size_normal, kernel_size=3,
-                            conv_stride=2, conv_padding=0)
-            self.s = Scatter(self.g)
-
-    def forward(self, x, ctx: SIGECtx):
-        if (self.sparse_ok and ctx.mode == "sparse"
-                and self.g.planned_window() and "wdn_ok" in self.g.plan_host):
-            # window-resident across the downsample: the stride-2
-            # extraction window spans ~2x the coarse canonical window,
-            # which the planner's nesting makes cover the carried fine
-            # window
-            meta, edge = self.g.read_window()
-            if isinstance(x, WindowState):
-                ext = window_chain_extend(x.win, x.org, x.cache, meta, edge)
-            else:
-                ext = window_gather(x, meta, edge)
-            h = self.conv(ext, ctx)
-            cache = self.s.cache["original"]
-            org, cov = self.g.read_wsc(cache.shape[1:3])
-            y0w = window_slice(cache, org, cov.shape)
-            return WindowState(torch.where(cov[None, :, :, None], h, y0w),
-                               cache, org)
-        x = _to_map(x)
-        if self.sparse_ok:
-            x = self.g(x, ctx)
-        x = self.conv(x, ctx)
-        if self.sparse_ok:
-            x = self.s(x, ctx)
-        return x
-
-
-class SIGEUpsample(SIGEModule):
-    """Nearest 2x upsample + 3x3 conv (reference: sige_fused_unet.py:212-227)."""
-
-    def __init__(self, cfg: DDPMUNetConfig, channels: int,
-                 support_sparse: bool = False):
-        super().__init__()
-        self.sparse_ok = support_sparse and cfg.block_size_normal is not None
-        self.conv = SIGEConv2d(channels, channels, kernel_size=3, padding=1,
-                               tile_input=self.sparse_ok)
-        if self.sparse_ok:
-            self.g = Gather(block_size=cfg.block_size_normal, kernel_size=3,
-                            conv_stride=1, conv_padding=1)
-            self.s = Scatter(self.g)
-
-    def forward(self, x, ctx: SIGECtx):
-        if (isinstance(x, WindowState) and self.sparse_ok
-                and self.g.planned_window() and "wup_ok" in self.g.plan_host):
-            # window-resident across the resample: the doubled carried
-            # window covers the extraction window
-            meta, edge = self.g.read_window()
-            ext = window_chain_extend_up2(
-                _up2(x.win), (2 * x.org[0], 2 * x.org[1]), meta, edge)
-            h = self.conv(ext, ctx)
-            cache = self.s.cache["original"]
-            org = self.g.window_origin()
-            _, cov = self.g.read_wsc(cache.shape[1:3])
-            y0w = window_slice(cache, org, cov.shape)
-            return WindowState(torch.where(cov[None, :, :, None], h, y0w),
-                               cache, org)
-        x = _up2(_to_map(x))
-        if self.sparse_ok:
-            x = self.g(x, ctx)
-        x = self.conv(x, ctx)
-        if self.sparse_ok:
-            x = self.s(x, ctx)
-        return x
 
 
 class SIGEFusedUNet(SIGEModule):
@@ -501,8 +220,8 @@ class SIGEFusedUNet(SIGEModule):
             down_blocks.append(nn.ModuleList(blocks))
             down_attns.append(nn.ModuleList(attns))
             if i != nres - 1:
-                downsamples.append(SIGEDownsample(cfg, block_in,
-                                                  support_sparse=sparse))
+                downsamples.append(SIGEDownsample(
+                    block_in, cfg.block_size_normal if sparse else None))
                 curr_res //= 2
         self.down_blocks = nn.ModuleList(down_blocks)
         self.down_attns = nn.ModuleList(down_attns)
@@ -537,8 +256,8 @@ class SIGEFusedUNet(SIGEModule):
             up_blocks.insert(0, nn.ModuleList(blocks))
             up_attns.insert(0, nn.ModuleList(attns))
             if i != 0:
-                upsamples.insert(0, SIGEUpsample(cfg, block_in,
-                                                 support_sparse=True))
+                upsamples.insert(0, SIGEUpsample(block_in,
+                                                 cfg.block_size_normal))
                 curr_res *= 2
         self.up_blocks = nn.ModuleList(up_blocks)
         self.up_attns = nn.ModuleList(up_attns)
@@ -557,7 +276,7 @@ class SIGEFusedUNet(SIGEModule):
         if self._tail_sparse:
             # param-free SIGE pair for the tail: norm_out's affine is
             # folded from the full pass into the gather epilogue
-            self.norm_out_fold = _FoldedNormAffine(cfg.num_groups)
+            self.norm_out_fold = FoldedNormAffine(cfg.num_groups)
             self.out_gather = Gather(block_size=cfg.block_size_normal,
                                      kernel_size=3, conv_stride=1,
                                      conv_padding=1, activation="swish")
@@ -565,11 +284,11 @@ class SIGEFusedUNet(SIGEModule):
 
     def _tail(self, h, ctx: SIGECtx):
         if ctx.mode == "full":
-            h = _to_map(h)
+            h = to_map(h)
             hn, _, _ = self.norm_out_fold(
                 h, self.norm_out_scale, self.norm_out_bias, ctx)
             self.out_gather(h, ctx)  # records meta
-            out = self.conv_out(_swish(hn), ctx)
+            out = self.conv_out(swish(hn), ctx)
             return self.out_scatter(out, ctx)
         _, sc, sh = self.norm_out_fold(
             None, self.norm_out_scale, self.norm_out_bias, ctx)
@@ -579,7 +298,7 @@ class SIGEFusedUNet(SIGEModule):
                                       sh, "swish",
                                       rel=chain_rel(self.out_gather))
         else:
-            ext = self.out_gather(_to_map(h), ctx, scale=sc, shift=sh)
+            ext = self.out_gather(to_map(h), ctx, scale=sc, shift=sh)
         out = self.conv_out(ext, ctx)
         return self.out_scatter(out, ctx)
 
@@ -587,9 +306,9 @@ class SIGEFusedUNet(SIGEModule):
         cfg = self.cfg
         temb = timestep_embedding(t, cfg.ch)
         add_dense_macs(ctx, temb, cfg.temb_ch)
-        temb = _swish(self.temb_dense0(temb))
+        temb = swish(self.temb_dense0(temb))
         add_dense_macs(ctx, temb, cfg.temb_ch)
-        temb = _swish(self.temb_dense1(temb))
+        temb = swish(self.temb_dense1(temb))
         add_dense_macs(ctx, temb, self.temb_proj_dim)
         return self.temb_proj(temb)
 
@@ -644,8 +363,8 @@ class SIGEFusedUNet(SIGEModule):
 
         if self._tail_sparse and ctx.mode != "dense":
             return self._tail(h, ctx)
-        h = _to_map(h)
+        h = to_map(h)
         h, _, _ = group_norm_with_affine(
             h, cfg.num_groups, self.norm_out_scale, self.norm_out_bias,
             eps=1e-6)
-        return self.conv_out(_swish(h), ctx)
+        return self.conv_out(swish(h), ctx)

@@ -42,6 +42,21 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
     return out.reshape(B, N, heads * dim_head)
 
 
+def stale_fresh_biases(cov: torch.Tensor, org, res):
+    """The additive biases of :func:`masked_mha` for a window at host
+    origin ``org`` with coverage ``cov`` (bool [WH, WW]) on a map of
+    ``res``: fresh window tokens live where covered, stale map tokens live
+    everywhere else, so exactly one copy of every position is live.
+    Returns (bias_s [H*W], bias_f [WH*WW]), float32 on ``cov``'s device."""
+    WH, WW = cov.shape
+    zero = torch.zeros((), dtype=torch.float32, device=cov.device)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=cov.device)
+    bias_s = torch.zeros(tuple(res), dtype=torch.float32, device=cov.device)
+    bias_s[org[0]:org[0] + WH, org[1]:org[1] + WW] = torch.where(
+        cov, neg, zero)
+    return bias_s.reshape(-1), torch.where(cov.reshape(-1), zero, neg)
+
+
 def masked_mha(q: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                kf: torch.Tensor, vf: torch.Tensor, bias_s: torch.Tensor,
                bias_f: torch.Tensor, heads: int, dim_head: int

@@ -8,9 +8,14 @@ segment: flax's list-module names ``down_blocks_0_1`` become torch's
 
   * conv ``kernel`` HWIO -> ``weight`` OIHW (``F.conv2d``'s layout);
   * ``Dense`` ``kernel`` [in, out] -> ``Linear`` ``weight`` [out, in];
-  * norm ``scale`` -> ``weight``; ``bias`` -> ``bias``;
-  * top-level parameters (``norm_out_scale`` / ``norm_out_bias``) keep
-    their names.
+  * norm ``scale`` (GroupNorm and the SD transformers' LayerNorm) ->
+    ``weight``; ``bias`` -> ``bias``; a ``Dense`` without bias (the SD
+    attention projections) has no ``bias`` on either side;
+  * top-level parameters (``norm_out_scale`` / ``out_norm_scale`` and
+    their biases) keep their names.
+
+It serves the DDPM U-Net and the SD U-Net, encoder and decoder alike:
+their trees hold no other kind of leaf.
 """
 
 from __future__ import annotations

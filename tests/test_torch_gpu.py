@@ -188,3 +188,88 @@ def test_tiny_window_unet_card_matches_cpu(chain):
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert (got - want).abs().max().item() <= 1e-4
     assert (outs["cuda"][2] - outs["cuda"][0]).abs().max().item() <= 1e-4
+
+
+def _sd_card_vs_cpu(make, args0, args1, masks):
+    """full, sparse(edit), sparse(original) of one SD model on the card
+    and on the CPU (the same seeded weights), window layout."""
+    from sige_torch.nn import SIGEModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = SIGEModel(make(), layout="window", device=dev)
+        model.bucket_min = 1
+        model.init(0)
+        a0 = [a.to(dev) for a in args0]
+        a1 = [a.to(dev) for a in args1]
+        full = model.full(*a0)
+        model.set_masks(masks)
+        before = flash.flash_mha.launches
+        outs[dev] = [full.cpu(), model.sparse(*a1).cpu(),
+                     model.sparse(*a0).cpu()]
+        if dev == "cuda":
+            assert flash.flash_mha.launches > before
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert (got - want).abs().max().item() <= 1e-4
+    assert (outs["cuda"][2] - outs["cuda"][0]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chain", [True, False])
+def test_tiny_sd_unet_card_matches_cpu(chain):
+    """The tiny SD U-Net of tests/test_sd.py at batch 2 (guidance): its
+    self- and cross-attentions (masked stale/fresh with the chain) run
+    the flash kernel on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    import numpy as np
+
+    from sige_torch.core.masks import dilate_mask, downsample_mask
+    from sige_torch.models.sd import SDUNetConfig, SIGESDUNet
+
+    cfg = SDUNetConfig(in_channels=4, model_channels=32, out_channels=4,
+                       num_res_blocks=1, attention_resolutions=(1, 2),
+                       channel_mult=(1, 2), num_heads=4, context_dim=16,
+                       num_groups=8, window_chain=chain)
+    gen = torch.Generator().manual_seed(3)
+    x0 = torch.randn(2, 16, 16, 4, generator=gen)
+    mask = np.zeros((16, 16), bool)
+    mask[4:9, 5:11] = True
+    x1 = x0 + torch.from_numpy(mask)[None, :, :, None] * torch.randn(
+        2, 16, 16, 4, generator=gen)
+    t = torch.full((2,), 3.0)
+    c = torch.randn(2, 7, 16, generator=gen)
+    _sd_card_vs_cpu(lambda: SIGESDUNet(cfg), (x0, t, c), (x1, t, c),
+                    downsample_mask(dilate_mask(mask, 1), min_res=4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["encoder", "decoder"])
+def test_tiny_sd_vae_card_matches_cpu(kind):
+    """The tiny SD VAE of tests/test_sd.py: the mid block's masked
+    stale/fresh attention runs the flash kernel on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    import numpy as np
+
+    from sige_torch.core.masks import dilate_mask, downsample_mask
+    from sige_torch.models.sd import SDVAEConfig, SIGEDecoder, SIGEEncoder
+
+    cfg = SDVAEConfig(ch=16, ch_mult=(1, 2), num_res_blocks=1,
+                      attn_resolutions=(), z_channels=4, resolution=32,
+                      num_groups=8)
+    mask = np.zeros((32, 32), bool)
+    mask[8:13, 10:16] = True
+    gen = torch.Generator().manual_seed(4)
+    if kind == "encoder":
+        x0, m, make = torch.randn(1, 32, 32, 3, generator=gen), mask, \
+            lambda: SIGEEncoder(cfg)
+    else:
+        x0, m, make = torch.randn(1, 16, 16, 4, generator=gen), \
+            mask[::2, ::2], lambda: SIGEDecoder(cfg)
+    x1 = x0 + 0.7 * torch.from_numpy(m)[None, :, :, None] * torch.randn(
+        x0.shape, generator=gen)
+    _sd_card_vs_cpu(make, (x0,), (x1,),
+                    downsample_mask(dilate_mask(mask, 1), min_res=4))
