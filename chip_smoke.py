@@ -9,8 +9,9 @@ Phases (any failure raises and the script exits non-zero):
 2. build  — compiles every CUDA kernel of the port from ``sige_torch/csrc``
             with nvcc for sm_90a (into ``build/sige_torch/``), all at once;
 3. kernels — holds each kernel against its plain PyTorch version at the
-            main path's shapes and at synthetic SD shapes (a)-(e) (TF32 off for matmuls and
-            convs, so the plain versions are true fp32), and times the
+            main path's shapes and at synthetic SD shapes (a)-(e) (inside
+            the engine's fp32 scope, so the plain versions are true fp32),
+            and times the
             kernel, the plain version and one library call that computes
             the same function (a yardstick only; the port never calls it):
             ``ms`` is CUDA-event time over back-to-back calls (what a
@@ -23,9 +24,16 @@ Phases (any failure raises and the script exits non-zero):
             path's shape (a) the kernels also run with S forced to 1 and
             to the most tiles, and the split path is held against its
             plain version (partials per key range, plain combine);
-4. small  — a tiny U-Net on the card agrees with the same U-Net on the
-            CPU, in the tile layout and in the window layout with chains;
-5. paths  — the church256 DDPM SDEdit path at full width through
+4. small  — a tiny DDPM U-Net on the card agrees with the same U-Net on
+            the CPU, in the tile layout and in the window layout with
+            chains, and so does a tiny PD U-Net (window layout);
+5. retime — what cuDNN's benchmark mode (which the engine sets, as the
+            reference does) costs per new edit: the DDPM main path's
+            ``generate`` on a first edit, again, on a second edit with
+            other window shapes, again; then the full and sparse forwards
+            through the engine against the same module called with
+            benchmark mode off (cuDNN's heuristic), in turns;
+6. paths  — the church256 DDPM SDEdit path at full width through
             ``sige_torch.runners.DiffusionRunner``, three times:
             * ``main``: the runner's default, ``layout="auto"``, which
               resolves to the window layout (with chains) on this edit,
@@ -42,20 +50,38 @@ Phases (any failure raises and the script exits non-zero):
             GMACs, peak MB). ``generate`` runs with the launch counters
             (attention and combine kernels) set to 0 just before and read
             just after, each held to its exact expected count;
-6. sd     — the Stable Diffusion SDEdit path at full width through
+7. sd     — the Stable Diffusion SDEdit path at full width through
             ``sige_torch.runners.SDRunner`` (SD v1 U-Net with guidance 7.5
             at batch 2, the VAE at 512^2, 5 twin steps): ``sdedit`` with
             the launch counters set to 0 just before and read just after,
             held to the count derived from the config and the plans;
             sparse = full on the original for the encoder, U-Net and
             decoder, also after a sparse pass on the edit; per model and
-            mode the launches, latency, GMACs and peak MB;
-7. sd kernels — the flash kernel against its plain version at every
+            mode the launches, latency, GMACs and peak MB (the decoder's
+            sparse forward held below its full one); ``sdedit`` again, and
+            twice on a second edit with other window shapes;
+8. sd kernels — the flash kernel against its plain version at every
             distinct (B, N, M, H, D) the SD path's forwards give it, the
             masked rows with the biases the models built from their plans:
             (f) the decoder's mid attention, (g) its masked stale/fresh
             form, (h) the encoder's masked form, then each U-Net self-,
-            cross- and masked self-attention.
+            cross- and masked self-attention;
+9. pd     — the Progressive Distillation SDEdit path at full width
+            through ``sige_torch.runners.PDRunner`` (church pd256: 8
+            total steps, 5 sample steps from noise level 5, the DDPM
+            paths' edit): the layout ``auto`` ran (window), sparse = full
+            on the original, also after a sparse pass on the edit,
+            ``generate`` with the launch counters set to 0 just before and
+            read just after, held to the count derived from the config;
+            dense, full and sparse forwards: launches, latency, GMACs,
+            peak MB;
+10. pd kernels — the flash kernel against its plain version at every
+            distinct call of the PD U-Net (multi-head, D = 64).
+
+The paths (phases 4-7 and 9) run under PyTorch's default precision flags,
+which run cuDNN convs in TF32: the engine holds fp32 and benchmark mode
+for its own forwards, and the script checks that the flags are the
+defaults again at its end. The kernel phases enter the same scope.
 
 The line before the last is the ``kernels`` JSON; the last line is the
 device JSON.
@@ -68,6 +94,9 @@ import time
 
 import numpy as np
 import torch
+
+from sige_torch.nn.engine import (fp32_scope, precision_flags,
+                                  set_precision_flags)
 
 # H100 SXM published peaks: fp32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -259,52 +288,171 @@ def phase_forced_splits(flash):
     return forced, combine
 
 
-def edit_pair(R: int):
-    """The ``__graft_entry__._build`` edit: a square of ~1.2% of the canvas
-    at (R/4, R/4) over a random image, both from default_rng(0)."""
+def edit_pair(R: int, frac: float = 0.012, at=None):
+    """The ``__graft_entry__._build`` edit: a square of ``frac`` (~1.2%) of
+    the canvas at ``at`` (default (R/4, R/4)) over a random image, both
+    from default_rng(0)."""
     rng = np.random.default_rng(0)
     original = rng.random((R, R, 3)).astype(np.float32)
     edited = original.copy()
-    side = max(4, int(round((0.012 * R * R) ** 0.5)))
-    edited[R // 4: R // 4 + side, R // 4: R // 4 + side] = rng.random(
-        (side, side, 3))
+    side = max(4, int(round((frac * R * R) ** 0.5)))
+    r, c = at or (R // 4, R // 4)
+    edited[r: r + side, c: c + side] = rng.random((side, side, 3))
     return original, edited
 
 
-def phase_small_reference():
-    """A tiny U-Net on the card against the same U-Net on the CPU (the CPU
-    port is the one the tests hold against sige_tpu), in the tile layout
-    and in the window layout with chains."""
-    from sige_torch.models.ddpm import DDPMUNetConfig
-    from sige_torch.runners import DiffusionRunConfig, DiffusionRunner
+def second_edit(R: int):
+    """A second edit whose windows differ in shape from
+    :func:`edit_pair`'s at every level: a 3% square at (R/2, 3R/8)."""
+    return edit_pair(R, frac=0.03, at=(R // 2, 3 * R // 8))
 
-    cfg = DDPMUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
-                         attn_resolutions=(16,), resolution=32,
-                         sparse_resolution_threshold=32)
-    rc = DiffusionRunConfig(sampler_type="ddim")
+
+def phase_small_reference():
+    """A tiny DDPM U-Net on the card against the same U-Net on the CPU (the
+    CPU port is the one the tests hold against sige_tpu), in the tile
+    layout and in the window layout with chains, and a tiny PD U-Net in
+    the window layout; under PyTorch's default precision flags."""
+    from sige_torch.models.ddpm import DDPMUNetConfig
+    from sige_torch.models.pd import PDUNetConfig
+    from sige_torch.runners import (DiffusionRunConfig, DiffusionRunner,
+                                    PDRunConfig, PDRunner)
+
+    ddpm = DDPMUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                          attn_resolutions=(16,), resolution=32,
+                          sparse_resolution_threshold=32)
+    pd = PDUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                      attn_resolutions=(8,), resolution=32, temb_ch=64,
+                      head_dim=16, sparse_resolution_threshold=16)
     original, edited = edit_pair(32)
-    for layout in ("tiles", "window"):
+    cases = [("DDPM", lambda dev, layout: DiffusionRunner(
+                 ddpm, DiffusionRunConfig(sampler_type="ddim"),
+                 layout=layout, device=dev, seed=0), layout)
+             for layout in ("tiles", "window")]
+    cases.append(("PD", lambda dev, layout: PDRunner(
+        pd, PDRunConfig(), layout=layout, device=dev, seed=0), "window"))
+    for name, make, layout in cases:
         outs = {}
         for dev in ("cpu", "cuda"):
-            runner = DiffusionRunner(cfg, rc, layout=layout, device=dev,
-                                     seed=0)
+            runner = make(dev, layout)
             x0, x1, _ = runner.preprocess(original, edited)
             if runner.active_layout != layout:
                 raise AssertionError(f"ran {runner.active_layout}, asked "
                                      f"for {layout}")
-            t = torch.full((1,), 17.0, device=dev)
-            outs[dev] = [runner.model.full(x0, t).cpu(),
-                         runner.model.sparse(x1, t).cpu()]
+            cond = runner._cond()
+            outs[dev] = [runner.model.full(x0, cond).cpu(),
+                         runner.model.sparse(x1, cond).cpu()]
         err = max((a - b).abs().max().item()
                   for a, b in zip(outs["cpu"], outs["cuda"]))
-        print(f"  tiny U-Net card vs CPU, {layout} (full, sparse): max err "
-              f"{err:.3e}", flush=True)
+        print(f"  tiny {name} U-Net card vs CPU, {layout} (full, sparse): max "
+              f"err {err:.3e}", flush=True)
         if not (err <= TOL):
-            raise AssertionError(f"tiny U-Net card vs CPU ({layout}) max err "
-                                 f"{err:.3e}")
+            raise AssertionError(f"tiny {name} U-Net card vs CPU ({layout}) "
+                                 f"max err {err:.3e}")
 
 
 STEPS = 5  # sampling steps of every full-width generate
+RETIME_ITERS = 20  # forwards per mode and cuDNN setting in phase_retime
+
+
+def events_ms(fn, iters):
+    """Median and p90 of ``iters`` calls of ``fn``, each between two CUDA
+    events."""
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in events)
+    return float(np.median(times)), float(np.percentile(times, 90))
+
+
+def timed_calls(calls):
+    """Host seconds of each ``(label, fn)`` in turn, each synchronised."""
+    out = {}
+    for label, fn in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[label] = time.perf_counter() - t0
+    return out
+
+
+def phase_retime(flash, rc):
+    """What cuDNN's benchmark mode costs per new edit on the DDPM main
+    path, and what it gains per forward. ``generate`` (layout auto ->
+    window) on the first edit of the process's full-width DDPM shapes,
+    again, on a second edit with other window shapes, again: each first
+    call times cuDNN's algorithms for its new conv shapes (the first edit
+    also pays the process's other first-use costs). Then the full and
+    sparse forwards over the second edit's plan through the engine
+    (benchmark mode) and through the same module with benchmark mode off
+    (cuDNN's heuristic, still fp32), in turns: heuristic, engine, engine,
+    heuristic."""
+    from sige_torch.models.ddpm import DDPMUNetConfig
+    from sige_torch.nn.module import SIGECtx
+    from sige_torch.runners import DiffusionRunner
+
+    cfg = DDPMUNetConfig()
+    runner = DiffusionRunner(cfg, rc, device="cuda", seed=0)
+    a, b = edit_pair(cfg.resolution), second_edit(cfg.resolution)
+    secs = timed_calls([(label, lambda e=e: runner.generate(*e, seed=0))
+                        for label, e in (("a_first", a), ("a_again", a),
+                                         ("b_first", b), ("b_again", b))])
+    print(f"  [retime] DDPM generate, s: first edit {secs['a_first']:.3f}, "
+          f"again {secs['a_again']:.3f}; second edit (other windows) "
+          f"{secs['b_first']:.3f}, again {secs['b_again']:.3f}", flush=True)
+
+    x0, x1, _ = runner.preprocess(*b)
+    t = torch.zeros((1,), device="cuda")
+
+    def heuristic(mode, x):
+        saved = precision_flags()
+        set_precision_flags(("ieee", "ieee", False))
+        try:
+            with torch.inference_mode():
+                runner.module(x, t, ctx=SIGECtx(mode=mode))
+        finally:
+            set_precision_flags(saved)
+
+    fwd = {"full": (runner.model.full, x0), "sparse": (runner.model.sparse,
+                                                        x1)}
+    per = {}
+    for mode, (engine, x) in fwd.items():
+        for _ in range(3):
+            heuristic(mode, x)
+            engine(x, t)
+        h1 = events_ms(lambda: heuristic(mode, x), RETIME_ITERS)
+        e1 = events_ms(lambda: engine(x, t), RETIME_ITERS)
+        e2 = events_ms(lambda: engine(x, t), RETIME_ITERS)
+        h2 = events_ms(lambda: heuristic(mode, x), RETIME_ITERS)
+        busy_h = device_ms(lambda: heuristic(mode, x), RETIME_ITERS)[0]
+        busy_e = device_ms(lambda: engine(x, t), RETIME_ITERS)[0]
+        per[mode] = {"heuristic_ms": [h1[0], h2[0]],
+                     "benchmark_ms": [e1[0], e2[0]],
+                     "heuristic_busy_ms": busy_h, "benchmark_busy_ms": busy_e}
+        print(f"  [retime] DDPM {mode} forward median ms: heuristic "
+              f"{h1[0]:.3f} / {h2[0]:.3f}, benchmark mode {e1[0]:.3f} / "
+              f"{e2[0]:.3f}; kernel busy ms: heuristic {busy_h:.3f}, "
+              f"benchmark mode {busy_e:.3f}", flush=True)
+    # the gain in kernel busy time: the forwards are host-bound, so their
+    # event times move with the host more than with the algorithms
+    gain_ms = sum(n * (per[m]["heuristic_busy_ms"]
+                       - per[m]["benchmark_busy_ms"])
+                  for m, n in (("full", 1 + STEPS), ("sparse", STEPS)))
+    extra = {e: 1e3 * (secs[f"{e}_first"] - secs[f"{e}_again"])
+             for e in ("a", "b")}
+    print(f"  [retime] per generate ({1 + STEPS} full + {STEPS} sparse "
+          f"forwards) benchmark mode gains {gain_ms:.2f} ms of kernel busy "
+          f"time; a new edit "
+          f"costs {extra['b']:.1f} ms more than its repeat, the first "
+          f"{extra['a']:.1f} ms", flush=True)
+    del runner
+    torch.cuda.empty_cache()
+    return {"generate_s": secs, "forwards": per, "gain_ms_per_generate":
+            float(gain_ms)}
 
 
 def expected_launches(flash, cfg):
@@ -490,7 +638,8 @@ def forward_stats(flash, name, model, args, mode, calls, iters=SD_ITERS):
     after 3 warm-ups: median and p90), analytic GMACs and peak MB."""
     from sige_torch.nn.module import SIGECtx
 
-    fwd = {"full": model.full, "sparse": model.sparse}[mode]
+    fwd = {"dense": model.dense, "full": model.full,
+           "sparse": model.sparse}[mode]
     flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
     fwd(*args)
     torch.cuda.synchronize()
@@ -501,27 +650,19 @@ def forward_stats(flash, name, model, args, mode, calls, iters=SD_ITERS):
                              f"expected {want}")
     for _ in range(3):
         fwd(*args)
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    for start, end in events:
-        start.record()
-        fwd(*args)
-        end.record()
-    torch.cuda.synchronize()
-    times = sorted(a.elapsed_time(b) for a, b in events)
+    median, p90 = events_ms(lambda: fwd(*args), iters)
     ctx = SIGECtx(mode=mode, macs=[])
-    with torch.inference_mode():
+    with torch.inference_mode(), fp32_scope():
         model.module(*args, ctx=ctx)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fwd(*args)
     torch.cuda.synchronize()
     res = {"launches": got[0], "combine_launches": got[1],
-           "latency_ms": float(np.median(times)),
-           "latency_p90_ms": float(np.percentile(times, 90)),
+           "latency_ms": median, "latency_p90_ms": p90,
            "iters": iters, "macs_g": sum(ctx.macs) / 1e9,
            "peak_mb": torch.cuda.max_memory_allocated() / 2**20}
-    print(f"  [sd {name}] {mode}: {res['latency_ms']:.3f} ms median (p90 "
+    print(f"  [{name}] {mode}: {res['latency_ms']:.3f} ms median (p90 "
           f"{res['latency_p90_ms']:.3f}, n={iters}), {res['macs_g']:.2f} "
           f"GMACs, peak {res['peak_mb']:.1f} MB, flash launches {got[0]} + "
           f"{got[1]} combine (expected {want[0]} + {want[1]})", flush=True)
@@ -641,19 +782,39 @@ def phase_sd(flash):
     print(f"  [sd] {len(recorded)} distinct flash calls (B, N, M, H, D, "
           f"masked): {sorted(recorded)}", flush=True)
 
-    prof = {n: {mode: forward_stats(flash, n, models[n], args[n][0]
+    prof = {n: {mode: forward_stats(flash, f"sd {n}", models[n], args[n][0]
                                     if mode == "full" else args[n][1], mode,
                                     calls[n, mode])
                 for mode in ("full", "sparse")}
             for n in ("unet", "decoder", "encoder")}
+    dec = prof["decoder"]
+    print(f"  [sd decoder] sparse forward {dec['sparse']['latency_ms']:.3f} "
+          f"ms (peak {dec['sparse']['peak_mb']:.1f} MB) against full "
+          f"{dec['full']['latency_ms']:.3f} ms (peak "
+          f"{dec['full']['peak_mb']:.1f} MB)", flush=True)
+    if not dec["sparse"]["latency_ms"] < dec["full"]["latency_ms"]:
+        raise AssertionError("sd decoder: the sparse forward is not below "
+                             "the full one")
     resident = {n: resident_mb(m) for n, m in models.items()}
     print("  [sd] resident (params + caches) MB: " + ", ".join(
         f"{n} {v:.1f}" for n, v in resident.items()), flush=True)
 
+    # what a new edit costs: the first sdedit above timed cuDNN's
+    # algorithms for every shape; again, then a second edit (other
+    # window shapes at every level), again
+    b = [2.0 * a - 1.0 for a in second_edit(runner.vae_cfg.resolution)]
+    secs = dict(a_first=sdedit_s, **timed_calls([
+        (label, lambda e=e: runner.sdedit(*e, uc=uc, c=c, seed=0))
+        for label, e in (("a_again", (init, edit)), ("b_first", b),
+                         ("b_again", b))]))
+    print(f"  [sd retime] sdedit, s: first edit {secs['a_first']:.3f}, "
+          f"again {secs['a_again']:.3f}; second edit (other windows) "
+          f"{secs['b_first']:.3f}, again {secs['b_again']:.3f}", flush=True)
+
     result = {"sdedit_s": sdedit_s, "launches": launches,
               "combine_launches": combines, "twin_steps": t_enc,
               "params_m": params, "exact": exact, "profile": prof,
-              "resident_mb": resident,
+              "resident_mb": resident, "retime_sdedit_s": secs,
               "unet_calls": {m: len(calls["unet", m]) for m in
                              ("full", "sparse")}}
     del runner, models, args
@@ -705,18 +866,132 @@ def phase_sd_kernels(flash, recorded):
     return rows
 
 
+PD_ITERS = 20  # timed forwards per mode
+
+
+def pd_attention_calls(cfg):
+    """(B, N, M, heads, D) of every flash call of one PD U-Net forward at
+    batch 1, from the config: the attention blocks at ``attn_resolutions``
+    (``num_res_blocks`` per level down, one more up) and the middle
+    block. They have no sparse path, so every mode makes the same calls."""
+    levels = [(cfg.resolution >> i, cfg.ch * m)
+              for i, m in enumerate(cfg.ch_mult)]
+    maps = []
+    for res, ch in levels:
+        if res in cfg.attn_resolutions:
+            maps += [(res, ch)] * cfg.num_res_blocks
+    maps.append(levels[-1])
+    for res, ch in reversed(levels):
+        if res in cfg.attn_resolutions:
+            maps += [(res, ch)] * (cfg.num_res_blocks + 1)
+    return [(1, res * res, res * res, ch // cfg.head_dim, cfg.head_dim)
+            for res, ch in maps]
+
+
+def phase_pd(flash):
+    """The PD SDEdit path at full width through ``PDRunner``: church pd256
+    (``PDUNetConfig()``, random weights from seed 0), ``PDRunConfig()`` (8
+    total steps, 5 sample steps from noise level 5), the DDPM paths'
+    256^2 edit."""
+    from sige_torch.models.pd import PDUNetConfig
+    from sige_torch.runners import PDRunConfig, PDRunner
+
+    cfg, rc = PDUNetConfig(), PDRunConfig()
+    t0 = time.perf_counter()
+    runner = PDRunner(cfg, rc, device="cuda", seed=0)
+    original, edited = edit_pair(cfg.resolution)
+    x0, x1, _ = runner.preprocess(original, edited)
+    torch.cuda.synchronize()
+    params_m = sum(p.numel() for p in runner.module.parameters()) / 1e6
+    print(f"  [pd] runner + preprocess: {time.perf_counter() - t0:.2f} s, "
+          f"layout {runner.model.layout!r} ran {runner.active_layout!r}, "
+          f"edit ratio {runner.last_edit_ratio:.4f}, params {params_m:.1f} M",
+          flush=True)
+    if runner.active_layout != "window":
+        raise AssertionError(f"pd: ran {runner.active_layout}, expected "
+                             f"window")
+    ls = runner._cond()
+    full = runner.model.full(x0, ls)
+    errs = [(runner.model.sparse(x0, ls) - full).abs().max().item()]
+    runner.model.sparse(x1, ls)
+    errs.append((runner.model.sparse(x0, ls) - full).abs().max().item())
+    print(f"  [pd] sparse(x0) vs full(x0): max err {errs[0]:.3e}; after a "
+          f"sparse(x1): {errs[1]:.3e}", flush=True)
+    if not all(e < TOL for e in errs):
+        raise AssertionError(f"pd: sparse(x0) != full(x0): {errs}")
+
+    # the path, through the runner's own entry point: counters set to 0
+    # just before, read just after
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    t0 = time.perf_counter()
+    out = runner.generate(original, edited, seed=0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = flash.flash_mha.launches
+    combines = flash.flash_mha.combine_launches
+    calls = pd_attention_calls(cfg)
+    forwards = 1 + 2 * rc.sample_steps
+    want, want_combines = expected_counts(flash, calls * forwards)
+    print(f"  [pd] generate: {rc.sample_steps} twin steps in {gen_s:.2f} s; "
+          f"flash launches {launches} (expected {want} = {len(calls)} per "
+          f"forward x {forwards}), combine launches {combines} (expected "
+          f"{want_combines})", flush=True)
+    if (launches, combines) != (want, want_combines) or want != 242:
+        raise AssertionError(f"pd: launches {launches} + {combines}, "
+                             f"expected {want} (242) + {want_combines}")
+    R = cfg.resolution
+    if out.shape != (R, R, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"pd: generate output {out.shape}, finite "
+                             f"{np.isfinite(out).all()}")
+
+    recorded = record_flash_calls({"pd": (runner.model, ((x0, ls),
+                                                         (x1, ls)))})
+    if {k[:5] for k in recorded} != set(calls):
+        raise AssertionError(f"pd: flash calls {sorted(recorded)}, derived "
+                             f"{sorted(set(calls))}")
+    print(f"  [pd] {len(recorded)} distinct flash calls (B, N, M, H, D, "
+          f"masked): {sorted(recorded)}", flush=True)
+    args = {"dense": (x1, ls), "full": (x0, ls), "sparse": (x1, ls)}
+    prof = {mode: forward_stats(flash, "pd", runner.model, args[mode], mode,
+                                calls, iters=PD_ITERS)
+            for mode in ("dense", "full", "sparse")}
+    resident = resident_mb(runner.model)
+    print(f"  [pd] resident (params + caches) MB: {resident:.1f}",
+          flush=True)
+    result = {"layout": runner.active_layout, "params_m": params_m,
+              "exact": errs, "generate_s": gen_s, "launches": launches,
+              "combine_launches": combines, "profile": prof,
+              "resident_mb": resident}
+    del runner
+    torch.cuda.empty_cache()
+    return result, recorded
+
+
+def phase_pd_kernels(flash, recorded, first: str):
+    """Kernel rows, one at every distinct flash call of the PD path
+    (random q, k, v; no bias), labelled from ``first`` on."""
+    rows = []
+    for B, N, M, H, D, _ in recorded:
+        label = (f"{chr(ord(first) + len(rows))}: PD self-attention "
+                 f"{int(N ** 0.5)}^2 (B {B}, N {N}, M {M}, H {H}, D {D})")
+        rows.append(kernel_row(flash, label, B, N, M, H, D, None))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {name}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("TF32 off for matmuls and cuDNN convs: plain versions are fp32",
-          flush=True)
+    defaults = precision_flags()
+    print(f"precision flags (cuDNN conv, matmul, cudnn.benchmark) as "
+          f"PyTorch set them: {defaults}; the paths run under them (the "
+          f"engine holds fp32 and benchmark mode for its forwards), the "
+          f"kernel phases inside the engine's fp32 scope", flush=True)
 
     from sige_torch.ops import flash
 
@@ -727,9 +1002,10 @@ def main() -> int:
     print(flash.LIBRARY.build_log.strip(), flush=True)
 
     print("kernels:", flush=True)
-    rows = phase_kernels(flash)
-    print("forced splits at (a):", flush=True)
-    forced, combine = phase_forced_splits(flash)
+    with fp32_scope():
+        rows = phase_kernels(flash)
+        print("forced splits at (a):", flush=True)
+        forced, combine = phase_forced_splits(flash)
     print("small reference:", flush=True)
     phase_small_reference()
     from sige_torch.runners import DiffusionRunConfig
@@ -740,6 +1016,9 @@ def main() -> int:
                              algorithm_type="dpmsolver++", order=2,
                              solver_type="dpmsolver", lower_order_final=True,
                              sample_steps=STEPS, noise_level=500)
+    print("retime (cuDNN benchmark mode per new edit, DDPM main path):",
+          flush=True)
+    retime = phase_retime(flash, ddim)
     print("paths (church256, full width):", flush=True)
     paths = {
         "main": phase_path(flash, "main", None, "window", ddim, 100),
@@ -749,7 +1028,17 @@ def main() -> int:
     print("sd (SD v1 U-Net, VAE at 512^2, full width):", flush=True)
     sd, recorded = phase_sd(flash)
     print("kernels at the SD path's shapes:", flush=True)
-    rows += phase_sd_kernels(flash, recorded)
+    with fp32_scope():
+        rows += phase_sd_kernels(flash, recorded)
+    print("pd (church pd256, full width):", flush=True)
+    pd, pd_recorded = phase_pd(flash)
+    print("kernels at the PD path's shapes:", flush=True)
+    with fp32_scope():
+        rows += phase_pd_kernels(flash, pd_recorded,
+                                       chr(ord("a") + len(rows)))
+    if precision_flags() != defaults:
+        raise AssertionError(f"precision flags {precision_flags()} after the "
+                             f"run, {defaults} before it")
 
     main_row = rows[0]  # shape (a): the main path's 16 px call
     kernels = [{
@@ -763,10 +1052,11 @@ def main() -> int:
         "combine_launches": paths["main"]["combine_launches"],
         "launches_by_path": dict(
             {n: p["launches"] for n, p in paths.items()},
-            sd_sdedit=sd["launches"]),
+            sd_sdedit=sd["launches"], pd_generate=pd["launches"]),
         "combine_launches_by_path": dict(
             {n: p["combine_launches"] for n, p in paths.items()},
-            sd_sdedit=sd["combine_launches"]),
+            sd_sdedit=sd["combine_launches"],
+            pd_generate=pd["combine_launches"]),
         "splits": main_row["splits"],
         "max_abs_err": max([r["max_err"] for r in rows]
                            + [f["max_err"] for f in forced.values()]
@@ -784,7 +1074,9 @@ def main() -> int:
         "forced_splits_a": {str(s): f for s, f in forced.items()},
         "combine_a": combine,
     }]
-    print(json.dumps({"paths": paths, "sd": sd, "card": card}), flush=True)
+    print(json.dumps({"paths": paths, "retime": retime, "sd": sd, "pd": pd,
+                      "card": card}), flush=True)
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """Where the time of one forward goes, on the GPU, in the PyTorch port
-(sige_torch): the church256 DDPM U-Net for each layout asked for, and
-the SD U-Net.
+(sige_torch): the church256 DDPM U-Net for each layout asked for, the SD
+models and the church pd256 PD U-Net.
 
     python3 scripts/trace_torch_step.py [--layout tiles window auto]
-                                        [--sd N]
+                                        [--sd N] [--pd N]
 
 For each layout in turn (default: ``tiles window window tiles``, one
 process, so that drift on the host shows as a difference between the two
@@ -13,8 +13,10 @@ of ``chip_smoke.py``), then ``--sd`` times (default 0) for the full and
 the sparse forward of the SD v1 U-Net at batch 2 (guidance), of the VAE
 decoder and of the encoder at 512^2 (the plans and caches that
 ``chip_smoke.py``'s SD phase leaves: its runner, random text embeddings,
-the 512^2 edit, one ``sdedit``), it prints, as one JSON line
-(``runs``, in order):
+the 512^2 edit, one ``sdedit``), then ``--pd`` times (default 0) for the
+full and the sparse forward of the PD U-Net (``PDRunner`` with church
+pd256's configs, random weights from seed 0, the DDPM edit, after its
+``preprocess``), it prints, as one JSON line (``runs``, in order):
 
   * ``device_ms``: median time between two CUDA events around a forward;
   * ``host_ms``: median host time to enqueue a forward (no sync) — when it
@@ -35,17 +37,17 @@ the 512^2 edit, one ``sdedit``), it prints, as one JSON line
     memory allocated by one forward (params and caches resident);
   * per run, ``layout`` as asked and ``active_layout``, what the planner
     ran (``auto`` resolves per edit), and ``model``: "ddpm", "sd_unet",
-    "sd_decoder" or "sd_encoder" (the SD runs have a ``full`` and a
-    ``sparse`` entry where the DDPM runs have ``dense`` and ``sparse``).
+    "sd_decoder", "sd_encoder" or "pd" (the SD and PD runs have a ``full``
+    and a ``sparse`` entry where the DDPM runs have ``dense`` and
+    ``sparse``).
 
-``--cudnn-benchmark`` lets cuDNN time its algorithms for each conv shape
-(off by default, as in the port).
-
-TF32 is off for matmuls and cuDNN convs (the port's fp32 contract). GPU
-only: exits non-zero without a CUDA device.
+The script leaves PyTorch's precision flags as they are: the engine runs
+its forwards in fp32 with cuDNN's benchmark mode itself. GPU only: exits
+non-zero without a CUDA device.
 """
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -122,6 +124,28 @@ def measure(call, iters=ITERS, top=TOP):
     }
 
 
+def ddpm_run(layout):
+    """The DDPM U-Net's dense and sparse forward in ``layout`` over the
+    plan and caches of ``DiffusionRunner.preprocess`` on the edit (its
+    runner is freed on return, out of the next run's peak)."""
+    from sige_torch.models.ddpm import DDPMUNetConfig
+    from sige_torch.runners import DiffusionRunConfig, DiffusionRunner
+
+    cfg = DDPMUNetConfig()
+    runner = DiffusionRunner(cfg, DiffusionRunConfig(sampler_type="ddim"),
+                             layout=layout, device="cuda", seed=0)
+    _, x1, _ = runner.preprocess(*edit_pair(cfg.resolution))
+    t = torch.zeros((1,), device="cuda")
+    res = {"model": "ddpm", "layout": layout,
+           "active_layout": runner.active_layout}
+    for mode, fwd in (("dense", runner.model.dense),
+                      ("sparse", runner.model.sparse)):
+        res[mode] = measure(lambda: fwd(x1, t))
+        res[mode]["macs_g"] = runner.count_macs(x1, mode) / 1e9
+        res[mode]["peak_mb"] = peak_mb(lambda: fwd(x1, t))
+    return res
+
+
 def sd_runs(n):
     """``n`` runs of the full and sparse forward of the SD U-Net, decoder
     and encoder over the plans and caches of one ``sdedit`` of
@@ -166,6 +190,28 @@ def sd_runs(n):
     return runs
 
 
+def pd_runs(n):
+    """``n`` runs of the PD U-Net's full and sparse forward over the plan
+    and caches of ``PDRunner.preprocess`` on the DDPM edit."""
+    from sige_torch.models.pd import PDUNetConfig
+    from sige_torch.runners import PDRunConfig, PDRunner
+
+    runner = PDRunner(PDUNetConfig(), PDRunConfig(), device="cuda", seed=0)
+    x0, x1, _ = runner.preprocess(*edit_pair(runner.model_cfg.resolution))
+    ls = runner._cond()
+    runs = []
+    for _ in range(n):
+        res = {"model": "pd", "layout": "auto",
+               "active_layout": runner.active_layout}
+        for mode, fwd, x in (("full", runner.model.full, x0),
+                             ("sparse", runner.model.sparse, x1)):
+            res[mode] = measure(lambda: fwd(x, ls))
+            res[mode]["macs_g"] = runner.count_macs(x, mode) / 1e9
+            res[mode]["peak_mb"] = peak_mb(lambda: fwd(x, ls))
+        runs.append(res)
+    return runs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layout", nargs="*",
@@ -173,41 +219,20 @@ def main():
                     choices=["tiles", "window", "auto"])
     ap.add_argument("--sd", type=int, default=0,
                     help="runs of the SD models' full and sparse forward")
-    ap.add_argument("--cudnn-benchmark", action="store_true",
-                    help="let cuDNN time its algorithms per conv shape "
-                         "(torch.backends.cudnn.benchmark)")
+    ap.add_argument("--pd", type=int, default=0,
+                    help="runs of the PD U-Net's full and sparse forward")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_torch_step: no CUDA device", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = args.cudnn_benchmark
-    from sige_torch.models.ddpm import DDPMUNetConfig
-    from sige_torch.runners import DiffusionRunConfig, DiffusionRunner
-
-    card = card_line()
-    cfg = DDPMUNetConfig()
-    original, edited = edit_pair(cfg.resolution)
-    t = torch.zeros((1,), device="cuda")
-    out = {"card": card, "iters": ITERS,
-           "cudnn_benchmark": args.cudnn_benchmark, "runs": []}
-    for layout in args.layout:
-        runner = DiffusionRunner(cfg, DiffusionRunConfig(sampler_type="ddim"),
-                                 layout=layout, device="cuda", seed=0)
-        _, x1, _ = runner.preprocess(original, edited)
-        res = {"model": "ddpm", "layout": layout,
-               "active_layout": runner.active_layout}
-        for mode, fwd in (("dense", runner.model.dense),
-                          ("sparse", runner.model.sparse)):
-            res[mode] = measure(lambda: fwd(x1, t))
-            res[mode]["macs_g"] = runner.count_macs(x1, mode) / 1e9
-            res[mode]["peak_mb"] = peak_mb(lambda: fwd(x1, t))
-        out["runs"].append(res)
-        del runner
-        torch.cuda.empty_cache()
+    out = {"card": card_line(), "iters": ITERS,
+           "runs": [ddpm_run(layout) for layout in args.layout]}
     if args.sd:
         out["runs"] += sd_runs(args.sd)
+    gc.collect()  # every earlier run's models out of the PD runs' peak
+    torch.cuda.empty_cache()
+    if args.pd:
+        out["runs"] += pd_runs(args.pd)
     print(json.dumps(out))
     return 0
 

@@ -45,12 +45,10 @@ import torch
 from torch import nn
 
 from ...nn.module import (Gather, Scatter, SIGECtx, SIGEConv2d, SIGEModule,
-                          WindowState, add_dense_macs, add_macs, chain_rel)
-from ...nn.norm import group_norm_with_affine
+                          add_dense_macs, add_macs)
 from ...ops.attention import mha
-from ...ops.window import window_chain_extend, window_slice
-from ..blocks import (FoldedGroupNorm, FoldedNormAffine, ResBlock,
-                      SIGEDownsample, SIGEUpsample, affine, swish, to_map)
+from ..blocks import (FoldedGroupNorm, ResBlock, SIGEDownsample,
+                      SIGEUNetEnds, SIGEUpsample, affine, swish, to_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,21 +114,27 @@ class SIGEResnetBlock(ResBlock):
 
 
 class SIGEAttnBlock(SIGEModule):
-    """Global single-head attention; in sparse mode the qkv tiles are
-    scattered onto the cached full qkv map so K/V stay global
+    """Global attention, single-head (DDPM) or with ``heads`` heads of
+    ``head_dim`` (PD: sige_unet.py:177-266); in sparse mode the qkv tiles
+    are scattered onto the cached full qkv map so K/V stay global
     (reference: diffusion/models/ddpm_arch/sige_fused_unet.py:134-209).
-    The attention itself is :func:`sige_torch.ops.attention.mha`, which on
-    the GPU is the hand-written flash kernel."""
+    The qkv conv's output splits into q | k | v, each heads x head_dim
+    with the heads outermost. The attention itself is
+    :func:`sige_torch.ops.attention.mha`, which on the GPU is the
+    hand-written flash kernel."""
 
-    def __init__(self, cfg: DDPMUNetConfig, channels: int,
-                 support_sparse: bool = False):
+    def __init__(self, cfg, channels: int, support_sparse: bool = False,
+                 heads: int = 1, head_dim: Optional[int] = None):
         super().__init__()
         self.channels = channels
+        self.heads = heads
+        self.head_dim = head_dim or channels // heads
+        inner = heads * self.head_dim
         self.sparse_ok = support_sparse and cfg.block_size_instance is not None
         self.norm = FoldedGroupNorm(channels, cfg.num_groups)
-        self.qkv = SIGEConv2d(channels, 3 * channels, kernel_size=1,
+        self.qkv = SIGEConv2d(channels, 3 * inner, kernel_size=1,
                               padding=0, tile_input=self.sparse_ok)
-        self.proj_out = SIGEConv2d(channels, channels, kernel_size=1,
+        self.proj_out = SIGEConv2d(inner, channels, kernel_size=1,
                                    padding=0, tile_input=self.sparse_ok)
         if self.sparse_ok:
             bs = cfg.block_size_instance
@@ -143,11 +147,11 @@ class SIGEAttnBlock(SIGEModule):
 
     def _attend(self, qkv, ctx: SIGECtx):
         B, H, W, _ = qkv.shape
-        C = self.channels
-        q, k, v = qkv.reshape(B, H * W, 3 * C).split(C, dim=-1)
-        out = mha(q, k, v, 1, C)
-        add_macs(ctx, 2 * B * H * W * H * W * C)
-        return out.reshape(B, H, W, C)
+        inner = self.heads * self.head_dim
+        q, k, v = qkv.reshape(B, H * W, 3 * inner).split(inner, dim=-1)
+        out = mha(q, k, v, self.heads, self.head_dim)
+        add_macs(ctx, 2 * B * H * W * H * W * inner)
+        return out.reshape(B, H, W, inner)
 
     def forward(self, x, ctx: SIGECtx):
         x = to_map(x)  # global attention needs the full map (chain break)
@@ -174,7 +178,7 @@ class SIGEAttnBlock(SIGEModule):
         return h + x
 
 
-class SIGEFusedUNet(SIGEModule):
+class SIGEFusedUNet(SIGEUNetEnds):
     """The full U-Net. ``forward(x, t, ctx)`` with x [B, H, W, in_ch] and
     t [B] timesteps."""
 
@@ -184,18 +188,7 @@ class SIGEFusedUNet(SIGEModule):
         nres = len(cfg.ch_mult)
         self.temb_dense0 = nn.Linear(cfg.ch, cfg.temb_ch)
         self.temb_dense1 = nn.Linear(cfg.temb_ch, cfg.temb_ch)
-        self._head_sparse = (cfg.sige_tail
-                             and cfg.block_size_normal is not None
-                             and cfg.resolution
-                             >= cfg.sparse_resolution_threshold)
-        self.conv_in = SIGEConv2d(cfg.in_ch, cfg.ch, kernel_size=3, padding=1,
-                                  tile_input=self._head_sparse)
-        if self._head_sparse:
-            # param-free SIGE pair for the stem
-            self.in_gather = Gather(block_size=cfg.block_size_normal,
-                                    kernel_size=3, conv_stride=1,
-                                    conv_padding=1)
-            self.in_scatter = Scatter(self.in_gather)
+        self._init_stem(cfg)
 
         in_mult = (1,) + tuple(cfg.ch_mult)
         down_blocks, down_attns, downsamples = [], [], []
@@ -266,41 +259,7 @@ class SIGEFusedUNet(SIGEModule):
         self.temb_proj_dim = temb_dim
         # Fused per-block temb projection (reference: fused_unet.py:244-260).
         self.temb_proj = nn.Linear(cfg.temb_ch, temb_dim)
-
-        self.norm_out_scale = nn.Parameter(torch.ones(block_in))
-        self.norm_out_bias = nn.Parameter(torch.zeros(block_in))
-        self._tail_sparse = (cfg.sige_tail
-                             and cfg.block_size_normal is not None)
-        self.conv_out = SIGEConv2d(block_in, cfg.out_ch, kernel_size=3,
-                                   padding=1, tile_input=self._tail_sparse)
-        if self._tail_sparse:
-            # param-free SIGE pair for the tail: norm_out's affine is
-            # folded from the full pass into the gather epilogue
-            self.norm_out_fold = FoldedNormAffine(cfg.num_groups)
-            self.out_gather = Gather(block_size=cfg.block_size_normal,
-                                     kernel_size=3, conv_stride=1,
-                                     conv_padding=1, activation="swish")
-            self.out_scatter = Scatter(self.out_gather)
-
-    def _tail(self, h, ctx: SIGECtx):
-        if ctx.mode == "full":
-            h = to_map(h)
-            hn, _, _ = self.norm_out_fold(
-                h, self.norm_out_scale, self.norm_out_bias, ctx)
-            self.out_gather(h, ctx)  # records meta
-            out = self.conv_out(swish(hn), ctx)
-            return self.out_scatter(out, ctx)
-        _, sc, sh = self.norm_out_fold(
-            None, self.norm_out_scale, self.norm_out_bias, ctx)
-        if isinstance(h, WindowState) and self.out_gather.planned_window():
-            meta, edge = self.out_gather.read_window()
-            ext = window_chain_extend(h.win, h.org, h.cache, meta, edge, sc,
-                                      sh, "swish",
-                                      rel=chain_rel(self.out_gather))
-        else:
-            ext = self.out_gather(to_map(h), ctx, scale=sc, shift=sh)
-        out = self.conv_out(ext, ctx)
-        return self.out_scatter(out, ctx)
+        self._init_tail(cfg, block_in)
 
     def _temb(self, t, ctx: SIGECtx):
         cfg = self.cfg
@@ -322,23 +281,7 @@ class SIGEFusedUNet(SIGEModule):
             start, size = next(slices)
             return None if temb is None else temb[:, start:start + size]
 
-        if self._head_sparse and ctx.mode == "sparse":
-            hwin = self.conv_in(self.in_gather(x, ctx), ctx)
-            if cfg.window_chain and self.in_gather.planned_window():
-                # start the window chain at the stem (its state also
-                # rides the last skip)
-                cache = self.in_scatter.cache["original"]
-                org, cov = self.in_gather.read_wsc(cache.shape[1:3])
-                y0w = window_slice(cache, org, cov.shape)
-                hs = [WindowState(torch.where(cov[None, :, :, None], hwin,
-                                              y0w), cache, org)]
-            else:
-                hs = [self.in_scatter(hwin, ctx)]
-        elif self._head_sparse and ctx.mode == "full":
-            self.in_gather(x, ctx)  # records meta
-            hs = [self.in_scatter(self.conv_in(x, ctx), ctx)]
-        else:
-            hs = [self.conv_in(x, ctx)]
+        hs = [self._stem(x, ctx)]
         for i in range(nres):
             for ib in range(cfg.num_res_blocks):
                 h = self.down_blocks[i][ib](hs[-1], tslice(), ctx)
@@ -360,11 +303,4 @@ class SIGEFusedUNet(SIGEModule):
                     h = self.up_attns[i][ib](h, ctx)
             if i != 0:
                 h = self.upsamples[i - 1](h, ctx)
-
-        if self._tail_sparse and ctx.mode != "dense":
-            return self._tail(h, ctx)
-        h = to_map(h)
-        h, _, _ = group_norm_with_affine(
-            h, cfg.num_groups, self.norm_out_scale, self.norm_out_bias,
-            eps=1e-6)
-        return self.conv_out(swish(h), ctx)
+        return self._tail(h, ctx)

@@ -6,10 +6,17 @@ which method you call, plus ``set_masks`` / ``clear_cache``
 ``sige_tpu.nn.engine.SIGEModel``: :meth:`full` and :meth:`sparse` run the
 module eagerly under ``torch.inference_mode``; :meth:`set_masks` plans on
 the host and moves the plan's leaves to the device in one copy.
+
+Every forward runs inside :func:`fp32_scope`: PyTorch's defaults run
+cuDNN convolutions in TF32 and let cuDNN pick its algorithms by
+heuristic, and the engine holds fp32 (the 1e-4 contract of ``sige_tpu``)
+and times its algorithms per shape (``cudnn.benchmark``, as the
+reference's diffusion suite sets it) for its own calls only.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -29,6 +36,57 @@ def resolve_device(device=None) -> torch.device:
                 "no CUDA device: pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def _has_fp32_precision() -> bool:
+    """torch >= 2.9 has the ``fp32_precision`` API beside the legacy
+    ``allow_tf32`` flags."""
+    cudnn = torch.backends.cudnn
+    return hasattr(cudnn, "conv") and hasattr(cudnn.conv, "fp32_precision")
+
+
+def precision_flags() -> Tuple[str, str, bool]:
+    """(cuDNN conv fp32 precision, CUDA matmul fp32 precision, cuDNN
+    benchmark mode) as set now. The precisions are read through
+    ``fp32_precision`` where this torch has it ("ieee", "tf32" or "none",
+    which inherits) and else from the legacy ``allow_tf32`` flags ("tf32"
+    or "ieee"): torch refuses to mix the two APIs."""
+    b = torch.backends
+    if _has_fp32_precision():
+        return (b.cudnn.conv.fp32_precision, b.cuda.matmul.fp32_precision,
+                b.cudnn.benchmark)
+    return ("tf32" if b.cudnn.allow_tf32 else "ieee",
+            "tf32" if b.cuda.matmul.allow_tf32 else "ieee",
+            b.cudnn.benchmark)
+
+
+def set_precision_flags(flags: Tuple[str, str, bool]) -> None:
+    """Set what :func:`precision_flags` reads, through the same API."""
+    b = torch.backends
+    conv, matmul, benchmark = flags
+    if _has_fp32_precision():
+        b.cudnn.conv.fp32_precision = conv
+        b.cuda.matmul.fp32_precision = matmul
+    else:
+        b.cudnn.allow_tf32 = conv == "tf32"
+        b.cuda.matmul.allow_tf32 = matmul == "tf32"
+    b.cudnn.benchmark = benchmark
+
+
+@contextlib.contextmanager
+def fp32_scope():
+    """cuDNN convs and CUDA matmuls in full fp32 and cuDNN's benchmark
+    mode inside, the caller's settings restored on exit. Without
+    benchmark mode cuDNN's heuristic picks, for some window shapes, an FFT
+    algorithm slower than the dense conv that takes GBs of workspace; with
+    it each new conv shape is timed once per process, which a new edit's
+    window shapes pay on its first call (PERF.md section 5)."""
+    saved = precision_flags()
+    set_precision_flags(("ieee", "ieee", True))
+    try:
+        yield
+    finally:
+        set_precision_flags(saved)
 
 
 def _later(what: str) -> NotImplementedError:
@@ -142,6 +200,7 @@ class SIGEModel:
         return meta
 
     @torch.inference_mode()
+    @fp32_scope()
     def full(self, *args, **kwargs):
         """Dense pass on the original input: refreshes every scatter cache
         and the planning metadata. A new input shape drops the stale plan."""
@@ -178,6 +237,7 @@ class SIGEModel:
         return plan
 
     @torch.inference_mode()
+    @fp32_scope()
     def sparse(self, *args, sparse_update: bool = False, **kwargs):
         """Sparse inference on the edited input."""
         if sparse_update:
@@ -187,6 +247,7 @@ class SIGEModel:
         return self.module(*args, ctx=SIGECtx(mode="sparse"), **kwargs)
 
     @torch.inference_mode()
+    @fp32_scope()
     def dense(self, *args, **kwargs):
         """Plain dense inference (the baseline), no caching."""
         return self.module(*args, ctx=SIGECtx(mode="dense"), **kwargs)

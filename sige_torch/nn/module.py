@@ -136,17 +136,23 @@ class Gather(SIGEModule):
     Also the anchor for planning products: the engine sets ``plan`` (the
     device tensors of this Gather's plan entry) and ``plan_host`` (the
     numpy entry; bbox origins, window metas and window origins are read
-    from it as host integers)."""
+    from it as host integers).
+
+    ``prepool_chain`` asks the planner for the pre-pool chain products
+    (``wdnp_in`` / ``wdnp_edge``): the extraction window doubled to 2x the
+    input resolution, for a consumer whose input is an avg-pool of a
+    window-resident producer (PD's down-resampling resblock)."""
 
     def __init__(self, block_size: Union[int, IntPair] = 6,
                  kernel_size: Union[int, IntPair] = 3,
                  conv_stride: Union[int, IntPair] = 1,
                  conv_padding: Union[int, IntPair] = 0,
-                 activation: str = "identity"):
+                 activation: str = "identity", prepool_chain: bool = False):
         super().__init__()
         self.geom = BlockGeometry.create(block_size, kernel_size, conv_stride,
                                          conv_padding)
         self.activation = activation
+        self.prepool_chain = prepool_chain
         self.meta: Optional[Dict[str, Tuple[np.ndarray, ...]]] = None
         self.plan: Dict[str, torch.Tensor] = {}
         self.plan_host: Dict[str, np.ndarray] = {}
@@ -164,6 +170,8 @@ class Gather(SIGEModule):
                 "geom": (np.array([*g.block_size, *g.block_stride, *g.offset,
                                    *g.kernel_size, *g.conv_stride], np.int32),),
             }
+            if self.prepool_chain:
+                self.meta["prepool"] = (np.int32(1),)
             return x
         if ctx.mode == "sparse":
             if self.planned_window():
@@ -203,6 +211,11 @@ class Gather(SIGEModule):
         """(meta as host ints, edge mask on the device) of the conv input
         window."""
         return _host_ints(self.plan_host["win_in"]), self.plan["win_edge"]
+
+    def read_prepool(self):
+        """(meta as host ints, edge mask on the device) of the extraction
+        window doubled to 2x the input resolution (``prepool_chain``)."""
+        return _host_ints(self.plan_host["wdnp_in"]), self.plan["wdnp_edge"]
 
     def window_origin(self) -> Tuple[int, int]:
         return _host_ints(self.plan_host["win_org"])

@@ -12,8 +12,10 @@ numpy arrays, which the engine moves to the device in one pass.
 A numpy-only copy of the tile and window paths of ``sige_tpu.nn.planner``:
 for the same meta and masks the two produce equal plans key by key. The
 mod-16 window lattice and ``max_cover`` are copied as they are, so that
-the plans stay equal. The pre-pool window chain (``wdnp_*``, PD's) is
-not ported yet.
+the plans stay equal. Window chains cross resolutions through three
+products: ``wup_ok`` (across a nearest-2x upsample), ``wdn_ok`` (into a
+stride-2 conv) and the pre-pool ``wdnp_in`` / ``wdnp_edge`` (into an
+avg-pool, PD's down-resampling resblock).
 """
 
 from __future__ import annotations
@@ -417,10 +419,29 @@ def _window_entry(entry, node, geom: BlockGeometry, in_res, indices, count,
                 f"not inside extraction window org={v_org} ext={ext}")
         entry["wdn_ok"] = np.int32(1)
 
-    if "prepool" in node:
-        raise NotImplementedError(
-            "the pre-pool window chain (wdnp_*) comes with the PD slice of "
-            "the port")
+    # pre-pool chain products (asked for by Gather.prepool_chain): the
+    # extraction window doubled to 2x the input resolution. A consumer
+    # whose input is an avg-pool of a window-resident producer at 2x
+    # extracts the doubled window from the producer's (window, cache)
+    # state, pools it and goes on; the nesting makes the doubled window
+    # cover the carried fine window (the containment window_chain_extend's
+    # overlay needs, as for wdn_ok)
+    dblr = (in_res[0] * 2, in_res[1] * 2)
+    if (_memo.get("chain_nesting", True) and (sh, sw) == (1, 1)
+            and "prepool" in node and dblr in _memo["windows"]):
+        dr0, dc0, DWH, DWW = _memo["windows"][dblr]
+        if not all(2 * v_org[a] <= o and o + e <= 2 * (v_org[a] + ext[a])
+                   for a, (o, e) in enumerate(((dr0, DWH), (dc0, DWW)))):
+            raise ValueError(
+                f"window nesting violated at wdnp (pre-pool chain): "
+                f"carried window ({dr0},{dc0})+({DWH},{DWW}) at {dblr} not "
+                f"inside doubled extraction window "
+                f"org={tuple(2 * v for v in v_org)} "
+                f"ext={tuple(2 * e for e in ext)}")
+        meta2, edge2 = _window_meta((2 * v_org[0], 2 * v_org[1]),
+                                    (2 * ext[0], 2 * ext[1]), dblr, fast)
+        entry["wdnp_in"] = meta2
+        entry["wdnp_edge"] = edge2
 
     skey = ("srcmap", in_res, geom, None, ores, "w")
     if skey not in _memo:

@@ -20,7 +20,7 @@ import torch
 
 from ..core.masks import compute_difference_mask, dilate_mask, downsample_mask
 from ..models.ddpm import DDPMUNetConfig, SIGEFusedUNet
-from ..nn.engine import SIGEModel, resolve_device
+from ..nn.engine import SIGEModel, fp32_scope, resolve_device
 from ..nn.module import SIGECtx
 from ..samplers import (DDIMSampler, DDPMSampler, DiffusionSchedule,
                         DPMSolverSampler, get_sampling_sequence)
@@ -73,16 +73,8 @@ class DiffusionRunner:
                  params: Optional[Mapping[str, torch.Tensor]] = None,
                  seed: int = 0, bucket_min: int = 2, layout: str = "auto",
                  device=None):
-        self.model_cfg = model_cfg
-        self.run_cfg = run_cfg
-        self.device = resolve_device(device)
-        self.module = SIGEFusedUNet(model_cfg)
-        self.model = SIGEModel(self.module, bucket_min=bucket_min,
-                               layout=layout, device=self.device)
-        if params is None:
-            self.model.init(seed)
-        else:
-            self.module.load_state_dict(params)
+        self._build(SIGEFusedUNet, model_cfg, run_cfg, params, seed,
+                    bucket_min, layout, device)
         sched = DiffusionSchedule.create(
             run_cfg.beta_schedule, run_cfg.beta_start, run_cfg.beta_end,
             run_cfg.total_steps)
@@ -97,7 +89,26 @@ class DiffusionRunner:
                 lower_order_final=run_cfg.lower_order_final)
         else:
             raise ValueError(f"sampler_type {run_cfg.sampler_type!r}")
+
+    def _build(self, unet, model_cfg, run_cfg, params, seed, bucket_min,
+               layout, device) -> None:
+        """The device (resolved first: it raises without a GPU), the U-Net
+        ``unet(model_cfg)`` in its engine, and its weights."""
+        self.model_cfg = model_cfg
+        self.run_cfg = run_cfg
+        self.device = resolve_device(device)
+        self.module = unet(model_cfg)
+        self.model = SIGEModel(self.module, bucket_min=bucket_min,
+                               layout=layout, device=self.device)
+        if params is None:
+            self.model.init(seed)
+        else:
+            self.module.load_state_dict(params)
         self.last_edit_ratio = None
+
+    def _cond(self) -> torch.Tensor:
+        """The model's second input for planning and profiling: t = 0."""
+        return torch.zeros((1,), device=self.device)
 
     @property
     def active_layout(self) -> str:
@@ -127,8 +138,7 @@ class DiffusionRunner:
         mask = dilate_mask(mask, rc.mask_dilate_radius)
 
         x0, x1 = self._tensor(o), self._tensor(e)
-        t0 = torch.zeros((1,), device=self.device)
-        self.model.full(x0, t0)  # records meta + fills caches
+        self.model.full(x0, self._cond())  # records meta + fills caches
         min_res = R // (2 ** (len(cfg.ch_mult) - 1))
         self.model.set_masks(downsample_mask(mask, min_res=min_res))
         self.last_edit_ratio = float(np.mean(mask))
@@ -160,9 +170,8 @@ class DiffusionRunner:
         """Analytic MACs of one forward in ``mode`` (convs, attention
         products and linear layers, as ``sige_tpu``'s traced count)."""
         ctx = SIGECtx(mode=mode, macs=[])
-        t0 = torch.zeros((1,), device=self.device)
-        with torch.inference_mode():
-            self.module(x, t0, ctx=ctx)
+        with torch.inference_mode(), fp32_scope():
+            self.module(x, self._cond(), ctx=ctx)
         return float(sum(ctx.macs))
 
     def profile(self, original: np.ndarray, edited: np.ndarray,
@@ -178,22 +187,22 @@ class DiffusionRunner:
             raise RuntimeError("profile measures the GPU; this runner is on "
                                f"{self.device}")
         x0, x1, mask = self.preprocess(original, edited)
-        t0 = torch.zeros((1,), device=self.device)
+        cond = self._cond()
         fwd = {"sparse": self.model.sparse, "dense": self.model.dense,
                "full": self.model.full}[mode]
         for _ in range(warmup):
-            fwd(x1, t0)
+            fwd(x1, cond)
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
         for start, end in events:
             start.record()
-            fwd(x1, t0)
+            fwd(x1, cond)
             end.record()
         torch.cuda.synchronize(self.device)
         times = sorted(s.elapsed_time(e) for s, e in events)
 
         torch.cuda.reset_peak_memory_stats(self.device)
-        fwd(x1, t0)
+        fwd(x1, cond)
         torch.cuda.synchronize(self.device)
         peak_mb = torch.cuda.max_memory_allocated(self.device) / 2**20
         return {

@@ -28,7 +28,7 @@ import torch
 from ..core.masks import compute_difference_mask, dilate_mask, downsample_mask
 from ..models.sd import (SDUNetConfig, SDVAEConfig, SIGEDecoder, SIGEEncoder,
                          SIGESDUNet)
-from ..nn.engine import SIGEModel, resolve_device
+from ..nn.engine import SIGEModel, fp32_scope, resolve_device
 from ..samplers.sd_ddim import SDDDIMSampler
 
 
@@ -115,9 +115,11 @@ class SDRunner:
         return fwd(img)[..., :self.vae_cfg.z_channels] * \
             self.run_cfg.scale_factor
 
+    @fp32_scope()
     def _pre_decode(self, z_scaled: torch.Tensor) -> torch.Tensor:
         """Unscale and apply post_quant_conv (reference:
-        ldm/models/autoencoder.py:77-81)."""
+        ldm/models/autoencoder.py:77-81), in fp32 like the models' own
+        forwards."""
         z = z_scaled / self.run_cfg.scale_factor
         if self.post_quant is not None:
             w, b = self.post_quant

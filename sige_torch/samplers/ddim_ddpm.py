@@ -37,6 +37,17 @@ def _steps(seq):
     return list(zip(reversed(seq), reversed(nxt)))
 
 
+def sdedit_blend(x, gt_xt, mask):
+    """SDEdit's blend after each step: row 0 (the original trajectory)
+    becomes the ground-truth ``gt_xt``; the edited row keeps its own
+    values only inside ``mask`` ([H, W])."""
+    m = mask[None, :, :, None].to(x.dtype)
+    blended = gt_xt[0] * (1 - m[0]) + x[-1] * m[0]
+    if x.shape[0] == 2:
+        return torch.stack([gt_xt[0], blended], dim=0)
+    return blended[None]
+
+
 class _BaseSampler:
     def __init__(self, schedule: DiffusionSchedule, eta: float = 0.0):
         self.schedule = schedule
@@ -50,12 +61,7 @@ class _BaseSampler:
         return self.schedule.q_sample(x0, t, e)
 
     def _post_process(self, x, t_next: int, mask, gt_x0, gt_e):
-        gt_xt = self.q_sample(gt_x0, t_next, gt_e)  # [1, H, W, C]
-        m = mask[None, :, :, None].to(x.dtype)
-        blended = gt_xt[0] * (1 - m[0]) + x[-1] * m[0]
-        if x.shape[0] == 2:
-            return torch.stack([gt_xt[0], blended], dim=0)
-        return blended[None]
+        return sdedit_blend(x, self.q_sample(gt_x0, t_next, gt_e), mask)
 
     def _noise(self, x, i: int, generator, noise):
         if noise is not None:

@@ -14,8 +14,9 @@ segment: flax's list-module names ``down_blocks_0_1`` become torch's
   * top-level parameters (``norm_out_scale`` / ``out_norm_scale`` and
     their biases) keep their names.
 
-It serves the DDPM U-Net and the SD U-Net, encoder and decoder alike:
-their trees hold no other kind of leaf.
+It serves the DDPM U-Net, the PD U-Net (whose per-block ``temb_proj``
+and top-level ``temb_dense0/1`` are Dense layers) and the SD U-Net,
+encoder and decoder alike: their trees hold no other kind of leaf.
 """
 
 from __future__ import annotations

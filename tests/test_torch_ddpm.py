@@ -29,6 +29,7 @@ from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
 from sige_torch.nn import SIGEModel
 from sige_torch.nn.module import SIGECtx
 from sige_torch.utils.from_jax import state_dict_from_flax, torch_path
+from test_torch_sd_unet import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 CONFIGS = {

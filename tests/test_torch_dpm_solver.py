@@ -32,6 +32,7 @@ from sige_torch.nn import SIGEModel
 from sige_torch.runners import DiffusionRunConfig, DiffusionRunner
 from sige_torch.samplers import DiffusionSchedule, DPMSolverSampler
 from sige_torch.utils.from_jax import state_dict_from_flax
+from test_torch_sd_unet import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 R = 16

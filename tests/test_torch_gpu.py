@@ -1,16 +1,30 @@
 """Tests that need the card: the hand-written CUDA kernels against their
-plain PyTorch twins. They import nothing of JAX (the machine with the
-card has none) and skip without a CUDA device. On that machine:
+plain PyTorch twins, and tiny models on the card against the same models
+on the CPU, under PyTorch's default precision flags (the engine holds
+fp32 itself). They import nothing of JAX (the machine with the card has
+none) and skip without a CUDA device. On that machine:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
 (``--noconftest``: the suite's conftest.py sets JAX up.)
 """
 
+import numpy as np
 import pytest
 import torch
 
+from sige_torch.core.masks import dilate_mask, downsample_mask
+from sige_torch.nn.engine import (fp32_scope, precision_flags,
+                                  set_precision_flags)
 from sige_torch.ops import flash
+
+
+def _pytorch_defaults():
+    """PyTorch's default precision flags, in the API the engine uses:
+    cuDNN convs in TF32, matmuls in fp32, no benchmark mode."""
+    if hasattr(torch.backends.cudnn, "conv"):
+        return ("tf32", "none", False)
+    return ("tf32", "ieee", False)
 
 
 @pytest.mark.gpu
@@ -23,7 +37,6 @@ from sige_torch.ops import flash
 def test_kernel_matches_plain_twin_on_card(B, N, M, H, D, with_bias):
     if not torch.cuda.is_available():
         pytest.skip("the flash kernel runs only on a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda")
                for n in (N, M, M))
@@ -35,7 +48,8 @@ def test_kernel_matches_plain_twin_on_card(B, N, M, H, D, with_bias):
     got = flash.flash_mha(q, k, v, D ** -0.5, bias)
     torch.cuda.synchronize()
     assert flash.flash_mha.launches == before + 1
-    want = flash.flash_mha_plain(q, k, v, D ** -0.5, bias)
+    with fp32_scope():
+        want = flash.flash_mha_plain(q, k, v, D ** -0.5, bias)
     assert (got - want).abs().max().item() <= 1e-4
 
 
@@ -55,7 +69,6 @@ def test_forced_splits_match_plain_twin_on_card(B, N, M, H, D, which,
     ``dead_split`` every key of split 1 (of S = 2 or max) carries -1e9."""
     if not torch.cuda.is_available():
         pytest.skip("the flash kernels run only on a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
     tiles = -(-M // flash.BLOCK_K)
     splits = {"one": 1, "two": 2, "max": tiles}[which]
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -72,7 +85,8 @@ def test_forced_splits_match_plain_twin_on_card(B, N, M, H, D, which,
     torch.cuda.synchronize()
     assert flash.flash_mha.launches == launches + 1
     assert flash.flash_mha.combine_launches == combines + (splits > 1)
-    want = flash.flash_mha_plain(q, k, v, D ** -0.5, bias)
+    with fp32_scope():
+        want = flash.flash_mha_plain(q, k, v, D ** -0.5, bias)
     assert (got - want).abs().max().item() <= 1e-4
 
 
@@ -84,7 +98,6 @@ def test_split_path_matches_plain_split_on_card(D):
     combine) at the same split count."""
     if not torch.cuda.is_available():
         pytest.skip("the flash kernels run only on a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
     B, N, M, H, splits = 1, 48, 256, 2, 8
     gen = torch.Generator(device="cuda").manual_seed(2)
     q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda")
@@ -93,7 +106,8 @@ def test_split_path_matches_plain_split_on_card(D):
     got = flash._launch(q, k, v, D ** -0.5, None, splits)
     torch.cuda.synchronize()
     assert flash.flash_mha.combine_launches == combines + 1
-    want = flash.flash_mha_plain_split(q, k, v, D ** -0.5, None, splits)
+    with fp32_scope():
+        want = flash.flash_mha_plain_split(q, k, v, D ** -0.5, None, splits)
     assert (got - want).abs().max().item() <= 1e-4
 
 
@@ -110,7 +124,6 @@ def test_window_ops_card_match_cpu(v_org, ext):
     from sige_torch.nn.planner import _window_meta
     from sige_torch.ops import window as w
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     H, W, C = 12, 14, 5
     meta, edge = _window_meta(v_org, ext, (H, W))
     WH, WW = ext[0] - 2, ext[1] - 2
@@ -155,14 +168,12 @@ def test_tiny_window_unet_card_matches_cpu(chain):
     kernel on the card."""
     if not torch.cuda.is_available():
         pytest.skip("card-vs-CPU comparison needs a CUDA device")
-    import numpy as np
+    _card_vs_cpu(*_tiny_ddpm(chain), bucket_min=2)
 
-    from sige_torch.core.masks import dilate_mask, downsample_mask
+
+def _tiny_ddpm(chain=True):
     from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
-    from sige_torch.nn import SIGEModel
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = DDPMUNetConfig(ch=32, ch_mult=(1, 2, 2), num_res_blocks=1,
                          attn_resolutions=(8,), resolution=32,
                          sparse_resolution_threshold=16, window_chain=chain)
@@ -172,35 +183,22 @@ def test_tiny_window_unet_card_matches_cpu(chain):
     mask = np.zeros((32, 32), bool)
     mask[10:18, 12:22] = True
     x1 = x0 + 0.5 * torch.from_numpy(mask)[None, :, :, None]
-    masks = downsample_mask(dilate_mask(mask, 2), min_res=8)
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        model = SIGEModel(SIGEFusedUNet(cfg), layout="window", device=dev)
-        model.init(0)
-        t = torch.full((1,), 5.0, device=dev)
-        full = model.full(x0.to(dev), t)
-        model.set_masks(masks)
-        before = flash.flash_mha.launches
-        outs[dev] = [full.cpu(), model.sparse(x1.to(dev), t).cpu(),
-                     model.sparse(x0.to(dev), t).cpu()]
-        if dev == "cuda":
-            assert flash.flash_mha.launches > before
-    for got, want in zip(outs["cuda"], outs["cpu"]):
-        assert (got - want).abs().max().item() <= 1e-4
-    assert (outs["cuda"][2] - outs["cuda"][0]).abs().max().item() <= 1e-4
+    t = torch.full((1,), 5.0)
+    return (lambda: SIGEFusedUNet(cfg), (x0, t), (x1, t),
+            downsample_mask(dilate_mask(mask, 2), min_res=8))
 
 
-def _sd_card_vs_cpu(make, args0, args1, masks):
-    """full, sparse(edit), sparse(original) of one SD model on the card
-    and on the CPU (the same seeded weights), window layout."""
+def _card_vs_cpu(make, args0, args1, masks, bucket_min=1):
+    """full, sparse(edit), sparse(original) of one model on the card and
+    on the CPU (the same seeded weights), window layout, under the
+    caller's precision flags; the card's sparse forwards launch the flash
+    kernel."""
     from sige_torch.nn import SIGEModel
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     outs = {}
     for dev in ("cpu", "cuda"):
-        model = SIGEModel(make(), layout="window", device=dev)
-        model.bucket_min = 1
+        model = SIGEModel(make(), layout="window", bucket_min=bucket_min,
+                          device=dev)
         model.init(0)
         a0 = [a.to(dev) for a in args0]
         a1 = [a.to(dev) for a in args1]
@@ -224,25 +222,7 @@ def test_tiny_sd_unet_card_matches_cpu(chain):
     the flash kernel on the card."""
     if not torch.cuda.is_available():
         pytest.skip("card-vs-CPU comparison needs a CUDA device")
-    import numpy as np
-
-    from sige_torch.core.masks import dilate_mask, downsample_mask
-    from sige_torch.models.sd import SDUNetConfig, SIGESDUNet
-
-    cfg = SDUNetConfig(in_channels=4, model_channels=32, out_channels=4,
-                       num_res_blocks=1, attention_resolutions=(1, 2),
-                       channel_mult=(1, 2), num_heads=4, context_dim=16,
-                       num_groups=8, window_chain=chain)
-    gen = torch.Generator().manual_seed(3)
-    x0 = torch.randn(2, 16, 16, 4, generator=gen)
-    mask = np.zeros((16, 16), bool)
-    mask[4:9, 5:11] = True
-    x1 = x0 + torch.from_numpy(mask)[None, :, :, None] * torch.randn(
-        2, 16, 16, 4, generator=gen)
-    t = torch.full((2,), 3.0)
-    c = torch.randn(2, 7, 16, generator=gen)
-    _sd_card_vs_cpu(lambda: SIGESDUNet(cfg), (x0, t, c), (x1, t, c),
-                    downsample_mask(dilate_mask(mask, 1), min_res=4))
+    _card_vs_cpu(*_tiny_sd_unet(chain))
 
 
 @pytest.mark.gpu
@@ -252,9 +232,6 @@ def test_tiny_sd_vae_card_matches_cpu(kind):
     stale/fresh attention runs the flash kernel on the card."""
     if not torch.cuda.is_available():
         pytest.skip("card-vs-CPU comparison needs a CUDA device")
-    import numpy as np
-
-    from sige_torch.core.masks import dilate_mask, downsample_mask
     from sige_torch.models.sd import SDVAEConfig, SIGEDecoder, SIGEEncoder
 
     cfg = SDVAEConfig(ch=16, ch_mult=(1, 2), num_res_blocks=1,
@@ -271,5 +248,87 @@ def test_tiny_sd_vae_card_matches_cpu(kind):
             mask[::2, ::2], lambda: SIGEDecoder(cfg)
     x1 = x0 + 0.7 * torch.from_numpy(m)[None, :, :, None] * torch.randn(
         x0.shape, generator=gen)
-    _sd_card_vs_cpu(make, (x0,), (x1,),
-                    downsample_mask(dilate_mask(mask, 1), min_res=4))
+    _card_vs_cpu(make, (x0,), (x1,),
+                 downsample_mask(dilate_mask(mask, 1), min_res=4))
+
+
+def _tiny_pd(chain=True):
+    """tests/test_pd.py's TINY PD U-Net: the window chain crosses its
+    resampling resblocks; 4-head attention in the middle block."""
+    from sige_torch.models.pd import PDUNetConfig, SIGEPDUNet
+
+    cfg = PDUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                       attn_resolutions=(8,), resolution=32, temb_ch=64,
+                       head_dim=16, sparse_resolution_threshold=16,
+                       window_chain=chain)
+    gen = torch.Generator().manual_seed(6)
+    x0 = torch.randn(1, 32, 32, 3, generator=gen)
+    mask = np.zeros((32, 32), bool)
+    mask[8:16, 10:20] = True
+    x1 = x0 + 0.5 * torch.from_numpy(mask)[None, :, :, None] * torch.randn(
+        1, 32, 32, 3, generator=gen)
+    ls = torch.tensor([1.3])
+    return (lambda: SIGEPDUNet(cfg), (x0, ls), (x1, ls),
+            downsample_mask(dilate_mask(mask, 2), min_res=4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chain", [True, False])
+def test_tiny_pd_unet_card_matches_cpu(chain):
+    """The tiny PD U-Net, window layout: pre-pool and up2 chains, and its
+    multi-head attention on the flash kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    _card_vs_cpu(*_tiny_pd(chain))
+
+
+def _tiny_sd_unet(chain=True):
+    from sige_torch.models.sd import SDUNetConfig, SIGESDUNet
+
+    cfg = SDUNetConfig(in_channels=4, model_channels=32, out_channels=4,
+                       num_res_blocks=1, attention_resolutions=(1, 2),
+                       channel_mult=(1, 2), num_heads=4, context_dim=16,
+                       num_groups=8, window_chain=chain)
+    gen = torch.Generator().manual_seed(3)
+    x0 = torch.randn(2, 16, 16, 4, generator=gen)
+    mask = np.zeros((16, 16), bool)
+    mask[4:9, 5:11] = True
+    x1 = x0 + torch.from_numpy(mask)[None, :, :, None] * torch.randn(
+        2, 16, 16, 4, generator=gen)
+    t = torch.full((2,), 3.0)
+    c = torch.randn(2, 7, 16, generator=gen)
+    return (lambda: SIGESDUNet(cfg), (x0, t, c), (x1, t, c),
+            downsample_mask(dilate_mask(mask, 1), min_res=4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["ddpm", "sd_unet", "pd"])
+def test_engine_holds_fp32_under_pytorch_default_flags(model):
+    """PyTorch's defaults run cuDNN convs in TF32. First the test shows
+    that it can see that: the port's conv (NHWC, a channels_last view) at
+    the tiny models' widths, called bare, differs from the CPU by more
+    than 1e-4 under those defaults. Then the tiny model, run under the
+    same defaults, matches the CPU at 1e-4, because the engine holds fp32
+    for its own forwards; the defaults are the caller's again
+    afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    from sige_torch.ops.conv import conv2d_nhwc
+
+    saved = precision_flags()
+    defaults = _pytorch_defaults()
+    try:
+        set_precision_flags(defaults)
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn(1, 16, 16, 32, generator=gen)
+        w = torch.randn(64, 32, 3, 3, generator=gen)
+        b = torch.zeros(64)
+        bare = conv2d_nhwc(x.cuda(), w.cuda(), b.cuda(), padding=1).cpu()
+        tf32_err = (bare - conv2d_nhwc(x, w, b, padding=1)).abs().max().item()
+        assert tf32_err > 1e-4, f"TF32 not visible: {tf32_err:.3e}"
+        make = {"ddpm": _tiny_ddpm, "sd_unet": _tiny_sd_unet,
+                "pd": _tiny_pd}[model]
+        _card_vs_cpu(*make())
+        assert precision_flags() == defaults
+    finally:
+        set_precision_flags(saved)

@@ -15,6 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "sige_tpu")
 def _sources():
     return sorted((ROOT / "sige_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "trace_torch_step.py",
+        ROOT / "scripts" / "retime_cost.py",
         ROOT / "tests" / "test_torch_gpu.py"]
 
 

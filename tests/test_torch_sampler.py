@@ -32,6 +32,7 @@ from sige_torch.runners import DiffusionRunConfig, DiffusionRunner
 from sige_torch.samplers import DDIMSampler, DDPMSampler, DiffusionSchedule
 from sige_torch.samplers import diffusion as tdiff
 from sige_torch.utils.from_jax import state_dict_from_flax, torch_path
+from test_torch_sd_unet import one_torch_thread  # noqa: F401 (autouse)
 
 TRAJ_ATOL = 1e-4
 TINY = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
