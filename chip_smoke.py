@@ -26,9 +26,12 @@ Phases (any failure raises and the script exits non-zero):
             plain version (partials per key range, plain combine);
 4. small  — a tiny DDPM U-Net on the card agrees with the same U-Net on
             the CPU, in the tile layout and in the window layout with
-            chains, and so does a tiny PD U-Net (window layout);
+            chains, and so does a tiny PD U-Net (window layout); the
+            first forward prints cuDNN's benchmark limit inside it (the
+            engine's ``BENCHMARK_LIMIT``);
 5. retime — what cuDNN's benchmark mode (which the engine sets, as the
-            reference does) costs per new edit: the DDPM main path's
+            reference does, timing ``BENCHMARK_LIMIT`` algorithms per new
+            conv shape) costs per new edit: the DDPM main path's
             ``generate`` on a first edit, again, on a second edit with
             other window shapes, again; then the full and sparse forwards
             through the engine against the same module called with
@@ -58,7 +61,8 @@ Phases (any failure raises and the script exits non-zero):
             sparse = full on the original for the encoder, U-Net and
             decoder, also after a sparse pass on the edit; per model and
             mode the launches, latency, GMACs and peak MB (the decoder's
-            sparse forward held below its full one); ``sdedit`` again, and
+            sparse forward held below its full one, with a peak under
+            10 GB); ``sdedit`` again, and
             twice on a second edit with other window shapes;
 8. sd kernels — the flash kernel against its plain version at every
             distinct (B, N, M, H, D) the SD path's forwards give it, the
@@ -76,9 +80,23 @@ Phases (any failure raises and the script exits non-zero):
             dense, full and sparse forwards: launches, latency, GMACs,
             peak MB;
 10. pd kernels — the flash kernel against its plain version at every
-            distinct call of the PD U-Net (multi-head, D = 64).
+            distinct call of the PD U-Net (multi-head, D = 64);
+11. gaugan — the GauGAN semantic-editing path at full width through
+            ``sige_torch.runners.GauGANRunner``: the Cityscapes SPADE
+            generator (``SPADEGenConfig()``, 93.07 M, 512x256, BatchNorm
+            statistics calibrated on the original), the synthetic edit of
+            ``sige_tpu/cli/gaugan.py``: ``generate`` with the launch
+            counters set to 0 just before and read just after, held to 0
+            (GauGAN has no attention), the layout ``auto`` ran (window);
+            ``generate`` again, on a second edit, again; sparse = full on
+            the original, also after a sparse pass on the edit; sparse
+            against dense on the edit (printed: approximate by design);
+            dense, full and sparse forwards (flash launches, latency,
+            GMACs with the dense count held to sige_tpu's 281.3, peak MB,
+            kernel launches); the tile layout once; the GAN-Compression
+            sub-mobile generator (20.19 M) on the same edit.
 
-The paths (phases 4-7 and 9) run under PyTorch's default precision flags,
+The paths (phases 4-7, 9 and 11) run under PyTorch's default precision flags,
 which run cuDNN convs in TF32: the engine holds fp32 and benchmark mode
 for its own forwards, and the script checks that the flags are the
 defaults again at its end. The kernel phases enter the same scope.
@@ -307,6 +325,50 @@ def second_edit(R: int):
     return edit_pair(R, frac=0.03, at=(R // 2, 3 * R // 8))
 
 
+def gaugan_edit_pair(cfg, frac: float = 0.012, at=None):
+    """``sige_tpu/cli/gaugan.py``'s synthetic pair at ``SPADEGenConfig``
+    ``cfg``: [H, W] labels uniform over the classes but the last, from
+    default_rng(0), and the same labels with a square of ``frac`` (~1.2%)
+    of the canvas set to the last class at ``at`` (default (H/3, W/3))."""
+    rng = np.random.default_rng(0)
+    H, W = round(cfg.crop_size / cfg.aspect_ratio), cfg.crop_size
+    n = cfg.semantic_nc - 1  # label classes; the last channel is the edges
+    original = rng.integers(0, n - 1, (H, W))
+    edited = original.copy()
+    side = max(4, int(round((frac * H * W) ** 0.5)))
+    r, c = at or (H // 3, W // 3)
+    edited[r: r + side, c: c + side] = n - 1
+    return original, edited
+
+
+def gaugan_second_edit(cfg):
+    """A second GauGAN edit whose windows differ in shape from
+    :func:`gaugan_edit_pair`'s at every level: a 3% square at
+    (H/2, 5W/8)."""
+    H, W = round(cfg.crop_size / cfg.aspect_ratio), cfg.crop_size
+    return gaugan_edit_pair(cfg, frac=0.03, at=(H // 2, 5 * W // 8))
+
+
+def limit_inside_forward(module):
+    """Print and check cuDNN's benchmark limit as it is inside the engine's
+    forwards of ``module`` (a forward hook reads it in the next forward):
+    the engine's ``BENCHMARK_LIMIT``, which acts through cuDNN's v8 API
+    (PyTorch's default on the card)."""
+    from sige_torch.nn.engine import BENCHMARK_LIMIT
+
+    def hook(mod, args):
+        limit = torch.backends.cudnn.benchmark_limit
+        handle.remove()
+        print(f"  cudnn benchmark_limit inside a forward: {limit} (the "
+              f"engine's BENCHMARK_LIMIT {BENCHMARK_LIMIT}; outside: "
+              f"{precision_flags()[3]})", flush=True)
+        if limit != BENCHMARK_LIMIT:
+            raise AssertionError(f"benchmark_limit {limit} inside a forward, "
+                                 f"the engine sets {BENCHMARK_LIMIT}")
+
+    handle = module.register_forward_pre_hook(hook)
+
+
 def phase_small_reference():
     """A tiny DDPM U-Net on the card against the same U-Net on the CPU (the
     CPU port is the one the tests hold against sige_tpu), in the tile
@@ -334,6 +396,8 @@ def phase_small_reference():
         outs = {}
         for dev in ("cpu", "cuda"):
             runner = make(dev, layout)
+            if dev == "cuda" and name == "DDPM" and layout == "tiles":
+                limit_inside_forward(runner.module)
             x0, x1, _ = runner.preprocess(original, edited)
             if runner.active_layout != layout:
                 raise AssertionError(f"ran {runner.active_layout}, asked "
@@ -410,7 +474,7 @@ def phase_retime(flash, rc):
 
     def heuristic(mode, x):
         saved = precision_flags()
-        set_precision_flags(("ieee", "ieee", False))
+        set_precision_flags(("ieee", "ieee", False, saved[3]))
         try:
             with torch.inference_mode():
                 runner.module(x, t, ctx=SIGECtx(mode=mode))
@@ -795,6 +859,10 @@ def phase_sd(flash):
     if not dec["sparse"]["latency_ms"] < dec["full"]["latency_ms"]:
         raise AssertionError("sd decoder: the sparse forward is not below "
                              "the full one")
+    if not dec["sparse"]["peak_mb"] < 10e9 / 2**20:
+        raise AssertionError(f"sd decoder: the sparse forward's peak "
+                             f"{dec['sparse']['peak_mb']:.1f} MB is not under "
+                             f"10 GB (cuDNN's FFT algorithm?)")
     resident = {n: resident_mb(m) for n, m in models.items()}
     print("  [sd] resident (params + caches) MB: " + ", ".join(
         f"{n} {v:.1f}" for n, v in resident.items()), flush=True)
@@ -978,6 +1046,202 @@ def phase_pd_kernels(flash, recorded, first: str):
     return rows
 
 
+GAUGAN_ITERS = 20  # timed forwards per mode
+GAUGAN_DENSE_GMACS = 281.3  # sige_tpu's count for SPADEGenConfig() (README)
+SUB_MOBILE_CONFIG = "32_32_32_48_32_24_24_32"  # sige_tpu's default
+
+
+def launches_per_forward(fn, iters: int = 5) -> float:
+    """Kernels launched per call of ``fn``, from a torch.profiler trace of
+    ``iters`` calls (after one warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and _dev_time(e) > 0) / iters
+
+
+def calibrate_bn_stats(runner, seg):
+    """BatchNorm running statistics as training leaves them: each norm's
+    per-channel mean and variance of its input on ``seg``, from one dense
+    pass in which every norm is calibrated just before it runs. They are
+    away from flax's 0 and 1, so the folds are exercised, and the
+    activations keep the scale of a trained generator's (with statistics
+    drawn at random they grow to ~100 through the blocks, PERF.md)."""
+    def hook(mod, args):
+        x = args[0]
+        mod.running_mean.copy_(x.mean(dim=(0, 1, 2)))
+        mod.running_var.copy_(x.var(dim=(0, 1, 2), unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook)
+               for m in runner.module.modules() if hasattr(m, "running_var")]
+    try:
+        runner.model.dense(torch.as_tensor(seg, device=runner.device))
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _gaugan_exact(name, model, x0, x1):
+    """sparse(x0) = full(x0), also after a sparse(x1), over the plan the
+    runner set; returns (errors, full(x0))."""
+    full = model.full(x0)
+    errs = [(model.sparse(x0) - full).abs().max().item()]
+    model.sparse(x1)
+    errs.append((model.sparse(x0) - full).abs().max().item())
+    print(f"  [{name}] sparse(x0) vs full(x0): max err {errs[0]:.3e}; after "
+          f"a sparse(x1): {errs[1]:.3e}", flush=True)
+    if not all(e < TOL for e in errs):
+        raise AssertionError(f"{name}: sparse(x0) != full(x0): {errs}")
+    return errs
+
+
+def _gaugan_forwards(flash, name, runner, x0, x1, modes):
+    """Per mode: flash launches (asserted 0), CUDA-event median and p90,
+    GMACs, peak MB (``forward_stats``), and kernel launches per forward
+    (profiler)."""
+    args = {"dense": (x1,), "full": (x0,), "sparse": (x1,)}
+    out = {}
+    for mode in modes:
+        out[mode] = forward_stats(flash, name, runner.model, args[mode],
+                                  mode, [], iters=GAUGAN_ITERS)
+        fwd = getattr(runner.model, mode)
+        out[mode]["kernel_launches"] = launches_per_forward(
+            lambda: fwd(*args[mode]))
+        print(f"  [{name}] {mode}: {out[mode]['kernel_launches']:.1f} kernel "
+              f"launches per forward", flush=True)
+    return out
+
+
+def phase_gaugan(flash):
+    """The GauGAN semantic-editing path at full width through
+    ``GauGANRunner``: the Cityscapes SPADE generator (``SPADEGenConfig()``:
+    ngf 64, 36 semantic channels, 512x256, "more" upsampling, main blocks
+    6, shortcut blocks 4, 5 sparse blocks, window chains and the sparse
+    tail; 93.07 M parameters and BatchNorm statistics), random weights
+    from seed 0 with the BatchNorm statistics calibrated on the original
+    (:func:`calibrate_bn_stats`), ``sige_tpu/cli/gaugan.py``'s synthetic
+    edit (~1.2% of
+    the canvas set to class 34 at (H/3, W/3)); layout auto (window). Then
+    the tile layout once, and the GAN-Compression sub-mobile generator
+    (config 32_32_32_48_32_24_24_32, 20.19 M) on the same edit."""
+    from sige_torch.models.gaugan import (SIGESubMobileSPADEGenerator,
+                                          SPADEGenConfig, decode_config)
+    from sige_torch.runners import GauGANRunner
+
+    cfg = SPADEGenConfig()
+    t0 = time.perf_counter()
+    runner = GauGANRunner(cfg, device="cuda", seed=0)
+    size_m = sum(t.numel() for t in runner.module.state_dict().values()) / 1e6
+    labels, labels_b = gaugan_edit_pair(cfg), gaugan_second_edit(cfg)
+    original, edited = (runner.preprocess_input(lab) for lab in labels)
+    b = [runner.preprocess_input(lab) for lab in labels_b]
+    calibrate_bn_stats(runner, original)
+    torch.cuda.synchronize()
+    print(f"  [gaugan] runner: {time.perf_counter() - t0:.2f} s, parameters "
+          f"and BN statistics {size_m:.2f} M", flush=True)
+    if round(size_m, 2) != 93.07:
+        raise AssertionError(f"gaugan: {size_m:.3f} M, expected 93.07")
+
+    # the path, through the runner's own entry point: counters set to 0
+    # just before, read just after; GauGAN has no attention
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    t0 = time.perf_counter()
+    out = runner.generate(original, edited)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = flash.flash_mha.launches
+    combines = flash.flash_mha.combine_launches
+    print(f"  [gaugan] generate in {gen_s:.2f} s: layout "
+          f"{runner.model.layout!r} ran {runner.active_layout!r}, edit ratio "
+          f"{runner.last_edit_ratio:.4f}; flash launches {launches} + "
+          f"{combines} combine (expected 0 + 0)", flush=True)
+    if (launches, combines) != (0, 0):
+        raise AssertionError(f"gaugan: flash launches {launches} + "
+                             f"{combines}, expected 0")
+    if runner.active_layout != "window":
+        raise AssertionError(f"gaugan: ran {runner.active_layout}, expected "
+                             f"window")
+    H, W = original.shape[1:3]
+    if out.shape != (H, W, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"gaugan: generate output {out.shape}, finite "
+                             f"{np.isfinite(out).all()}")
+    # what a new edit costs: again, a second edit (other window shapes at
+    # every level), again
+    secs = dict(a_first=gen_s, **timed_calls([
+        (label, lambda e=e: runner.generate(*e))
+        for label, e in (("a_again", (original, edited)), ("b_first", b),
+                         ("b_again", b))]))
+    print(f"  [gaugan retime] generate, s: first edit {secs['a_first']:.3f}, "
+          f"again {secs['a_again']:.3f}; second edit (other windows) "
+          f"{secs['b_first']:.3f}, again {secs['b_again']:.3f}", flush=True)
+
+    x0, x1, _ = runner.preprocess(original, edited)
+    exact = _gaugan_exact("gaugan", runner.model, x0, x1)
+    y_sparse, y_dense = runner.model.sparse(x1), runner.model.dense(x1)
+    diff = (y_sparse - y_dense).abs()
+    print(f"  [gaugan] sparse(x1) vs dense(x1): max {diff.max().item():.3e}, "
+          f"mean {diff.mean().item():.3e} (approximate by design outside "
+          f"the edit's receptive field)", flush=True)
+    prof = _gaugan_forwards(flash, "gaugan", runner, x0, x1,
+                            ("dense", "full", "sparse"))
+    dense_g = prof["dense"]["macs_g"]
+    if round(dense_g, 1) != GAUGAN_DENSE_GMACS:
+        raise AssertionError(f"gaugan: dense {dense_g:.3f} GMACs, sige_tpu "
+                             f"counts {GAUGAN_DENSE_GMACS}")
+    resident = resident_mb(runner.model)
+    print(f"  [gaugan] resident (params + caches) MB: {resident:.1f}",
+          flush=True)
+    state = runner.module.state_dict()
+    del runner
+    torch.cuda.empty_cache()
+
+    # the tile layout once
+    tiles = GauGANRunner(cfg, layout="tiles", device="cuda",
+                         params=state)
+    x0, x1, _ = tiles.preprocess(original, edited)
+    if tiles.active_layout != "tiles":
+        raise AssertionError(f"gaugan tiles: ran {tiles.active_layout}")
+    tiles_exact = _gaugan_exact("gaugan tiles", tiles.model, x0, x1)
+    tiles_prof = _gaugan_forwards(flash, "gaugan tiles", tiles, x0, x1,
+                                  ("sparse",))
+    del tiles, state
+    torch.cuda.empty_cache()
+
+    # the GAN-Compression sub-mobile generator on the same edit
+    sub = GauGANRunner(cfg, module=SIGESubMobileSPADEGenerator(
+        cfg, tuple(decode_config(SUB_MOBILE_CONFIG))), device="cuda", seed=0)
+    calibrate_bn_stats(sub, original)
+    sub_m = sum(t.numel() for t in sub.module.state_dict().values()) / 1e6
+    x0, x1, _ = sub.preprocess(original, edited)
+    print(f"  [gaugan sub-mobile] {SUB_MOBILE_CONFIG}: parameters and BN "
+          f"statistics {sub_m:.2f} M, ran {sub.active_layout!r}", flush=True)
+    if round(sub_m, 2) != 20.19:
+        raise AssertionError(f"sub-mobile: {sub_m:.3f} M, expected 20.19")
+    sub_exact = _gaugan_exact("gaugan sub-mobile", sub.model, x0, x1)
+    sub_prof = _gaugan_forwards(flash, "gaugan sub-mobile", sub, x0, x1,
+                                ("dense", "full", "sparse"))
+    del sub
+    torch.cuda.empty_cache()
+    return {"layout": "window", "params_m": size_m, "generate_s": gen_s,
+            "launches": launches, "combine_launches": combines,
+            "retime_generate_s": secs, "exact": exact,
+            "sparse_vs_dense": {"max": diff.max().item(),
+                                "mean": diff.mean().item()},
+            "profile": prof, "resident_mb": resident,
+            "tiles": {"exact": tiles_exact, "profile": tiles_prof},
+            "sub_mobile": {"config": SUB_MOBILE_CONFIG, "params_m": sub_m,
+                           "layout": "window", "exact": sub_exact,
+                           "profile": sub_prof}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1036,6 +1300,9 @@ def main() -> int:
     with fp32_scope():
         rows += phase_pd_kernels(flash, pd_recorded,
                                        chr(ord("a") + len(rows)))
+    print("gaugan (Cityscapes SPADE generator at 512x256, full width):",
+          flush=True)
+    gaugan = phase_gaugan(flash)
     if precision_flags() != defaults:
         raise AssertionError(f"precision flags {precision_flags()} after the "
                              f"run, {defaults} before it")
@@ -1052,11 +1319,13 @@ def main() -> int:
         "combine_launches": paths["main"]["combine_launches"],
         "launches_by_path": dict(
             {n: p["launches"] for n, p in paths.items()},
-            sd_sdedit=sd["launches"], pd_generate=pd["launches"]),
+            sd_sdedit=sd["launches"], pd_generate=pd["launches"],
+            gaugan_generate=gaugan["launches"]),
         "combine_launches_by_path": dict(
             {n: p["combine_launches"] for n, p in paths.items()},
             sd_sdedit=sd["combine_launches"],
-            pd_generate=pd["combine_launches"]),
+            pd_generate=pd["combine_launches"],
+            gaugan_generate=gaugan["combine_launches"]),
         "splits": main_row["splits"],
         "max_abs_err": max([r["max_err"] for r in rows]
                            + [f["max_err"] for f in forced.values()]
@@ -1075,7 +1344,7 @@ def main() -> int:
         "combine_a": combine,
     }]
     print(json.dumps({"paths": paths, "retime": retime, "sd": sd, "pd": pd,
-                      "card": card}), flush=True)
+                      "gaugan": gaugan, "card": card}), flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,7 +3,7 @@
 models and the church pd256 PD U-Net.
 
     python3 scripts/trace_torch_step.py [--layout tiles window auto]
-                                        [--sd N] [--pd N]
+                                        [--sd N] [--pd N] [--gaugan N]
 
 For each layout in turn (default: ``tiles window window tiles``, one
 process, so that drift on the host shows as a difference between the two
@@ -16,7 +16,11 @@ decoder and of the encoder at 512^2 (the plans and caches that
 the 512^2 edit, one ``sdedit``), then ``--pd`` times (default 0) for the
 full and the sparse forward of the PD U-Net (``PDRunner`` with church
 pd256's configs, random weights from seed 0, the DDPM edit, after its
-``preprocess``), it prints, as one JSON line (``runs``, in order):
+``preprocess``), then ``--gaugan`` times (default 0) for the dense, full
+and sparse forward of the Cityscapes SPADE generator (``GauGANRunner``
+at 512x256, random weights from seed 0 with the BatchNorm statistics of
+``chip_smoke.py``, its synthetic edit, after ``preprocess``), it prints,
+as one JSON line (``runs``, in order):
 
   * ``device_ms``: median time between two CUDA events around a forward;
   * ``host_ms``: median host time to enqueue a forward (no sync) — when it
@@ -37,9 +41,9 @@ pd256's configs, random weights from seed 0, the DDPM edit, after its
     memory allocated by one forward (params and caches resident);
   * per run, ``layout`` as asked and ``active_layout``, what the planner
     ran (``auto`` resolves per edit), and ``model``: "ddpm", "sd_unet",
-    "sd_decoder", "sd_encoder" or "pd" (the SD and PD runs have a ``full``
-    and a ``sparse`` entry where the DDPM runs have ``dense`` and
-    ``sparse``).
+    "sd_decoder", "sd_encoder", "pd" or "gaugan" (the SD and PD runs have
+    a ``full`` and a ``sparse`` entry where the DDPM runs have ``dense``
+    and ``sparse``; the GauGAN runs have all three).
 
 The script leaves PyTorch's precision flags as they are: the engine runs
 its forwards in fp32 with cuDNN's benchmark mode itself. GPU only: exits
@@ -212,6 +216,32 @@ def pd_runs(n):
     return runs
 
 
+def gaugan_runs(n):
+    """``n`` runs of the SPADE generator's dense, full and sparse forward
+    over the plan and caches of ``GauGANRunner.preprocess`` on
+    ``chip_smoke.py``'s synthetic edit."""
+    from chip_smoke import calibrate_bn_stats, gaugan_edit_pair
+    from sige_torch.models.gaugan import SPADEGenConfig
+    from sige_torch.runners import GauGANRunner
+
+    cfg = SPADEGenConfig()
+    runner = GauGANRunner(cfg, device="cuda", seed=0)
+    s0, s1 = (runner.preprocess_input(lab) for lab in gaugan_edit_pair(cfg))
+    calibrate_bn_stats(runner, s0)
+    x0, x1, _ = runner.preprocess(s0, s1)
+    runs = []
+    for _ in range(n):
+        res = {"model": "gaugan", "layout": "auto",
+               "active_layout": runner.active_layout}
+        for mode, x in (("dense", x1), ("full", x0), ("sparse", x1)):
+            fwd = getattr(runner.model, mode)
+            res[mode] = measure(lambda: fwd(x))
+            res[mode]["macs_g"] = runner.count_macs(x, mode) / 1e9
+            res[mode]["peak_mb"] = peak_mb(lambda: fwd(x))
+        runs.append(res)
+    return runs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layout", nargs="*",
@@ -221,6 +251,9 @@ def main():
                     help="runs of the SD models' full and sparse forward")
     ap.add_argument("--pd", type=int, default=0,
                     help="runs of the PD U-Net's full and sparse forward")
+    ap.add_argument("--gaugan", type=int, default=0,
+                    help="runs of the SPADE generator's dense, full and "
+                         "sparse forward")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_torch_step: no CUDA device", file=sys.stderr)
@@ -233,6 +266,10 @@ def main():
     torch.cuda.empty_cache()
     if args.pd:
         out["runs"] += pd_runs(args.pd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if args.gaugan:
+        out["runs"] += gaugan_runs(args.gaugan)
     print(json.dumps(out))
     return 0
 

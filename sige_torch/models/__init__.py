@@ -1,7 +1,8 @@
 """Models of the port: the DDPM U-Net (``ddpm``), the Progressive
 Distillation U-Net (``pd``) and Stable Diffusion's U-Net and VAE
-(``sd``), on the blocks they share (``blocks``)."""
+(``sd``), on the blocks they share (``blocks``), and the GauGAN SPADE
+generators (``gaugan``)."""
 
-from . import ddpm, pd, sd
+from . import ddpm, gaugan, pd, sd
 
-__all__ = ["ddpm", "pd", "sd"]
+__all__ = ["ddpm", "gaugan", "pd", "sd"]

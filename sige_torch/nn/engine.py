@@ -11,7 +11,9 @@ Every forward runs inside :func:`fp32_scope`: PyTorch's defaults run
 cuDNN convolutions in TF32 and let cuDNN pick its algorithms by
 heuristic, and the engine holds fp32 (the 1e-4 contract of ``sige_tpu``)
 and times its algorithms per shape (``cudnn.benchmark``, as the
-reference's diffusion suite sets it) for its own calls only.
+reference's diffusion suite sets it, with at most
+:data:`BENCHMARK_LIMIT` algorithms timed per new shape) for its own calls
+only.
 """
 
 from __future__ import annotations
@@ -45,25 +47,41 @@ def _has_fp32_precision() -> bool:
     return hasattr(cudnn, "conv") and hasattr(cudnn.conv, "fp32_precision")
 
 
-def precision_flags() -> Tuple[str, str, bool]:
+#: How many of cuDNN's algorithms benchmark mode times for each conv shape
+#: new to the process (``torch.backends.cudnn.benchmark_limit``; PyTorch's
+#: default is 10), inside the engine's forwards. Every new edit brings new
+#: window shapes, and timing fewer algorithms cuts what it costs; one
+#: algorithm is too few (cuDNN's first choice for some window shapes of
+#: the SD decoder is an FFT algorithm slower than the dense conv that
+#: takes GBs of workspace). Chosen by the rule of
+#: ``scripts/retime_cost.py --repeat`` from six card runs per setting
+#: (PERF.md section 5).
+BENCHMARK_LIMIT = 2
+
+Flags = Tuple[str, str, bool, Optional[int]]
+
+
+def precision_flags() -> Flags:
     """(cuDNN conv fp32 precision, CUDA matmul fp32 precision, cuDNN
-    benchmark mode) as set now. The precisions are read through
-    ``fp32_precision`` where this torch has it ("ieee", "tf32" or "none",
-    which inherits) and else from the legacy ``allow_tf32`` flags ("tf32"
-    or "ieee"): torch refuses to mix the two APIs."""
+    benchmark mode, cuDNN benchmark limit) as set now. The precisions are
+    read through ``fp32_precision`` where this torch has it ("ieee",
+    "tf32" or "none", which inherits) and else from the legacy
+    ``allow_tf32`` flags ("tf32" or "ieee"): torch refuses to mix the two
+    APIs. The limit reads None where torch has no cuDNN (a CPU build)."""
     b = torch.backends
     if _has_fp32_precision():
-        return (b.cudnn.conv.fp32_precision, b.cuda.matmul.fp32_precision,
-                b.cudnn.benchmark)
-    return ("tf32" if b.cudnn.allow_tf32 else "ieee",
-            "tf32" if b.cuda.matmul.allow_tf32 else "ieee",
-            b.cudnn.benchmark)
+        precisions = (b.cudnn.conv.fp32_precision,
+                      b.cuda.matmul.fp32_precision)
+    else:
+        precisions = ("tf32" if b.cudnn.allow_tf32 else "ieee",
+                      "tf32" if b.cuda.matmul.allow_tf32 else "ieee")
+    return (*precisions, b.cudnn.benchmark, b.cudnn.benchmark_limit)
 
 
-def set_precision_flags(flags: Tuple[str, str, bool]) -> None:
+def set_precision_flags(flags: Flags) -> None:
     """Set what :func:`precision_flags` reads, through the same API."""
     b = torch.backends
-    conv, matmul, benchmark = flags
+    conv, matmul, benchmark, limit = flags
     if _has_fp32_precision():
         b.cudnn.conv.fp32_precision = conv
         b.cuda.matmul.fp32_precision = matmul
@@ -71,18 +89,21 @@ def set_precision_flags(flags: Tuple[str, str, bool]) -> None:
         b.cudnn.allow_tf32 = conv == "tf32"
         b.cuda.matmul.allow_tf32 = matmul == "tf32"
     b.cudnn.benchmark = benchmark
+    b.cudnn.benchmark_limit = limit
 
 
 @contextlib.contextmanager
 def fp32_scope():
     """cuDNN convs and CUDA matmuls in full fp32 and cuDNN's benchmark
-    mode inside, the caller's settings restored on exit. Without
-    benchmark mode cuDNN's heuristic picks, for some window shapes, an FFT
-    algorithm slower than the dense conv that takes GBs of workspace; with
-    it each new conv shape is timed once per process, which a new edit's
-    window shapes pay on its first call (PERF.md section 5)."""
+    mode, timing at most :data:`BENCHMARK_LIMIT` algorithms (read when the
+    scope is entered) per new conv shape, inside; the caller's settings
+    restored on exit. Without benchmark mode cuDNN's heuristic picks, for
+    some window shapes, an FFT algorithm slower than the dense conv that
+    takes GBs of workspace; with it each new conv shape is timed once per
+    process, which a new edit's window shapes pay on its first call
+    (PERF.md section 5)."""
     saved = precision_flags()
-    set_precision_flags(("ieee", "ieee", True))
+    set_precision_flags(("ieee", "ieee", True, BENCHMARK_LIMIT))
     try:
         yield
     finally:

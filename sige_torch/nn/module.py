@@ -332,24 +332,30 @@ class ScatterWithBlockResidual(SIGEModule):
 class SIGEConv2d(SIGEModule):
     """Conv that pads normally in full/dense mode and runs VALID on
     gathered tiles in sparse mode (reference: sige/nn/base.py:80-92).
-    The weight is stored as ``F.conv2d``'s OIHW; inputs are NHWC.
+    The weight is stored as ``F.conv2d``'s OIHW ([features, in_channels /
+    groups, kh, kw]); inputs are NHWC.
 
     ``tile_input=False`` marks a conv that always sees full maps (e.g. the
     stem conv, or resblock convs at non-sparse levels) so it keeps its
-    padding in sparse mode.
+    padding in sparse mode. ``groups`` is flax's ``feature_group_count``
+    (``in_channels`` for a depthwise conv); ``use_bias=False`` drops the
+    bias (GauGAN's shortcut convs).
     """
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: Union[int, IntPair] = 3,
                  stride: Union[int, IntPair] = 1, padding: Any = 0,
-                 tile_input: bool = True):
+                 tile_input: bool = True, groups: int = 1,
+                 use_bias: bool = True):
         super().__init__()
         kh, kw = _pair(kernel_size)
         self.stride = stride
         self.padding = padding
         self.tile_input = tile_input
-        self.weight = nn.Parameter(torch.empty(features, in_channels, kh, kw))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.groups = groups
+        self.weight = nn.Parameter(
+            torch.empty(features, in_channels // groups, kh, kw))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x, ctx: SIGECtx):
         if ctx.mode in ("full", "dense") or not self.tile_input:
@@ -357,7 +363,8 @@ class SIGEConv2d(SIGEModule):
         else:
             padding = 0
         out = conv2d_nhwc(x, self.weight, self.bias, stride=self.stride,
-                          padding=padding)
+                          padding=padding, groups=self.groups)
+        # per output element, kh * kw * (C_in / groups) multiply-adds
         _, cin, kh, kw = self.weight.shape
         add_macs(ctx, out.numel() * kh * kw * cin)
         return out

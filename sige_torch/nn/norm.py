@@ -50,16 +50,24 @@ def group_norm_with_affine(
     return xn, scale, shift
 
 
-def instance_norm_with_affine(
-    x: torch.Tensor,
-    weight: Optional[torch.Tensor] = None,
-    bias: Optional[torch.Tensor] = None,
-    eps: float = 1e-5,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """InstanceNorm fold — per (batch, channel) statistics
-    (reference: gaugan/models/sub_mobile_spade_generators/mobile_modules.py
-    ``my_instance_norm``)."""
-    return group_norm_with_affine(x, x.shape[-1], weight, bias, eps)
+def instance_norm_stats(
+    x: torch.Tensor, eps: float = 1e-5
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """InstanceNorm statistics of NHWC ``x``, per (batch, channel), in
+    fp32: (mean, rstd), each [B, 1, 1, C], with ``(x - mean) * rstd`` the
+    normalized map (reference: gaugan/models/sub_mobile_spade_generators/
+    mobile_modules.py ``my_instance_norm``).
+
+    A fold caches these rather than ``sige_tpu``'s (scale, shift) =
+    (rstd, -mean * rstd): the same function, but a channel of (near) zero
+    variance has rstd up to 1/sqrt(eps), and ``x * scale + shift`` turns
+    the rounding of its two large terms into noise of that size, which
+    differs between the full and the sparse pass; ``x - mean`` is exact
+    there."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=(1, 2), keepdim=True)
+    var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
+    return mean, torch.rsqrt(var + eps)
 
 
 def batch_norm_affine(

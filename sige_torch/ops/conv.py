@@ -48,10 +48,13 @@ def conv2d_nhwc(
     b: Optional[torch.Tensor] = None,
     stride: Union[int, IntPair] = 1,
     padding=0,
+    groups: int = 1,
 ) -> torch.Tensor:
-    """Dense conv of NHWC ``x`` with OIHW ``w``. ``padding`` is symmetric
-    int(s), explicit ((top, bottom), (left, right)) pairs (asymmetric
-    padding, e.g. DDPM's Downsample), or "VALID". Returns NHWC."""
+    """Dense conv of NHWC ``x`` with OIHW ``w`` ([O, I / groups, kh, kw];
+    ``groups`` is flax's ``feature_group_count``, C_in for a depthwise
+    conv). ``padding`` is symmetric int(s), explicit ((top, bottom),
+    (left, right)) pairs (asymmetric padding, e.g. DDPM's Downsample), or
+    "VALID". Returns NHWC."""
     (pt, pb), (pl, pr) = _pads(padding)
     xc = x.permute(0, 3, 1, 2)
     if pt == pb and pl == pr:
@@ -60,7 +63,7 @@ def conv2d_nhwc(
         xc = F.pad(xc, (pl, pr, pt, pb))
         pad_arg = 0
     out = F.conv2d(xc, w.to(x.dtype), None if b is None else b.to(x.dtype),
-                   stride=_pair(stride), padding=pad_arg)
+                   stride=_pair(stride), padding=pad_arg, groups=groups)
     return out.permute(0, 2, 3, 1)
 
 

@@ -4,19 +4,27 @@
 It takes the tree as nested dicts of **numpy arrays** (the caller does the
 ``jax.device_get``) and imports nothing of JAX. Names map segment by
 segment: flax's list-module names ``down_blocks_0_1`` become torch's
-``down_blocks.0.1``; leaves map as
+``down_blocks.0.1`` (and GauGAN's ``head_0`` / ``conv_0`` become
+``head.0`` / ``conv.0``); leaves map as
 
-  * conv ``kernel`` HWIO -> ``weight`` OIHW (``F.conv2d``'s layout);
+  * conv ``kernel`` HWIO -> ``weight`` OIHW (``F.conv2d``'s layout); a
+    depthwise kernel (HWIO with I = 1) becomes ``[C, 1, kh, kw]``, the
+    weight of a conv with ``groups = C``;
   * ``Dense`` ``kernel`` [in, out] -> ``Linear`` ``weight`` [out, in];
   * norm ``scale`` (GroupNorm and the SD transformers' LayerNorm) ->
-    ``weight``; ``bias`` -> ``bias``; a ``Dense`` without bias (the SD
-    attention projections) has no ``bias`` on either side;
+    ``weight``; ``bias`` -> ``bias``; a conv or ``Dense`` without bias
+    (the SD attention projections, GauGAN's shortcut convs) has no
+    ``bias`` on either side;
+  * BatchNorm ``running_mean`` / ``running_var``, which the flax GauGAN
+    modules keep in ``params``, keep their names (buffers on the torch
+    side, loaded by the same ``load_state_dict``);
   * top-level parameters (``norm_out_scale`` / ``out_norm_scale`` and
     their biases) keep their names.
 
-It serves the DDPM U-Net, the PD U-Net (whose per-block ``temb_proj``
-and top-level ``temb_dense0/1`` are Dense layers) and the SD U-Net,
-encoder and decoder alike: their trees hold no other kind of leaf.
+It serves every model of the port: the DDPM U-Net, the PD U-Net (whose
+per-block ``temb_proj`` and top-level ``temb_dense0/1`` are Dense
+layers), the SD U-Net, encoder and decoder, and the GauGAN generators
+(fused, sub-mobile and vanilla).
 """
 
 from __future__ import annotations

@@ -21,10 +21,11 @@ from sige_torch.ops import flash
 
 def _pytorch_defaults():
     """PyTorch's default precision flags, in the API the engine uses:
-    cuDNN convs in TF32, matmuls in fp32, no benchmark mode."""
+    cuDNN convs in TF32, matmuls in fp32, no benchmark mode, a benchmark
+    limit of 10."""
     if hasattr(torch.backends.cudnn, "conv"):
-        return ("tf32", "none", False)
-    return ("tf32", "ieee", False)
+        return ("tf32", "none", False, 10)
+    return ("tf32", "ieee", False, 10)
 
 
 @pytest.mark.gpu
@@ -188,11 +189,11 @@ def _tiny_ddpm(chain=True):
             downsample_mask(dilate_mask(mask, 2), min_res=8))
 
 
-def _card_vs_cpu(make, args0, args1, masks, bucket_min=1):
+def _card_vs_cpu(make, args0, args1, masks, bucket_min=1, attention=True):
     """full, sparse(edit), sparse(original) of one model on the card and
     on the CPU (the same seeded weights), window layout, under the
     caller's precision flags; the card's sparse forwards launch the flash
-    kernel."""
+    kernel (``attention``) or none (GauGAN)."""
     from sige_torch.nn import SIGEModel
 
     outs = {}
@@ -208,7 +209,7 @@ def _card_vs_cpu(make, args0, args1, masks, bucket_min=1):
         outs[dev] = [full.cpu(), model.sparse(*a1).cpu(),
                      model.sparse(*a0).cpu()]
         if dev == "cuda":
-            assert flash.flash_mha.launches > before
+            assert (flash.flash_mha.launches > before) == attention
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert (got - want).abs().max().item() <= 1e-4
     assert (outs["cuda"][2] - outs["cuda"][0]).abs().max().item() <= 1e-4
@@ -280,6 +281,59 @@ def test_tiny_pd_unet_card_matches_cpu(chain):
     if not torch.cuda.is_available():
         pytest.skip("card-vs-CPU comparison needs a CUDA device")
     _card_vs_cpu(*_tiny_pd(chain))
+
+
+def _tiny_gaugan(kind):
+    """tests/test_gaugan.py's TINY SPADE generator (fused, with the window
+    chain across its upsamples) or its sub-mobile one (depthwise convs,
+    the InstanceNorm fold), with BatchNorm running statistics away from 0
+    and 1; the one-hot semantics of a random label map and an edited
+    box."""
+    from sige_torch.models.gaugan import (SIGEFusedSPADEGenerator,
+                                          SIGESubMobileSPADEGenerator,
+                                          SPADEGenConfig)
+    from sige_torch.runners import GauGANRunConfig, GauGANRunner
+
+    cfg = SPADEGenConfig(ngf=8, semantic_nc=6, crop_size=64,
+                         num_upsampling_layers="normal")
+
+    def make():
+        module = (SIGEFusedSPADEGenerator(cfg) if kind == "fused" else
+                  SIGESubMobileSPADEGenerator(cfg, (4, 4, 4, 6, 4, 3, 3, 4)))
+        gen = torch.Generator().manual_seed(8)
+        for name, buf in module.named_buffers():
+            buf.copy_(0.5 * torch.randn(buf.shape, generator=gen)
+                      if name.endswith("mean") else
+                      0.5 + torch.rand(buf.shape, generator=gen))
+        return module
+
+    rng = np.random.default_rng(0)
+    l0 = rng.integers(0, 4, (32, 64))
+    l1 = l0.copy()
+    l1[8:14, 16:26] = 4
+    runner = GauGANRunner(cfg, GauGANRunConfig(input_nc=5), device="cpu")
+    s0, s1 = (torch.from_numpy(runner.preprocess_input(lab))
+              for lab in (l0, l1))
+    mask = (s0 != s1).any(-1)[0].numpy()
+    return (make, (s0,), (s1,),
+            downsample_mask(dilate_mask(mask, 1), min_res=(1, 2)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fused", "sub_mobile"])
+def test_tiny_gaugan_card_matches_cpu(kind):
+    """The tiny GauGAN generators, window layout, under PyTorch's default
+    precision flags: the engine holds fp32 for the SPADE convs and the
+    depthwise convs (cuDNN's grouped path); no flash launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    saved = precision_flags()
+    try:
+        set_precision_flags(_pytorch_defaults())
+        _card_vs_cpu(*_tiny_gaugan(kind), attention=False)
+        assert precision_flags() == _pytorch_defaults()
+    finally:
+        set_precision_flags(saved)
 
 
 def _tiny_sd_unet(chain=True):

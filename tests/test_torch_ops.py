@@ -14,6 +14,8 @@ import torch
 from sige_tpu.core import masks as jmasks
 from sige_tpu.core import scatter_map as jsmap
 from sige_tpu.core.geometry import BlockGeometry as JGeom
+from sige_tpu.nn.module import SIGECtx as JCtx
+from sige_tpu.nn.module import SIGEConv2d as JSIGEConv2d
 from sige_tpu.nn.norm import group_norm_with_affine as j_group_norm
 from sige_tpu.ops import conv2d_nhwc as j_conv
 from sige_tpu.ops import gather as jgather
@@ -21,6 +23,7 @@ from sige_tpu.ops import scatter as jscatter
 from sige_torch.core import masks as tmasks
 from sige_torch.core import scatter_map as tsmap
 from sige_torch.core.geometry import BlockGeometry
+from sige_torch.nn.module import SIGECtx, SIGEConv2d
 from sige_torch.nn.norm import group_norm_with_affine
 from sige_torch.ops import conv as tconv
 from sige_torch.ops import gather as tgather
@@ -235,6 +238,36 @@ def test_conv2d_nhwc(rng, stride, padding):
     want = j_conv(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
                   stride=stride, padding=padding)
     _close(got, want, atol=1e-5)  # two conv algorithms: sums reassociate
+
+
+@pytest.mark.parametrize("groups,use_bias,mode", [
+    (6, True, "full"), (6, False, "sparse"),   # depthwise (groups = C_in)
+    (2, True, "sparse"), (1, False, "full")])  # grouped; bias-free
+def test_sige_conv2d_groups_and_bias(rng, groups, use_bias, mode):
+    """SIGEConv2d with ``groups`` (flax's feature_group_count) and without
+    a bias against sige_tpu's: output (padded in full mode, VALID in
+    sparse mode) and MACs, which count C_in / groups per output element."""
+    x = rng.standard_normal((1, 9, 10, 6)).astype(np.float32)
+    features = 6 if groups == 6 else 4
+    params = {"kernel": rng.standard_normal(
+        (3, 3, 6 // groups, features)).astype(np.float32)}
+    if use_bias:
+        params["bias"] = rng.standard_normal((features,)).astype(np.float32)
+    jconv = JSIGEConv2d(features=features, kernel_size=3, padding=1,
+                        use_bias=use_bias, feature_group_count=groups)
+    want, mut = jconv.apply({"params": params}, jnp.asarray(x),
+                            ctx=JCtx(mode=mode), mutable=["profile"])
+    conv = SIGEConv2d(6, features, 3, padding=1, groups=groups,
+                      use_bias=use_bias)
+    sd = {"weight": _t(params["kernel"].transpose(3, 2, 0, 1))}
+    if use_bias:
+        sd["bias"] = _t(params["bias"])
+    conv.load_state_dict(sd, strict=True)
+    ctx = SIGECtx(mode=mode, macs=[])
+    with torch.no_grad():
+        got = conv(_t(x), ctx)
+    _close(got, want, atol=1e-5)  # two conv algorithms: sums reassociate
+    assert ctx.macs == [float(np.asarray(mut["profile"]["macs"][0]))]
 
 
 def test_group_norm_with_affine(rng):

@@ -45,7 +45,8 @@ from sige_tpu.utils import traced_macs
 from sige_torch.models import blocks
 from sige_torch.models.pd import PDUNetConfig, SIGEPDUNet
 from sige_torch.nn import SIGEModel
-from sige_torch.nn.engine import precision_flags, set_precision_flags
+from sige_torch.nn.engine import (BENCHMARK_LIMIT, precision_flags,
+                                  set_precision_flags)
 from sige_torch.nn.module import SIGECtx, WindowState
 from sige_torch.runners import PDRunConfig, PDRunner
 from sige_torch.samplers import PDSampler, logsnr_schedule
@@ -385,9 +386,10 @@ def test_runner_raises_without_a_gpu_unless_asked_for_the_cpu():
 def test_fp32_scope_holds_inside_forwards_and_restores(caller):
     """Under PyTorch's defaults and under other settings of the caller,
     the engine's forwards run cuDNN convs and matmuls in fp32 with cuDNN's
-    benchmark mode, and the caller's settings come back after each."""
+    benchmark mode at the engine's benchmark limit, and the caller's
+    settings come back after each."""
     before = precision_flags()
-    flags = before if caller == "defaults" else ("ieee", "tf32", True)
+    flags = before if caller == "defaults" else ("ieee", "tf32", True, 7)
     inside = []
     try:
         set_precision_flags(flags)
@@ -401,4 +403,4 @@ def test_fp32_scope_holds_inside_forwards_and_restores(caller):
         assert precision_flags() == flags
     finally:
         set_precision_flags(before)
-    assert inside == [("ieee", "ieee", True)] * 2
+    assert inside == [("ieee", "ieee", True, BENCHMARK_LIMIT)] * 2
