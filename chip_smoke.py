@@ -94,9 +94,27 @@ Phases (any failure raises and the script exits non-zero):
             dense, full and sparse forwards (flash launches, latency,
             GMACs with the dense count held to sige_tpu's 281.3, peak MB,
             kernel launches); the tile layout once; the GAN-Compression
-            sub-mobile generator (20.19 M) on the same edit.
+            sub-mobile generator (20.19 M) on the same edit;
+12. demo  — the interactive editing path at church256 full width
+            (``sige_torch.demo``, the earlier phases' models freed first):
+            ``DemoRunner`` (25 steps from noise level 400, 25 cache
+            slots, the tile layout, ``bucket_min`` 8) with DDIM and with
+            DPM-Solver++: reset, generate on the DDPM paths' edit, the
+            sparse-only trajectory of the unedited base under that plan
+            (= the reset, < 1e-4), apply (= generate), the sparse-only
+            repeat over the applied caches (= generate), the 3% second
+            edit; each request's flash launches (counters set to 0 just
+            before, read just after) held to 6 + 6 per forward, its host
+            seconds, resident and peak MB, the caches' MB per slot; then
+            the HTTP server in-process (each response's PNG equals the
+            direct run's output after the server's uint8 conversion),
+            ``MultiSessionDemoRunner`` at S = 2 and 4 (each session equals
+            an independent runner; session 0's apply leaves session 1's
+            tensors as they were) and ``SessionServer`` (window layout,
+            S = 4: the step on the originals equals the dense forward,
+            ``sparse_update`` equals the step).
 
-The paths (phases 4-7, 9 and 11) run under PyTorch's default precision flags,
+The paths (phases 4-7, 9, 11 and 12) run under PyTorch's default precision flags,
 which run cuDNN convs in TF32: the engine holds fp32 and benchmark mode
 for its own forwards, and the script checks that the flags are the
 defaults again at its end. The kernel phases enter the same scope.
@@ -105,6 +123,7 @@ The line before the last is the ``kernels`` JSON; the last line is the
 device JSON.
 """
 
+import gc
 import json
 import subprocess
 import sys
@@ -519,13 +538,13 @@ def phase_retime(flash, rc):
             float(gain_ms)}
 
 
-def expected_launches(flash, cfg):
-    """Attention and combine launches of one full-width ``generate``:
-    5 attention calls at 16 px + 1 at 8 px per forward, one forward in
-    preprocess plus two per step (DDIM and DPM-Solver alike)."""
+def expected_launches(flash, cfg, forwards: int = 1 + 2 * STEPS):
+    """Attention and combine launches of ``forwards`` full-width DDPM
+    forwards: 5 attention calls at 16 px + 1 at 8 px per forward. The
+    default counts one ``generate``: one forward in preprocess plus two
+    per step (DDIM and DPM-Solver alike)."""
     calls = {256: 5, 64: 1}  # sequence length -> calls; one head
     D = cfg.ch * cfg.ch_mult[-1]  # 512 at both levels
-    forwards = 1 + 2 * STEPS
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     combines = forwards * sum(
         n for seq, n in calls.items()
@@ -1242,6 +1261,368 @@ def phase_gaugan(flash):
                            "profile": sub_prof}}
 
 
+DEMO_BUCKET_MIN = 8  # the demo server's at full width
+DEMO_CPU_SLOT_MIB = 674.5  # cache MiB per slot of DDPMUNetConfig(), CPU count
+
+
+def _storage_mb(tensors) -> float:
+    """MB of the storages under ``tensors``, each counted once."""
+    seen, total = set(), 0
+    for t in tensors:
+        key = t.untyped_storage().data_ptr()
+        if key not in seen:
+            seen.add(key)
+            total += t.untyped_storage().nbytes()
+    return total / 2**20
+
+
+def quantized(image):
+    """``image`` as the demo's PNGs carry it (the server's uint8
+    conversion), so direct calls and HTTP requests see the same input."""
+    from sige_torch.demo.server import to_uint8
+
+    return to_uint8(image).astype(np.float32) / 255.0
+
+
+def counted(flash, name, fn, want=None):
+    """``fn()`` with the flash counters set to 0 just before and read just
+    after, on the host clock (synchronised), with the device memory
+    resident after it and its peak; ``want``: the (attention, combine)
+    launches it must make."""
+    flash.flash_mha.launches = 0
+    flash.flash_mha.combine_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+    rec = {"s": secs, "launches": got[0], "combine_launches": got[1],
+           "resident_mb": torch.cuda.memory_allocated() / 2**20,
+           "peak_mb": torch.cuda.max_memory_allocated() / 2**20}
+    print(f"    {name}: {secs:.3f} s host, flash launches {got[0]} + "
+          f"{got[1]} combine" + ("" if want is None else
+                                 f" (expected {want[0]} + {want[1]})")
+          + f", resident {rec['resident_mb']:.0f} MB, peak "
+          f"{rec['peak_mb']:.0f} MB", flush=True)
+    if want is not None and got != want:
+        raise AssertionError(f"{name}: flash launches {got}, expected {want}")
+    return out, rec
+
+
+def _max_err(a, b) -> float:
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+def _check(name, err, tol=TOL):
+    print(f"    {name}: max err {err:.3e}", flush=True)
+    if not err < tol:
+        raise AssertionError(f"{name}: max err {err:.3e} (tolerance {tol})")
+
+
+def demo_edit_mask(runner, base, edited):
+    """The dilated difference mask ``generate`` plans for, on the card."""
+    from sige_torch.core.masks import compute_difference_mask, dilate_mask
+    from sige_torch.runners import data_transform
+
+    mask = dilate_mask(compute_difference_mask(
+        data_transform(base, True), data_transform(edited, True), eps=1e-2),
+        runner.mask_dilate_radius)
+    return torch.as_tensor(mask, device="cuda")
+
+
+def sparse_replay(runner, image, mask):
+    """The runner's sparse-only trajectory of ``image`` under its current
+    plan, blended outside ``mask``, without an update."""
+    from sige_torch.runners import data_transform
+
+    with torch.inference_mode():
+        x = torch.as_tensor(data_transform(image, True)[None], device="cuda")
+        xt = runner.sampler.q_sample(x, runner.seq[-1], runner.base_e)
+        if runner.sampler_type == "dpm_solver":
+            out = runner._dpm_trajectory(xt, "sparse", mask)
+        else:
+            out = runner._sparse_trajectory(xt, mask, False)
+    return runner._out(out)
+
+
+def demo_single(flash, cfg, sampler, images):
+    """One session through ``DemoRunner``: reset, generate, the sparse-only
+    replay of the unedited base under the edit's plan, apply, the replay
+    of the edit over the applied caches, the second edit; every request
+    launches the flash kernels once per attention call of its forwards
+    (one forward per step)."""
+    from sige_torch.demo import DemoRunner
+
+    base, edited, edited2 = images
+    runner = DemoRunner(cfg, bucket_min=DEMO_BUCKET_MIN, sampler_type=sampler,
+                        device="cuda")
+    want = expected_launches(flash, cfg, len(runner.seq))
+    print(f"  [{sampler}] {len(runner.seq)} steps (t {runner.seq[-1]} down "
+          f"to {runner.seq[0]}), {runner.model.cache_slots} slots, layout "
+          f"{runner.model.layout!r}", flush=True)
+    outs, recs = {}, {}
+    outs["reset"], recs["reset"] = counted(
+        flash, "reset_base_image", lambda: runner.reset_base_image(base),
+        want)
+    state = runner.model.state
+    slot_mb = [_storage_mb(state.tensors(k)) for k in range(3)]
+    all_mb = _storage_mb(state.tensors())
+    print(f"    caches: {all_mb:.1f} MB in {runner.model.cache_slots} slots, "
+          f"slot 0/1/2 {slot_mb[0]:.1f}/{slot_mb[1]:.1f}/{slot_mb[2]:.1f} MB "
+          f"(CPU count {DEMO_CPU_SLOT_MIB} MiB per slot), "
+          f"{len(state.tensors(0))} tensors a slot", flush=True)
+    for name, image, upd in (("generate", edited, False),
+                             ("apply", edited, True)):
+        outs[name], recs[name] = counted(
+            flash, f"generate(sparse_update={upd})",
+            lambda: runner.generate(image, sparse_update=upd), want)
+        if name == "generate":
+            cover = demo_edit_mask(runner, base, edited).float().mean()
+            print(f"    layout ran {runner.model.active_layout!r}, dilated "
+                  f"edit {cover.item():.4f} of the canvas", flush=True)
+            # the unedited base under this edit's plan: every step reads
+            # its own slot, so the reset's output comes back
+            ones = torch.ones((cfg.resolution,) * 2, dtype=torch.bool,
+                              device="cuda")
+            _check("sparse-only replay of the base = reset",
+                   _max_err(sparse_replay(runner, base, ones), outs["reset"]))
+    _check("apply = generate", _max_err(outs["apply"], outs["generate"]))
+    mask = demo_edit_mask(runner, base, edited)
+    _check("sparse-only repeat over the applied caches = generate",
+           _max_err(sparse_replay(runner, edited, mask), outs["generate"]))
+    outs["second"], recs["second"] = counted(
+        flash, "generate (3% second edit)", lambda: runner.generate(edited2),
+        want)
+    for k, o in outs.items():
+        if o.shape != (cfg.resolution, cfg.resolution, 3) or not (
+                np.isfinite(o).all()):
+            raise AssertionError(f"{sampler} {k}: {o.shape}, finite "
+                                 f"{np.isfinite(o).all()}")
+    if _max_err(outs["generate"], outs["reset"]) < 1e-3:
+        raise AssertionError(f"{sampler}: the edit changed nothing")
+    result = {"requests": recs, "cache_mb": all_mb, "slot_mb": slot_mb[0],
+              "slots": runner.model.cache_slots,
+              "layout": runner.model.active_layout}
+    del runner, state
+    torch.cuda.empty_cache()
+    return result, outs
+
+
+def demo_http(flash, cfg, images, direct):
+    """The HTTP server in-process over a fresh DDIM runner with the same
+    weights: each response's image equals the direct run's output after
+    the server's uint8 conversion."""
+    import base64
+    import threading
+    import urllib.request
+    from http.server import HTTPServer
+
+    from sige_torch.demo import DemoRunner
+    from sige_torch.demo.png import decode_png
+    from sige_torch.demo.server import (array_to_data_url, make_handler,
+                                        to_uint8)
+
+    base, edited, edited2 = images
+    R = cfg.resolution
+    runner = DemoRunner(cfg, bucket_min=DEMO_BUCKET_MIN, device="cuda")
+    httpd = HTTPServer(("127.0.0.1", 0), make_handler(runner, base, R))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def call(path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(url + path, data=data,
+                                     method="GET" if body is None else "POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as res:
+            raw = res.read()
+        return raw, (time.perf_counter() - t0) * 1e3
+
+    ms = {}
+    try:
+        page, _ = call("/")
+        if f"const R = {R}" not in page.decode():
+            raise AssertionError("the page does not draw at R x R")
+        stamps, _ = call("/stamps")
+        if len(json.loads(stamps)) != 4:
+            raise AssertionError("stamps")
+        flows = [("/reset", None, "base", "reset"),
+                 ("/generate", edited, "image", "generate"),
+                 ("/apply", edited, "image", "apply"),
+                 ("/generate", edited2, "image", "second")]
+        for path, image, key, ref in flows:
+            body = {} if image is None else {"image": array_to_data_url(image)}
+            raw, client_ms = call(path, body)
+            js = json.loads(raw)
+            got = decode_png(base64.b64decode(js[key].split(",", 1)[1]))
+            want = to_uint8(direct[ref])
+            diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+            ms[ref] = js["ms"]
+            print(f"    POST {path} ({ref}): server {js['ms']:.1f} ms, client "
+                  f"{client_ms:.1f} ms, response vs the direct run: max "
+                  f"{diff} uint8 levels", flush=True)
+            if diff:
+                raise AssertionError(f"HTTP {ref}: {diff} levels off the "
+                                     f"direct run")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    # the handler class holds the runner, and a class lives in reference
+    # cycles: free its 17 GB of caches now, not at the next collection
+    del runner, httpd, thread
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms
+
+
+def session_images(R: int, S: int):
+    """S distinct (base, edit) pairs: square edits of 1.2-3% at spread
+    places, each base from its own seed."""
+    places = [(R // 4, R // 4), (R // 2, 5 * R // 8), (5 * R // 8, R // 8),
+              (R // 8, 5 * R // 8)]
+    pairs = []
+    for i in range(S):
+        rng = np.random.default_rng(100 + i)
+        base = rng.random((R, R, 3)).astype(np.float32)
+        edited = base.copy()
+        side = int(round(((0.012 + 0.006 * i) * R * R) ** 0.5))
+        r, c = places[i]
+        edited[r:r + side, c:c + side] = rng.random((side, side, 3))
+        pairs.append((quantized(base), quantized(edited)))
+    return pairs
+
+
+def demo_sessions(flash, cfg, counts):
+    """``MultiSessionDemoRunner`` at each S in ``counts``: every session's
+    reset and generate equal an independent ``DemoRunner``'s with the same
+    weights and noise; session 1's cache tensors are the same objects
+    before and after session 0's apply."""
+    from sige_torch.demo import DemoRunner, MultiSessionDemoRunner
+
+    S_max = max(counts)
+    pairs = session_images(cfg.resolution, S_max)
+    single = DemoRunner(cfg, bucket_min=DEMO_BUCKET_MIN, device="cuda")
+    refs = []
+    for i, (base, edited) in enumerate(pairs):
+        refs.append((single.reset_base_image(base, seed=i),
+                     single.generate(edited)))
+    del single
+    torch.cuda.empty_cache()
+    results = {}
+    for S in counts:
+        multi = MultiSessionDemoRunner(S, cfg, bucket_min=DEMO_BUCKET_MIN,
+                                       device="cuda")
+        errs, gen_s = [], []
+        for i in range(S):
+            errs.append(_max_err(multi.reset_base_image(i, pairs[i][0],
+                                                        seed=i), refs[i][0]))
+        resident = torch.cuda.memory_allocated() / 2**20
+        per_session = [_storage_mb(s.state.tensors()) for s in multi.sessions]
+        for i in range(S):
+            out, rec = counted(flash, f"S={S} session {i} generate",
+                               lambda: multi.generate(i, pairs[i][1]),
+                               None)
+            gen_s.append(rec["s"])
+            errs.append(_max_err(out, refs[i][1]))
+        _check(f"S={S}: every session's reset and generate = an independent "
+               f"runner's", max(errs))
+        ids1 = [id(t) for t in multi.sessions[1].state.tensors()]
+        multi.generate(0, pairs[0][1], sparse_update=True)
+        if [id(t) for t in multi.sessions[1].state.tensors()] != ids1:
+            raise AssertionError(f"S={S}: session 0's apply touched session "
+                                 f"1's caches")
+        print(f"    S={S}: generate {np.median(gen_s) * 1e3:.1f} ms median "
+              f"({min(gen_s) * 1e3:.1f}-{max(gen_s) * 1e3:.1f}), caches "
+              f"{np.mean(per_session):.1f} MB per session, resident "
+              f"{resident:.0f} MB; session 1's caches untouched by session "
+              f"0's apply", flush=True)
+        results[S] = {"generate_s": gen_s, "session_mb": per_session,
+                      "resident_mb": resident, "max_err": max(errs)}
+        del multi
+        torch.cuda.empty_cache()
+    return results
+
+
+def demo_session_server(flash, cfg, S=4, iters=5):
+    """``SessionServer`` in the window layout at S sessions: prime,
+    per-session masks, a step on the originals (= the dense forward per
+    session), steps on the edits, ``sparse_update``."""
+    from sige_torch.core.masks import dilate_mask, downsample_mask
+    from sige_torch.models.ddpm import SIGEFusedUNet
+    from sige_torch.parallel import SessionServer
+
+    R = cfg.resolution
+    server = SessionServer(SIGEFusedUNet(cfg), bucket_min=DEMO_BUCKET_MIN,
+                           device="cuda")
+    server.model.init(0)
+    pairs = session_images(R, S)
+    x0 = torch.as_tensor(np.stack([2 * b[None] - 1 for b, _ in pairs]),
+                         device="cuda")
+    x1 = torch.as_tensor(np.stack([2 * e[None] - 1 for _, e in pairs]),
+                         device="cuda")
+    t = torch.full((S, 1), 100.0, device="cuda")
+    server.prime(x0, t)
+    for i, (b, e) in enumerate(pairs):
+        m = dilate_mask(np.abs(e - b).max(-1) > 1e-2, 5)
+        server.set_masks(i, downsample_mask(
+            m, min_res=R // 2 ** (len(cfg.ch_mult) - 1)))
+    layouts = {st.active_layout for st in server.states}
+    y0 = server.step(x0, t)
+    dense = torch.stack([server.model.dense(x0[i], t[i]) for i in range(S)])
+    _check("SessionServer step on the originals = dense",
+           (y0 - dense).abs().max().item())
+    want = expected_launches(flash, cfg, S)  # one forward per session
+    y1, rec = counted(flash, f"step, S={S}", lambda: server.step(x1, t), want)
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.step(x1, t)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    y_upd = server.step(x1, t, sparse_update=True)
+    _check("step(sparse_update=True) = step", (y_upd - y1).abs().max().item())
+    _check("step over the committed caches = step",
+           (server.step(x1, t) - y1).abs().max().item())
+    ms = float(np.median(times))
+    print(f"    SessionServer ({sorted(layouts)}, S={S}): step {ms:.1f} ms median "
+          f"of {iters} ({ms / S:.1f} ms per session)", flush=True)
+    del server
+    torch.cuda.empty_cache()
+    return {"step_ms": times, "ms_per_session": ms / S,
+            "layouts": sorted(layouts)}
+
+
+def phase_demo(flash):
+    """Phase 12: the interactive editing path at church256 full width.
+    Four sessions hold 66 GB of caches: the earlier phases' models go
+    first, cycles included."""
+    from sige_torch.models.ddpm import DDPMUNetConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = DDPMUNetConfig()
+    R = cfg.resolution
+    base, edited = (quantized(a) for a in edit_pair(R))
+    edited2 = quantized(second_edit(R)[1])
+    images = (base, edited, edited2)
+    result, direct = {}, {}
+    for sampler in ("ddim", "dpm_solver"):
+        result[sampler], direct[sampler] = demo_single(flash, cfg, sampler,
+                                                       images)
+    print("  [http] the demo server in-process (DDIM):", flush=True)
+    result["http_ms"] = demo_http(flash, cfg, images, direct["ddim"])
+    print("  [sessions] MultiSessionDemoRunner:", flush=True)
+    result["sessions"] = demo_sessions(flash, cfg, (2, 4))
+    print("  [server] SessionServer:", flush=True)
+    result["session_server"] = demo_session_server(flash, cfg)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1303,6 +1684,9 @@ def main() -> int:
     print("gaugan (Cityscapes SPADE generator at 512x256, full width):",
           flush=True)
     gaugan = phase_gaugan(flash)
+    print("demo (church256 at full width: per-step cache slots, sessions, "
+          "the HTTP server):", flush=True)
+    demo = phase_demo(flash)
     if precision_flags() != defaults:
         raise AssertionError(f"precision flags {precision_flags()} after the "
                              f"run, {defaults} before it")
@@ -1320,12 +1704,18 @@ def main() -> int:
         "launches_by_path": dict(
             {n: p["launches"] for n, p in paths.items()},
             sd_sdedit=sd["launches"], pd_generate=pd["launches"],
-            gaugan_generate=gaugan["launches"]),
+            gaugan_generate=gaugan["launches"],
+            **{f"demo_{s}_{r}": demo[s]["requests"][r]["launches"]
+               for s in ("ddim", "dpm_solver")
+               for r in demo[s]["requests"]}),
         "combine_launches_by_path": dict(
             {n: p["combine_launches"] for n, p in paths.items()},
             sd_sdedit=sd["combine_launches"],
             pd_generate=pd["combine_launches"],
-            gaugan_generate=gaugan["combine_launches"]),
+            gaugan_generate=gaugan["combine_launches"],
+            **{f"demo_{s}_{r}": demo[s]["requests"][r]["combine_launches"]
+               for s in ("ddim", "dpm_solver")
+               for r in demo[s]["requests"]}),
         "splits": main_row["splits"],
         "max_abs_err": max([r["max_err"] for r in rows]
                            + [f["max_err"] for f in forced.values()]
@@ -1344,7 +1734,8 @@ def main() -> int:
         "combine_a": combine,
     }]
     print(json.dumps({"paths": paths, "retime": retime, "sd": sd, "pd": pd,
-                      "gaugan": gaugan, "card": card}), flush=True)
+                      "gaugan": gaugan, "demo": demo, "card": card}),
+          flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,6 +4,7 @@ models and the church pd256 PD U-Net.
 
     python3 scripts/trace_torch_step.py [--layout tiles window auto]
                                         [--sd N] [--pd N] [--gaugan N]
+                                        [--demo N]
 
 For each layout in turn (default: ``tiles window window tiles``, one
 process, so that drift on the host shows as a difference between the two
@@ -19,8 +20,13 @@ pd256's configs, random weights from seed 0, the DDPM edit, after its
 ``preprocess``), then ``--gaugan`` times (default 0) for the dense, full
 and sparse forward of the Cityscapes SPADE generator (``GauGANRunner``
 at 512x256, random weights from seed 0 with the BatchNorm statistics of
-``chip_smoke.py``, its synthetic edit, after ``preprocess``), it prints,
-as one JSON line (``runs``, in order):
+``chip_smoke.py``, its synthetic edit, after ``preprocess``), then
+``--demo`` times (default 0) for one whole interactive request
+(``DemoRunner.generate`` at church256: 25 sparse-only DDIM steps over the
+per-step cache slots, after ``reset_base_image``, ``chip_smoke.py``'s
+uint8 edit) in the demo's tile layout and in the window layout (each
+"forward" below is then one request, over ``DEMO_ITERS`` of them), it
+prints, as one JSON line (``runs``, in order):
 
   * ``device_ms``: median time between two CUDA events around a forward;
   * ``host_ms``: median host time to enqueue a forward (no sync) — when it
@@ -41,9 +47,10 @@ as one JSON line (``runs``, in order):
     memory allocated by one forward (params and caches resident);
   * per run, ``layout`` as asked and ``active_layout``, what the planner
     ran (``auto`` resolves per edit), and ``model``: "ddpm", "sd_unet",
-    "sd_decoder", "sd_encoder", "pd" or "gaugan" (the SD and PD runs have
-    a ``full`` and a ``sparse`` entry where the DDPM runs have ``dense``
-    and ``sparse``; the GauGAN runs have all three).
+    "sd_decoder", "sd_encoder", "pd", "gaugan" or "demo" (the SD and PD
+    runs have a ``full`` and a ``sparse`` entry where the DDPM runs have
+    ``dense`` and ``sparse``; the GauGAN runs have all three; the demo
+    runs a ``request``).
 
 The script leaves PyTorch's precision flags as they are: the engine runs
 its forwards in fp32 with cuDNN's benchmark mode itself. GPU only: exits
@@ -65,6 +72,7 @@ from chip_smoke import (FLASH_KERNELS, _dev_time, card_line,  # noqa: E402
                         edit_pair)
 
 ITERS = 20  # forwards per measurement
+DEMO_ITERS = 5  # demo requests (25 forwards each) per measurement
 TOP = 12    # kernels listed per mode
 
 
@@ -242,6 +250,34 @@ def gaugan_runs(n):
     return runs
 
 
+def demo_runs(n):
+    """``n`` runs of one demo request in the tile layout (the demo's) and
+    in the window layout, each runner reset on the same base."""
+    from chip_smoke import quantized
+    from sige_torch.demo import DemoRunner
+    from sige_torch.models.ddpm import DDPMUNetConfig
+
+    base, edited = (quantized(a) for a in edit_pair(256))
+    runs = []
+    for layout in ("tiles", "window"):
+        runner = DemoRunner(DDPMUNetConfig(), bucket_min=8, layout=layout,
+                            device="cuda")
+        runner.reset_base_image(base)
+        def request():
+            return runner.generate(edited)
+
+        for _ in range(n):
+            res = {"model": "demo", "layout": layout,
+                   "request": measure(request, iters=DEMO_ITERS)}
+            res["active_layout"] = runner.model.active_layout
+            res["request"]["peak_mb"] = peak_mb(request)
+            runs.append(res)
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layout", nargs="*",
@@ -254,6 +290,8 @@ def main():
     ap.add_argument("--gaugan", type=int, default=0,
                     help="runs of the SPADE generator's dense, full and "
                          "sparse forward")
+    ap.add_argument("--demo", type=int, default=0,
+                    help="runs of one demo request per layout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_torch_step: no CUDA device", file=sys.stderr)
@@ -270,6 +308,10 @@ def main():
     torch.cuda.empty_cache()
     if args.gaugan:
         out["runs"] += gaugan_runs(args.gaugan)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if args.demo:
+        out["runs"] += demo_runs(args.demo)
     print(json.dumps(out))
     return 0
 

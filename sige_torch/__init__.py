@@ -10,7 +10,11 @@ it, nor JAX. Activations are NHWC at module boundaries, as in
 It runs the DDPM church256 SDEdit path in the tile and window layouts
 (``layout="auto"`` picks per edit) with the DDPM, DDIM and DPM-Solver
 samplers (``sige_torch.runners.DiffusionRunner``), and the Stable
-Diffusion SDEdit and inpainting path (``sige_torch.runners.SDRunner``).
+Diffusion SDEdit and inpainting path (``sige_torch.runners.SDRunner``),
+the PD and GauGAN editing paths, and the interactive editing path: the
+demo runners with per-step cache slots (``sige_torch.demo``), the
+multi-session ``sige_torch.parallel.SessionServer`` and the HTTP demo
+(``python -m sige_torch.demo.server``).
 """
 
 __version__ = "0.1.0"

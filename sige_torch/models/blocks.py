@@ -55,8 +55,8 @@ def affine(x, scale, shift):
 
 
 class FoldedGroupNorm(SIGEModule):
-    """GroupNorm whose (scale, shift) affine is cached in
-    full mode and replayed in sparse mode."""
+    """GroupNorm whose (scale, shift) affine is cached per slot in full
+    mode and replayed in sparse mode."""
 
     def __init__(self, channels: int, num_groups: int):
         super().__init__()
@@ -99,7 +99,7 @@ class FoldedGroupNorm(SIGEModule):
 
 class FoldedNormAffine(SIGEModule):
     """GroupNorm using externally-owned (w, b) params whose equivalent
-    per-channel affine is cached in full mode and replayed in
+    per-channel affine is cached per slot in full mode and replayed in
     sparse mode (the model-tail variant of FoldedGroupNorm)."""
 
     def __init__(self, num_groups: int):
@@ -209,7 +209,8 @@ class ResBlock(SIGEModule):
         the window-chain sparse path extends each part's window and
         concatenates windows."""
         if (ctx.mode == "sparse" and not live and self.main_sparse
-                and self.window_chain and self.main_gather.planned_window()
+                and self.window_chain and not ctx.sparse_update
+                and self.main_gather.planned_window()
                 and self._chains_across_resample(x)):
             return self._chain_window(x, ctx)
         if isinstance(x, tuple):
@@ -373,7 +374,7 @@ class SIGEDownsample(SIGEModule):
 
     def forward(self, x, ctx: SIGECtx):
         conv = getattr(self, self.conv_name)
-        if (self.sparse_ok and ctx.mode == "sparse"
+        if (self.sparse_ok and ctx.mode == "sparse" and not ctx.sparse_update
                 and self.g.planned_window() and "wdn_ok" in self.g.plan_host):
             # window-resident across the downsample: the stride-2
             # extraction window spans ~2x the coarse canonical window,
@@ -415,7 +416,8 @@ class SIGEUpsample(SIGEModule):
 
     def forward(self, x, ctx: SIGECtx):
         if (isinstance(x, WindowState) and self.sparse_ok
-                and self.g.planned_window() and "wup_ok" in self.g.plan_host):
+                and not ctx.sparse_update and self.g.planned_window()
+                and "wup_ok" in self.g.plan_host):
             # window-resident across the resample: the doubled carried
             # window covers the extraction window
             meta, edge = self.g.read_window()
@@ -478,7 +480,8 @@ class SIGEUNetEnds(SIGEModule):
         last skip)."""
         if self._head_sparse and ctx.mode == "sparse":
             hwin = self.conv_in(self.in_gather(x, ctx), ctx)
-            if self.cfg.window_chain and self.in_gather.planned_window():
+            if (self.cfg.window_chain and not ctx.sparse_update
+                    and self.in_gather.planned_window()):
                 cache = self.in_scatter.cache["original"]
                 org, cov = self.in_gather.read_wsc(cache.shape[1:3])
                 y0w = window_slice(cache, org, cov.shape)

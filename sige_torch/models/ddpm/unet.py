@@ -77,6 +77,8 @@ class DDPMUNetConfig:
     #: gather/scatter the conv_out); sparse == full on the original input
     #: is preserved exactly.
     sige_tail: bool = True
+    #: cache slots per cache (the demo's one per denoising step); the
+    #: engine holds them and binds a call's slot to every layer
     cache_slots: int = 1
 
     @property
@@ -180,7 +182,11 @@ class SIGEAttnBlock(SIGEModule):
 
 class SIGEFusedUNet(SIGEUNetEnds):
     """The full U-Net. ``forward(x, t, ctx)`` with x [B, H, W, in_ch] and
-    t [B] timesteps."""
+    t [B] timesteps. Its layers follow ``cfg.cache_slots`` (the engine
+    binds the slot) and ``sparse_update`` (the window chains step aside:
+    a chain never forms the scattered maps the caches take)."""
+
+    supports_slots = True
 
     def __init__(self, cfg: DDPMUNetConfig = DDPMUNetConfig()):
         super().__init__()

@@ -4,8 +4,11 @@ Mirrors the reference's whole-model API — ``set_mode`` is implicit in
 which method you call, plus ``set_masks`` / ``clear_cache``
 (reference: sige/nn/base.py:95-129) — and the methods of
 ``sige_tpu.nn.engine.SIGEModel``: :meth:`full` and :meth:`sparse` run the
-module eagerly under ``torch.inference_mode``; :meth:`set_masks` plans on
-the host and moves the plan's leaves to the device in one copy.
+module eagerly under ``torch.inference_mode``, on cache slot
+``cache_id`` (``sparse_update`` commits an edit into its slot);
+:meth:`set_masks` plans on the host and moves the plan's leaves to the
+device in one copy. An :class:`EngineState` holds one session's caches
+and plan; :meth:`SIGEModel.use` switches sessions by reference.
 
 Every forward runs inside :func:`fp32_scope`: PyTorch's defaults run
 cuDNN convolutions in TF32 and let cuDNN pick its algorithms by
@@ -19,7 +22,8 @@ only.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Mapping, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,12 +36,11 @@ from .planner import build_plan, choose_layout, plan_stats
 def resolve_device(device=None) -> torch.device:
     """``None`` means the GPU; without one, only an explicit ``"cpu"``
     runs."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
+    return device
 
 
 def _has_fp32_precision() -> bool:
@@ -113,7 +116,7 @@ def fp32_scope():
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it comes with a later slice of the "
-        "port (see ROADMAP.md); this slice runs fp32 caches, one per module")
+        "port (see ROADMAP.md)")
 
 
 def _set_path(tree: Dict, path: Tuple[str, ...], value) -> None:
@@ -155,6 +158,36 @@ def upload_plan(plan: Mapping, device: torch.device) -> Dict:
     return out
 
 
+@dataclasses.dataclass
+class EngineState:
+    """One editing session's state in a :class:`SIGEModel`: the caches
+    (for each SIGE layer, by module path, one dict per cache slot), the
+    plan on the device and on the host, and the layout it was built in.
+    :meth:`SIGEModel.use` switches the model to a state by reference: no
+    cache tensor is copied."""
+
+    caches: Dict[str, List[Dict[str, torch.Tensor]]]
+    active_layout: str
+    plan: Dict = dataclasses.field(default_factory=dict)
+    plan_host: Optional[Dict] = None
+
+    def fork(self) -> "EngineState":
+        """A state that shares this one's cache tensors and plan but owns
+        its slot dicts: a write into either (a full pass, or a sparse pass
+        with ``sparse_update``) replaces an entry of its own dict and
+        leaves the other as it was."""
+        return EngineState(
+            {path: [dict(d) for d in slots]
+             for path, slots in self.caches.items()},
+            self.active_layout, self.plan, self.plan_host)
+
+    def tensors(self, slot: Optional[int] = None) -> List[torch.Tensor]:
+        """The cache tensors, of one slot or of all."""
+        return [t for slots in self.caches.values()
+                for d in (slots if slot is None else slots[slot:slot + 1])
+                for t in d.values()]
+
+
 class SIGEModel:
     """Holds a SIGE-wired module, its caches and its plan.
 
@@ -172,6 +205,13 @@ class SIGEModel:
     ``active_layout`` records the choice). ``chain_nesting=False`` when
     the model runs no window chains (skips the planner's
     cross-resolution window growth).
+
+    Caches, plan and ``active_layout`` live in :attr:`state` (an
+    :class:`EngineState`); :meth:`new_state` and :meth:`use` hold several
+    sessions on one model and switch between them. The module's
+    ``cfg.cache_slots`` sets the slots per cache; ``full`` and ``sparse``
+    take the slot as ``cache_id``. Slots above one and ``sparse_update``
+    run on a module whose ``supports_slots`` is true (the DDPM U-Net).
     """
 
     def __init__(self, module: nn.Module, bucket_min: int = 2,
@@ -181,22 +221,67 @@ class SIGEModel:
             raise ValueError(f"unknown layout {layout!r}")
         if cache_dtype is not None:
             raise _later("cache_dtype")
-        if getattr(getattr(module, "cfg", None), "cache_slots", 1) != 1:
-            raise _later("cache_slots > 1")
+        self.cache_slots = getattr(getattr(module, "cfg", None),
+                                   "cache_slots", 1)
+        self._slotted = getattr(module, "supports_slots", False)
+        if self.cache_slots != 1 and not self._slotted:
+            raise _later(f"cache_slots > 1 on {type(module).__name__}")
         self.device = resolve_device(device)
         self.module = module.to(self.device).eval().requires_grad_(False)
         self.bucket_min = bucket_min
         self.layout = layout
-        self.active_layout = layout
         self.chain_nesting = chain_nesting
         self.meta: Optional[Dict] = None
-        self.plan: Dict = {}
-        self.plan_host: Optional[Dict] = None
         self._input_sig = None
-        self._gathers = [(tuple(name.split(".")), m)
-                         for name, m in module.named_modules()
+        self._sige = [(name, m) for name, m in module.named_modules()
+                      if isinstance(m, SIGEModule)]
+        self._gathers = [(tuple(name.split(".")), m) for name, m in self._sige
                          if isinstance(m, Gather)]
+        self.use(self.new_state())
 
+    # --- sessions ---------------------------------------------------------
+    def new_state(self) -> EngineState:
+        """An empty state: no caches, no plan."""
+        return EngineState({name: [{} for _ in range(self.cache_slots)]
+                            for name, _ in self._sige}, self.layout)
+
+    def use(self, state: EngineState) -> None:
+        """Run the following calls on ``state`` (held by reference): bind
+        every SIGE layer's ``cache`` to its slot-0 dict there and hand
+        every Gather its entry of the state's plan."""
+        self.state = state
+        self._bind(0)
+        for path, g in self._gathers:
+            if state.plan_host is None:
+                g.plan, g.plan_host = {}, {}
+            else:
+                g.plan_host = _get_path(state.plan_host, path)
+                g.plan = _get_path(state.plan, path)
+
+    def _bind(self, slot: int) -> None:
+        """Every SIGE layer's ``cache``: its dict of ``slot`` in the
+        current state."""
+        if not 0 <= slot < self.cache_slots:
+            raise IndexError(f"cache_id {slot} outside the model's "
+                             f"{self.cache_slots} slots")
+        caches = self.state.caches
+        for name, m in self._sige:
+            # a plain attribute: bypass nn.Module's registry checks
+            object.__setattr__(m, "cache", caches[name][slot])
+
+    @property
+    def plan(self) -> Dict:
+        return self.state.plan
+
+    @property
+    def plan_host(self) -> Optional[Dict]:
+        return self.state.plan_host
+
+    @property
+    def active_layout(self) -> str:
+        return self.state.active_layout
+
+    # --- parameters and forwards -------------------------------------------
     def init(self, seed: int = 0) -> None:
         """Seeded parameters: lecun-normal conv and linear weights (the
         flax default initializer, untruncated), zero biases, unit norm
@@ -220,19 +305,26 @@ class SIGEModel:
                 _set_path(meta, path, g.meta)
         return meta
 
+    def _run(self, args, kwargs, ctx: SIGECtx):
+        """The module on ``args`` over slot ``ctx.cache_id`` of the
+        current state."""
+        self._bind(ctx.cache_id)
+        return self.module(*args, ctx=ctx, **kwargs)
+
     @torch.inference_mode()
     @fp32_scope()
-    def full(self, *args, **kwargs):
+    def full(self, *args, cache_id: int = 0, **kwargs):
         """Dense pass on the original input: refreshes every scatter cache
-        and the planning metadata. A new input shape drops the stale plan."""
+        of slot ``cache_id`` and the planning metadata. A new input shape
+        drops the stale plan."""
         sig = tuple(tuple(a.shape) if hasattr(a, "shape") else a
                     for a in args)
         if sig != self._input_sig:
             if self._input_sig is not None:
-                self.plan, self.plan_host = {}, None
+                self.state.plan, self.state.plan_host = {}, None
             self._input_sig = sig
             self.meta = None
-        y = self.module(*args, ctx=SIGECtx(mode="full"), **kwargs)
+        y = self._run(args, kwargs, SIGECtx(mode="full", cache_id=cache_id))
         if self.meta is None:
             self.meta = self._gathers_meta()
         return y
@@ -247,25 +339,27 @@ class SIGEModel:
         layout = self.layout
         if layout == "auto":
             layout = choose_layout(masks)
-        self.active_layout = layout
         plan = build_plan(self.meta, masks, self.bucket_min, capacities,
                           layout=layout, chain_nesting=self.chain_nesting)
-        dev = upload_plan(plan, self.device)
-        for path, g in self._gathers:
-            g.plan_host = _get_path(plan, path)
-            g.plan = _get_path(dev, path)
-        self.plan_host, self.plan = plan, dev
+        state = self.state
+        state.active_layout = layout
+        state.plan_host, state.plan = plan, upload_plan(plan, self.device)
+        self.use(state)
         return plan
 
     @torch.inference_mode()
     @fp32_scope()
-    def sparse(self, *args, sparse_update: bool = False, **kwargs):
-        """Sparse inference on the edited input."""
-        if sparse_update:
-            raise _later("sparse_update")
+    def sparse(self, *args, cache_id: int = 0, sparse_update: bool = False,
+               **kwargs):
+        """Sparse inference on the edited input over slot ``cache_id``;
+        ``sparse_update`` writes the scattered maps into the slot (the
+        edit becomes the slot's baseline)."""
+        if sparse_update and not self._slotted:
+            raise _later(f"sparse_update on {type(self.module).__name__}")
         if not self.plan:
             raise RuntimeError("call set_masks() before sparse()")
-        return self.module(*args, ctx=SIGECtx(mode="sparse"), **kwargs)
+        return self._run(args, kwargs, SIGECtx(
+            mode="sparse", cache_id=cache_id, sparse_update=sparse_update))
 
     @torch.inference_mode()
     @fp32_scope()
@@ -274,9 +368,10 @@ class SIGEModel:
         return self.module(*args, ctx=SIGECtx(mode="dense"), **kwargs)
 
     def clear_cache(self) -> None:
-        for m in self.module.modules():
-            if isinstance(m, SIGEModule):
-                m.cache.clear()
+        """Empty every slot of the current state."""
+        for slots in self.state.caches.values():
+            for d in slots:
+                d.clear()
 
     def stats(self) -> Dict[str, Any]:
         """Per-gather sparsity statistics for the current plan."""

@@ -8,8 +8,14 @@ This port keeps that shape, with the conventions of ``sige_tpu.nn.module``:
   * **mode** ("dense" | "full" | "sparse") travels in a :class:`SIGECtx`
     passed to every ``forward``;
   * **caches** (the full-mode activations of the original image) live in
-    each module's ``cache`` dict, one per module (``sige_tpu``'s per-slot
-    caches come with ``cache_slots`` in a later slice);
+    the engine's :class:`~sige_torch.nn.engine.EngineState`, one dict per
+    module and cache slot (``sige_tpu``'s ``cache_slots``, indexed by
+    ``ctx.cache_id``); before each forward the engine binds every
+    module's ``cache`` to its dict for the call's slot, so a module reads
+    and writes ``self.cache`` whatever the slot;
+  * **sparse_update** makes sparse-mode scatters write their output map
+    into the slot, so an applied edit becomes the new baseline without a
+    full pass (reference: sige/nn/scatter.py:59-60);
   * **meta** (packed geometry and resolutions) is recorded by each Gather
     in full mode in the packed form the planner reads, and the engine
     gathers it into a tree keyed by module path;
@@ -54,11 +60,16 @@ class SIGECtx:
         folded-norm affines, and planning metadata;
       * ``"sparse"`` — tile inference over the caches.
 
-    ``macs``, when a list, collects the analytic MACs of every layer the
-    call runs (the port of the ``"profile"`` collection).
+    ``cache_id`` is the cache slot the call reads and writes (the engine
+    binds it); ``sparse_update`` makes a sparse call write its scattered
+    maps into that slot. ``macs``, when a list, collects the analytic MACs
+    of every layer the call runs (the port of the ``"profile"``
+    collection).
     """
 
     mode: str = "full"
+    cache_id: int = 0
+    sparse_update: bool = False
     macs: Optional[List[float]] = None
 
 
@@ -87,9 +98,10 @@ def share(mod: nn.Module, name: str, other: nn.Module) -> None:
 
 
 class SIGEModule(nn.Module):
-    """Base for engine layers: a ``cache`` dict of full-mode tensors. A
-    cache holds the activation itself, not a copy: activations are never
-    written in place."""
+    """Base for engine layers: a ``cache`` dict of full-mode tensors, the
+    dict of the slot the current call runs (the engine binds it). A cache
+    holds the activation itself, not a copy: activations are never
+    written in place, and a write replaces the slot's entry."""
 
     def __init__(self):
         super().__init__()
@@ -253,10 +265,14 @@ class Scatter(SIGEModule):
             y = self.cache["original"]
             if self.gather.planned_window():
                 org, cov = self.gather.read_wsc(y.shape[1:3])
-                return window_scatter(x, y, org, cov, residual)
-            box, org = self.gather.read_src_map(y.shape[1:3])
-            return scatter_tiles_box(x, y, box, org, self.gather.geom,
-                                     residual)
+                out = window_scatter(x, y, org, cov, residual)
+            else:
+                box, org = self.gather.read_src_map(y.shape[1:3])
+                out = scatter_tiles_box(x, y, box, org, self.gather.geom,
+                                        residual)
+            if ctx.sparse_update:
+                self.cache["original"] = out
+            return out
         raise ValueError(f"unknown mode {ctx.mode}")
 
 
@@ -280,15 +296,25 @@ class ScatterGather(SIGEModule):
             return x
         if ctx.mode == "sparse":
             y = self.cache["original"]
+            res = y.shape[1:3]
             if self.gather.planned_window():
-                meta, edge, cov = self.gather.read_wsg(y.shape[1:3])
-                return window_scatter_gather(
+                meta, edge, cov = self.gather.read_wsg(res)
+                out = window_scatter_gather(
                     x, y, meta, edge, cov, self.gather.geom.offset, scale,
                     shift, self.activation)
-            sg_src, sg_flat = self.gather.read_sg(y.shape[1:3])
-            return scatter_gather_tiles(
+                if ctx.sparse_update:  # the fused op never forms the map
+                    org, wcov = self.gather.read_wsc(res)
+                    self.cache["original"] = window_scatter(x, y, org, wcov)
+                return out
+            sg_src, sg_flat = self.gather.read_sg(res)
+            out = scatter_gather_tiles(
                 x, y, sg_src, sg_flat, self.gather.geom, scale, shift,
                 self.activation)
+            if ctx.sparse_update:
+                box, org = self.gather.read_src_map(res)
+                self.cache["original"] = scatter_tiles_box(
+                    x, y, box, org, self.gather.geom)
+            return out
         raise ValueError(f"unknown mode {ctx.mode}")
 
 
@@ -318,14 +344,24 @@ class ScatterWithBlockResidual(SIGEModule):
             if self.main_gather.planned_window():
                 org, cov_m = self.main_gather.read_wsc(res)
                 _, cov_s = self.shortcut_gather.read_wsc(res)
-                return window_scatter_block_residual(
+                out = window_scatter_block_residual(
                     x, y0, residual, y1, org, cov_m, cov_s)
+                if ctx.sparse_update:
+                    self.cache["original"] = out
+                    self.cache["residual"] = window_scatter(
+                        residual, y1, org, cov_s)
+                return out
             m_box, m_org = self.main_gather.read_src_map(res)
             s_box, s_org = self.shortcut_gather.read_src_map(res)
-            return scatter_with_block_residual_box(
+            out = scatter_with_block_residual_box(
                 x, y0, residual, y1,
                 m_box, m_org, self.main_gather.geom,
                 s_box, s_org, self.shortcut_gather.geom)
+            if ctx.sparse_update:
+                self.cache["original"] = out
+                self.cache["residual"] = scatter_tiles_box(
+                    residual, y1, s_box, s_org, self.shortcut_gather.geom)
+            return out
         raise ValueError(f"unknown mode {ctx.mode}")
 
 

@@ -154,6 +154,11 @@ class DPMSolverSampler(_BaseSampler):
                 - (sigma_t * phi2) * D1 - (sigma_t * phi3) * D2)
 
     # ---- model step: x0-prediction (data prediction) ---------------------
+    def data_prediction(self, x, et, t_int: int):
+        """The x0 that the noise prediction ``et`` at ``t_int`` implies."""
+        at = self.schedule.alpha(t_int)
+        return (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
+
     def _model_step(self, model: SIGEModel, x, t_int: int, sige: bool):
         t = torch.full((x.shape[0],), float(t_int), device=x.device)
         if sige:
@@ -161,12 +166,15 @@ class DPMSolverSampler(_BaseSampler):
                             model.sparse(x[1:], t[1:])], dim=0)
         else:
             et = model.dense(x, t)
-        at = self.schedule.alpha(t_int)
-        return (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
+        return self.data_prediction(x, et, t_int)
 
     # ---- full trajectory (DPM-Solver uses ~5 steps) ----------------------
-    def _sample(self, model: SIGEModel, xt, seq, mask, gt_x0, gt_e,
-                sige: bool):
+    def trajectory(self, model_step, xt, seq, mask, gt_x0, gt_e):
+        """The multistep solver from ``xt`` down the ascending ``seq``.
+        ``model_step(x, t_int, step)`` gives the data prediction of model
+        evaluation ``step`` (0 .. len(seq) - 1) at timestep ``t_int``;
+        after each update the SDEdit blend keeps ``x`` inside ``mask``
+        only (None: no blend)."""
         seq = [int(s) for s in np.asarray(seq)]
         steps = len(seq)
         order = self.order
@@ -179,7 +187,7 @@ class DPMSolverSampler(_BaseSampler):
             t_c = self._t_cont(t_int)
             if step == 0:
                 t_prevs = [t_c]
-                model_prevs = [self._model_step(model, x, t_int, sige)]
+                model_prevs = [model_step(x, t_int, 0)]
                 continue
             if step < order:
                 step_order = step
@@ -188,13 +196,14 @@ class DPMSolverSampler(_BaseSampler):
             else:
                 step_order = order
             x = self._update(x, model_prevs, t_prevs, t_c, step_order)
-            x = self._post_process(x, t_int, mask, gt_x0, gt_e)
+            if mask is not None:
+                x = self._post_process(x, t_int, mask, gt_x0, gt_e)
             t_prevs.append(t_c)
             if len(t_prevs) > order:
                 t_prevs.pop(0)
                 model_prevs.pop(0)
             if step < steps:
-                model_prevs.append(self._model_step(model, x, t_int, sige))
+                model_prevs.append(model_step(x, t_int, step))
         return x
 
     @torch.inference_mode()
@@ -205,11 +214,15 @@ class DPMSolverSampler(_BaseSampler):
         :meth:`~sige_torch.samplers.ddim_ddpm._BaseSampler.sample_sige`;
         the solver draws no noise, so ``generator`` and ``noise`` are
         unused). Returns x0 [2, H, W, C]."""
-        return self._sample(model, xt, seq, mask, gt_x0, gt_e, sige=True)
+        return self.trajectory(
+            lambda x, t, _: self._model_step(model, x, t, True), xt, seq,
+            mask, gt_x0, gt_e)
 
     @torch.inference_mode()
     def sample_dense(self, model: SIGEModel, xt, seq, mask, gt_x0, gt_e,
                      generator: Optional[torch.Generator] = None,
                      noise: Optional[Sequence] = None):
         """Dense-baseline trajectory (edited image only, batch 1)."""
-        return self._sample(model, xt, seq, mask, gt_x0, gt_e, sige=False)
+        return self.trajectory(
+            lambda x, t, _: self._model_step(model, x, t, False), xt, seq,
+            mask, gt_x0, gt_e)

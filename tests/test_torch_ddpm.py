@@ -146,17 +146,17 @@ def test_macs_match_sige_tpu(pair, mode):
 
 
 def test_later_slices_raise_not_implemented():
-    """cache_dtype, cache_slots > 1 and sparse_update come with a later
-    slice of the port (the window layout and layout="auto" run now:
-    tests/test_torch_ddpm_window.py)."""
+    """cache_dtype comes with a later slice of the port; cache slots and
+    sparse_update run on the DDPM U-Net (tests/test_torch_demo.py, which
+    also holds the PD, SD and GauGAN models to raising for them)."""
     module = SIGEFusedUNet(DDPMUNetConfig(**CONFIGS["join"]))
     with pytest.raises(NotImplementedError):
         SIGEModel(module, device="cpu", cache_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        SIGEModel(SIGEFusedUNet(DDPMUNetConfig(**CONFIGS["join"],
-                                               cache_slots=2)), device="cpu")
-    model = SIGEModel(module, device="cpu")
-    with pytest.raises(NotImplementedError):
+    model = SIGEModel(SIGEFusedUNet(DDPMUNetConfig(**CONFIGS["join"],
+                                                   cache_slots=2)),
+                      device="cpu")
+    assert model.cache_slots == 2
+    with pytest.raises(RuntimeError, match="set_masks"):
         model.sparse(torch.zeros(1, 16, 16, 3), torch.zeros(1),
                      sparse_update=True)
 

@@ -386,3 +386,46 @@ def test_engine_holds_fp32_under_pytorch_default_flags(model):
         assert precision_flags() == defaults
     finally:
         set_precision_flags(saved)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["ddim", "dpm_solver"])
+def test_tiny_demo_runner_card_matches_cpu(sampler):
+    """The tiny demo runner (per-step cache slots, sparse-only edits,
+    apply, a second edit over the applied caches) on the card against the
+    same runner on the CPU, under PyTorch's default precision flags: the
+    engine holds fp32 for its own forwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    from sige_torch.demo import DemoRunner
+    from sige_torch.models.ddpm import DDPMUNetConfig
+
+    cfg = DDPMUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                         attn_resolutions=(8,), resolution=32,
+                         sparse_resolution_threshold=32)
+    rng = np.random.default_rng(0)
+    base = rng.random((32, 32, 3)).astype(np.float32)
+    e1 = base.copy()
+    e1[10:18, 12:20] = 0.9
+    e2 = e1.copy()
+    e2[20:26, 4:12] = 0.1
+    saved = precision_flags()
+    outs = {}
+    try:
+        set_precision_flags(_pytorch_defaults())
+        for dev in ("cpu", "cuda"):
+            runner = DemoRunner(cfg, sample_steps=4, noise_level=40,
+                                total_steps=100, mask_dilate_radius=2,
+                                bucket_min=1, sampler_type=sampler,
+                                device=dev)
+            before = flash.flash_mha.launches
+            outs[dev] = [runner.reset_base_image(base), runner.generate(e1),
+                         runner.generate(e1, sparse_update=True),
+                         runner.generate(e2)]
+            if dev == "cuda":
+                assert flash.flash_mha.launches > before
+        assert precision_flags() == _pytorch_defaults()
+    finally:
+        set_precision_flags(saved)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert np.abs(got - want).max() <= 1e-4

@@ -1,5 +1,6 @@
 """sige_torch, and the scripts and tests that run on the machine with the
-card (which has no JAX), import nothing of JAX, flax or sige_tpu."""
+card (which has no JAX and no PIL), import nothing of JAX, flax, sige_tpu
+or PIL."""
 
 import ast
 import pathlib
@@ -9,7 +10,9 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "sige_tpu")
+# the machine with the card has no imaging library either (the demo
+# server carries its own PNG codec)
+FORBIDDEN = ("jax", "jaxlib", "flax", "sige_tpu", "PIL")
 
 
 def _sources():
@@ -23,6 +26,17 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys\n"
         "import sige_torch, sige_torch.runners, sige_torch.utils.from_jax\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_demo_server_and_serving_pull_in_no_jax_and_no_pil():
+    code = (
+        "import sys\n"
+        "import sige_torch.demo.server, sige_torch.parallel.serving\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
