@@ -112,9 +112,37 @@ Phases (any failure raises and the script exits non-zero):
             an independent runner; session 0's apply leaves session 1's
             tensors as they were) and ``SessionServer`` (window layout,
             S = 4: the step on the originals equals the dense forward,
-            ``sparse_update`` equals the step).
+            ``sparse_update`` equals the step);
+13. checkpoints and command lines — reference-layout state dicts at full
+            width (keys and shapes from :func:`reference_layout`, which
+            names the port's keys as the reference does; values from
+            seeds), each written as a .pth, read, converted, saved and
+            loaded natively (every step timed on its own line) and driven
+            through the port's command line in-process:
+            * DDPM church256 from a *vanilla* checkpoint through
+              ``cli.diffusion`` (``model.network=ddpm.unet``: the fuse
+              surgery; DDIM, 5 steps) in profile and generate mode: the
+              fused dense forward equals ``VanillaDDPMUNet`` on the
+              unfused conversion, sparse = full, 6 + 6 flash launches per
+              forward and the CLI runs' counts, the log lines, and
+              ``--save_converted`` then ``--restore_from`` of that
+              directory gives the same weights, output and PNG bit for
+              bit;
+            * PD church pd256 through ``cli.diffusion`` with
+              ``configs/church_pd256-sige.yml`` (22 + 22 per forward,
+              242 + 242 per generate);
+            * GauGAN at 512x256 through ``cli.gaugan``: a fused
+              checkpoint, a plain SPADE checkpoint (the fusing surgery)
+              and a fused sub-mobile one (statistics at nominal width),
+              BatchNorm statistics calibrated through the port's own
+              conversion; 0 flash launches, sparse = full;
+            * SD v1 at 512^2 through ``cli.sd --task sdedit --synthetic
+              --embeddings`` (U-Net, VAE, ``quant_conv`` folded,
+              ``post_quant_conv``; 5 twin steps): the sdedit's flash
+              launches, 32 per U-Net and 1 per VAE forward (and a
+              combine launch for each split call), sparse = full.
 
-The paths (phases 4-7, 9, 11 and 12) run under PyTorch's default precision flags,
+The paths (phases 4-7, 9, 11, 12 and 13) run under PyTorch's default precision flags,
 which run cuDNN convs in TF32: the engine holds fp32 and benchmark mode
 for its own forwards, and the script checks that the flags are the
 defaults again at its end. The kernel phases enter the same scope.
@@ -766,6 +794,62 @@ def resident_mb(model):
     return total / 2**20
 
 
+def sd_model_calls(runner):
+    """{(model, mode): flash calls of one forward} of an ``SDRunner``'s
+    encoder, U-Net and decoder in full and sparse mode, over the plans
+    its last ``sdedit`` set."""
+    models = {"unet": runner.unet, "encoder": runner.encoder,
+              "decoder": runner.decoder}
+    return {(n, mode): (sd_unet_calls(runner, mode) if n == "unet"
+                        else sd_vae_calls(m, mode))
+            for n, m in models.items() for mode in ("full", "sparse")}
+
+
+def sdedit_calls(calls, t_enc):
+    """The flash calls of one ``sdedit`` of ``t_enc`` twin steps."""
+    return (calls["encoder", "full"] + calls["encoder", "sparse"]
+            + calls["unet", "full"] * (1 + t_enc)
+            + calls["unet", "sparse"] * t_enc
+            + calls["decoder", "full"] + calls["decoder", "sparse"])
+
+
+def sd_exact(runner, init, edit, uc, c):
+    """sparse(x0) = full(x0) for the encoder, U-Net and decoder of an
+    ``SDRunner``, also after a sparse pass on the edit, over the plans its
+    last ``sdedit`` set, within 1e-4 * max(1, max|full|); returns (errors
+    per model, {model: (full args, sparse args)})."""
+    models = {"unet": runner.unet, "encoder": runner.encoder,
+              "decoder": runner.decoder}
+    uc, c = runner._tensor(uc), runner._tensor(c)
+    x0, x1 = runner._image(init), runner._image(edit)
+    z0 = runner.encode(x0)
+    z1 = runner.encode(x1, mode="sparse")
+    t = torch.full((2,), 501.0, device="cuda")
+    ctx = torch.cat([uc, c])
+    args = {"encoder": ((x0,), (x1,)),
+            "unet": ((torch.cat([z0, z0]), t, ctx),
+                     (torch.cat([z1, z1]), t, ctx)),
+            "decoder": ((runner._pre_decode(z0),),
+                        (runner._pre_decode(z1),))}
+    exact = {}
+    for n, (a0, a1) in args.items():
+        model = models[n]
+        full = model.full(*a0)
+        errs = [(model.sparse(*a0) - full).abs().max().item()]
+        model.sparse(*a1)
+        errs.append((model.sparse(*a0) - full).abs().max().item())
+        scale = max(1.0, full.abs().max().item())
+        exact[n] = {"max_err": errs[0], "max_err_after_edit": errs[1],
+                    "scale": scale, "tol": TOL * scale}
+        print(f"  [sd {n}] sparse(x0) vs full(x0): max err {errs[0]:.3e}; "
+              f"after a sparse(x1): {errs[1]:.3e}; tolerance 1e-4 * "
+              f"max(1, max|full| = {scale:.3f}) = {TOL * scale:.3e}",
+              flush=True)
+        if not all(e <= TOL * scale for e in errs):
+            raise AssertionError(f"sd {n}: sparse(x0) != full(x0): {errs}")
+    return exact, args
+
+
 def phase_sd(flash):
     """The SD SDEdit path at full width through ``SDRunner``: the SD v1
     U-Net (batch 2 with guidance 7.5), the VAE at 512^2, 10 DDIM steps at
@@ -803,14 +887,8 @@ def phase_sd(flash):
     launches = flash.flash_mha.launches
     combines = flash.flash_mha.combine_launches
     t_enc = int(rc.strength * rc.ddim_steps)
-    calls = {(n, mode): (sd_unet_calls(runner, mode) if n == "unet"
-                         else sd_vae_calls(m, mode))
-             for n, m in models.items() for mode in ("full", "sparse")}
-    path_calls = (calls["encoder", "full"] + calls["encoder", "sparse"]
-                  + calls["unet", "full"] * (1 + t_enc)
-                  + calls["unet", "sparse"] * t_enc
-                  + calls["decoder", "full"] + calls["decoder", "sparse"])
-    want, want_combines = expected_counts(flash, path_calls)
+    calls = sd_model_calls(runner)
+    want, want_combines = expected_counts(flash, sdedit_calls(calls, t_enc))
     print(f"  [sd] sdedit: {t_enc} twin steps in {sdedit_s:.2f} s; flash "
           f"launches {launches} (expected {want}), combine launches "
           f"{combines} (expected {want_combines})", flush=True)
@@ -824,32 +902,7 @@ def phase_sd(flash):
 
     # sparse = full on the original, also after a sparse pass on the edit,
     # over the plans sdedit set
-    x0, x1 = runner._image(init), runner._image(edit)
-    z0 = runner.encode(x0)
-    z1 = runner.encode(x1, mode="sparse")
-    t = torch.full((2,), 501.0, device="cuda")
-    ctx = torch.cat([uc, c])
-    args = {"encoder": ((x0,), (x1,)),
-            "unet": ((torch.cat([z0, z0]), t, ctx),
-                     (torch.cat([z1, z1]), t, ctx)),
-            "decoder": ((runner._pre_decode(z0),),
-                        (runner._pre_decode(z1),))}
-    exact = {}
-    for n, (a0, a1) in args.items():
-        model = models[n]
-        full = model.full(*a0)
-        errs = [(model.sparse(*a0) - full).abs().max().item()]
-        model.sparse(*a1)
-        errs.append((model.sparse(*a0) - full).abs().max().item())
-        scale = max(1.0, full.abs().max().item())
-        exact[n] = {"max_err": errs[0], "max_err_after_edit": errs[1],
-                    "scale": scale, "tol": TOL * scale}
-        print(f"  [sd {n}] sparse(x0) vs full(x0): max err {errs[0]:.3e}; "
-              f"after a sparse(x1): {errs[1]:.3e}; tolerance 1e-4 * "
-              f"max(1, max|full| = {scale:.3f}) = {TOL * scale:.3e}",
-              flush=True)
-        if not all(e <= TOL * scale for e in errs):
-            raise AssertionError(f"sd {n}: sparse(x0) != full(x0): {errs}")
+    exact, args = sd_exact(runner, init, edit, uc, c)
 
     # every distinct flash call of one full and one sparse forward per
     # model, with the biases the models built: the shapes of the SD kernel
@@ -1623,6 +1676,546 @@ def phase_demo(flash):
     return result
 
 
+# --- phase 13: reference checkpoints and the command lines -----------------
+
+_DDPM_NAMES = [  # the port's module names -> the reference's (DDPM, PD, VAE)
+    (r"^down_blocks\.(\d+)\.(\d+)\.", r"down.\1.block.\2."),
+    (r"^down_attns\.(\d+)\.(\d+)\.", r"down.\1.attn.\2."),
+    (r"^up_blocks\.(\d+)\.(\d+)\.", r"up.\1.block.\2."),
+    (r"^up_attns\.(\d+)\.(\d+)\.", r"up.\1.attn.\2."),
+    (r"^downsamples\.(\d+)\.", r"down.\1.downsample."),
+    (r"^upsamples\.(\d+)\.", lambda m: f"up.{int(m.group(1)) + 1}.upsample."),
+    (r"^mid_block1\.", "mid.block_1."), (r"^mid_block2\.", "mid.block_2."),
+    (r"^mid_attn\.", "mid.attn_1."),
+    (r"^temb_dense(\d)\.", r"temb.dense.\1."),
+    (r"^temb_proj\.", "temb.dense.2."),   # the fused projection (top level)
+    (r"^norm_out_scale$", "norm_out.weight"),
+    (r"^norm_out_bias$", "norm_out.bias"),
+]
+_SD_UNET_NAMES = [
+    (r"^in_blocks\.(\d+)\.",
+     lambda m: f"input_blocks.{int(m.group(1)) + 1}."),
+    (r"^out_blocks\.", "output_blocks."),
+    (r"^mid_block1\.", "middle_block.0."), (r"^mid_attn\.", "middle_block.1."),
+    (r"^mid_block2\.", "middle_block.2."),
+    (r"^time_dense0\.", "time_embed.0."), (r"^time_dense1\.", "time_embed.2."),
+    (r"^conv_in\.", "input_blocks.0.0."), (r"^conv_out\.", "out.2."),
+    (r"^out_norm_scale$", "out.0.weight"), (r"^out_norm_bias$", "out.0.bias"),
+    # inside a SpatialTransformer block
+    (r"\.blocks\.(\d+)\.", r".transformer_blocks.\1."),
+    (r"\.to_out\.", ".to_out.0."), (r"\.ff\.proj\.", ".ff.net.0.proj."),
+    (r"\.ff\.out\.", ".ff.net.2."),
+]
+_SD_RESBLOCK_NAMES = [  # openaimodel ResBlock (not inside a transformer)
+    (r"\.norm1\.", ".in_layers.0."), (r"\.conv1\.", ".in_layers.2."),
+    (r"\.emb_proj\.", ".emb_layers.1."), (r"\.norm2\.", ".out_layers.0."),
+    (r"\.conv2\.", ".out_layers.3."), (r"\.skip\.", ".skip_connection."),
+]
+_GAUGAN_NAMES = [
+    (r"^(head|G_middle|up)\.(\d+)\.", r"\1_\2."),
+    (r"\.norm\.(\d+)\.", r".norm_\1."), (r"\.conv\.(\d+)\.", r".conv_\1."),
+    (r"\.mlp_shared\.", ".mlp_shared.0."),
+    (r"\.running_(mean|var)$", r".param_free_norm.running_\1"),
+    (r"\.dw\.", ".conv.0."), (r"\.pw\.", ".conv.2."),  # SeparableConv2d
+]
+
+
+def reference_key(family: str, key: str) -> str:
+    """The reference checkpoint's name of the port's state-dict ``key``
+    for a model of ``family`` ("ddpm": the DDPM fused and vanilla U-Nets,
+    the PD U-Net and the SD VAE; "sd_unet"; "gaugan"), as
+    ``tests/test_vanilla_ddpm.py _flax_path_to_torch_key``,
+    ``tests/test_convert.py``, ``tests/test_convert_sd.py`` and
+    ``tests/test_gaugan_vanilla.py`` name them from ``sige_tpu``'s trees."""
+    import re
+
+    rules = {"ddpm": _DDPM_NAMES, "sd_unet": _SD_UNET_NAMES,
+             "gaugan": _GAUGAN_NAMES}[family]
+    if family == "sd_unet" and ".blocks." not in key:
+        rules = rules + _SD_RESBLOCK_NAMES
+    for pattern, repl in rules:
+        key = re.sub(pattern, repl, key)
+    return key
+
+
+def reference_layout(family: str, module, prefix: str = "", widths=None):
+    """{reference key: shape} of a reference checkpoint of the port's
+    ``module`` (built on the meta device: no memory): its state dict's
+    keys renamed by :func:`reference_key`, under ``prefix``; ``widths``
+    maps a port key to the length the reference stores instead (the
+    sub-mobile checkpoints' running statistics at nominal width)."""
+    return {prefix + reference_key(family, k):
+            ((widths(k),) if widths and widths(k) else tuple(v.shape))
+            for k, v in module.state_dict().items()}
+
+
+def sub_mobile_widths(cfg):
+    """The sub-mobile checkpoints' running statistics at the nominal
+    (uncompressed, every channel ``ngf``) width of their block: ``norm_0``
+    and ``norm_s`` at the block's input, ``norm_1`` at its output
+    (``sige_torch/utils/convert.py sub_mobile_block_dims``)."""
+    import re
+
+    from sige_torch.utils.convert import sub_mobile_block_dims
+
+    dims = sub_mobile_block_dims((cfg.ngf,) * 8, cfg.ngf)
+
+    def width(key):
+        m = re.match(r"^(head|G_middle|up)\.(\d+)\.norm(_s|\.0|\.1)\."
+                     r"running_", key)
+        if m is None:
+            return None
+        ic, channel, _, _ = dims[f"{m.group(1)}_{m.group(2)}"]
+        return channel if m.group(3) == ".1" else ic
+    return width
+
+
+def sd_reference_layout(unet_cfg, vae_cfg):
+    """{key: shape} of an sd-v1 LDM checkpoint of these configs: the
+    U-Net under ``model.diffusion_model.``, the VAE under
+    ``first_stage_model.`` with ``quant_conv`` and ``post_quant_conv``
+    (``sige_tpu/utils/convert_sd.py:253-255``)."""
+    from sige_torch.models.sd import SIGEDecoder, SIGEEncoder, SIGESDUNet
+
+    with torch.device("meta"):
+        unet, enc, dec = (SIGESDUNet(unet_cfg), SIGEEncoder(vae_cfg),
+                          SIGEDecoder(vae_cfg))
+    z = vae_cfg.z_channels
+    layout = reference_layout("sd_unet", unet, "model.diffusion_model.")
+    layout.update(reference_layout("ddpm", enc, "first_stage_model.encoder."))
+    layout.update(reference_layout("ddpm", dec, "first_stage_model.decoder."))
+    layout.update({"first_stage_model.quant_conv.weight": (2 * z, 2 * z, 1, 1),
+                   "first_stage_model.quant_conv.bias": (2 * z,),
+                   "first_stage_model.post_quant_conv.weight": (z, z, 1, 1),
+                   "first_stage_model.post_quant_conv.bias": (z,)})
+    return layout
+
+
+def reference_values(layout, seed: int = 0, device="cuda"):
+    """A reference state dict of ``layout`` on the CPU, drawn on
+    ``device`` from ``seed`` in key order: conv and linear weights
+    lecun-normal, norm weights 1 + 0.1 N(0, 1), biases and running means
+    0.1 N(0, 1), running variances uniform in [0.5, 1.5]."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for key in sorted(layout):
+        shape = layout[key]
+        x = torch.randn(shape, generator=gen, device=device)
+        if key.endswith("running_var"):
+            x = 0.5 + torch.rand(shape, generator=gen, device=device)
+        elif len(shape) >= 2:
+            x *= float(np.prod(shape[1:])) ** -0.5
+        elif key.endswith("weight"):
+            x = 1.0 + 0.1 * x
+        else:
+            x *= 0.1
+        out[key] = x.cpu()
+    return out
+
+
+def _run_cli(main, argv):
+    """``main(argv)`` with its standard output captured (and printed);
+    returns (runner, output, host seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        runner = main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"    | {line}", flush=True)
+    return runner, out, secs
+
+
+def _expect_lines(name, out, *patterns):
+    import re
+
+    for pat in patterns:
+        if not re.search(pat, out, re.M):
+            raise AssertionError(f"{name}: no line matching {pat!r} in the "
+                                 f"CLI's output")
+
+
+_PROFILE_LINE = (r"^Image synthetic: Sparsity [\d.]+%    MACs [\d.]+G    "
+                 r"Avg Time [\d.]+ms$")
+_GENERATE_LINE = (r"^Image synthetic: Edit Ratio [\d.]+%    Tiles \d+/\d+"
+                  r"    Time [\d.]+s$")
+_GAUGAN_LINE = r"^Image synthetic: Edit Ratio [\d.]+%    Tiles \d+/\d+$"
+
+
+class _Seconds(dict):
+    """Host seconds of each labelled step, printed on a line of its own."""
+
+    def __call__(self, label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self[label] = time.perf_counter() - t0
+        print(f"    {label}: {self[label]:.3f} s", flush=True)
+        return out
+
+
+def _save_and_load(secs, name, path, ref, load, convert, native_dir,
+                   device="cuda"):
+    """``torch.save`` of the reference dict, then, each timed: the port's
+    reading of it, its conversion, the native save and load (onto the
+    card) of what the conversion gave; returns the converted state."""
+    from sige_torch.utils import checkpoint
+
+    secs(f"{name} torch.save (reference .pth)", lambda: torch.save(ref, path))
+    sd = secs(f"{name} torch.load (load_torch_state_dict)", lambda: load(path))
+    conv = secs(f"{name} convert", lambda: convert(sd))
+    del sd
+    secs(f"{name} native save (save_params)",
+         lambda: checkpoint.save_params(native_dir, conv))
+    back = secs(f"{name} native load (load_params, onto the card)",
+                lambda: checkpoint.load_params(native_dir, device))
+    def flat(params):  # SD's {"unet", ...} mapping or one state dict
+        if "unet" not in params:
+            return params
+        return {f"{m}.{k}": v for m in ("unet", "encoder", "decoder")
+                for k, v in params[m].items()}
+
+    flat_a, flat_b = flat(conv), flat(back)
+    if flat_a.keys() != flat_b.keys() or not all(
+            torch.equal(flat_a[k], flat_b[k].cpu()) for k in flat_a):
+        raise AssertionError(f"{name}: the native round trip changed the "
+                             f"weights")
+    return conv
+
+
+def _exact(name, model, a0, a1):
+    """sparse(x0) = full(x0), also after a sparse(x1) (< 1e-4)."""
+    full = model.full(*a0)
+    errs = [(model.sparse(*a0) - full).abs().max().item()]
+    model.sparse(*a1)
+    errs.append((model.sparse(*a0) - full).abs().max().item())
+    print(f"  [{name}] sparse(x0) vs full(x0): max err {errs[0]:.3e}; after "
+          f"a sparse(x1): {errs[1]:.3e}", flush=True)
+    if not all(e < TOL for e in errs):
+        raise AssertionError(f"{name}: sparse(x0) != full(x0): {errs}")
+    return errs
+
+
+def checkpoint_ddpm(flash, tmp, secs):
+    """DDPM church256 through a reference *vanilla* checkpoint: profile and
+    generate through ``cli.diffusion`` with ``model.network=ddpm.unet``
+    (the fuse surgery), the fused dense forward against the port's
+    ``VanillaDDPMUNet`` on the unfused conversion, sparse = full, the
+    flash launches, and the native round trip bit for bit."""
+    import os
+
+    from sige_torch.cli import diffusion
+    from sige_torch.models.ddpm import DDPMUNetConfig, VanillaDDPMUNet
+    from sige_torch.utils import convert
+
+    cfg = DDPMUNetConfig()
+    with torch.device("meta"):
+        layout = reference_layout("ddpm", VanillaDDPMUNet(cfg))
+    ref = secs("ddpm reference values", lambda: reference_values(layout, 0))
+    pth = os.path.join(tmp, "church256-ddpm-unet.pth")
+    _save_and_load(secs, "ddpm", pth, ref, convert.load_torch_state_dict,
+                   convert.convert_ddpm_unet_to_fused,
+                   os.path.join(tmp, "ddpm-native-direct"))
+    base = ["--config_path", "configs/church_ddim256-sige.yml", "--hparams",
+            f"model.network=ddpm.unet sampling.sample_steps={STEPS}",
+            "--synthetic", "--device", "cuda"]
+    warm, iters = 3, 10
+    counts = {}
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    runner, out, secs["ddpm cli profile"] = _run_cli(diffusion.main, base + [
+        "--restore_from", pth, "--mode", "profile",
+        "--warmup_times", str(warm), "--test_times", str(iters)])
+    print(f"    ddpm cli profile: {secs['ddpm cli profile']:.3f} s", flush=True)
+    counts["profile"] = (flash.flash_mha.launches,
+                         flash.flash_mha.combine_launches)
+    # preprocess (1 full), warm-ups, timed forwards, the peak-memory
+    # forward, the MAC count
+    want = expected_launches(flash, cfg, 3 + warm + iters)
+    if counts["profile"] != want:
+        raise AssertionError(f"ddpm cli profile: flash launches "
+                             f"{counts['profile']}, expected {want}")
+    _expect_lines("ddpm cli profile", out, _PROFILE_LINE)
+
+    original, edited = diffusion.synthetic_pair(cfg.resolution, 0)
+    x0, x1, _ = runner.preprocess(original, edited)
+    t = torch.full((1,), 500.0, device="cuda")
+    exact = _exact("ddpm ckpt", runner.model, (x0, t), (x1, t))
+    _, per_forward = counted(flash, "ddpm dense forward",
+                             lambda: runner.model.dense(x1, t),
+                             expected_launches(flash, cfg, 1))
+    vanilla = convert.load_converted(
+        VanillaDDPMUNet(cfg), convert.convert_ddpm_vanilla_unet(ref)).cuda()
+    fused_vs_vanilla = (runner.model.dense(x1, t) - vanilla(x1, t)).abs()
+    fused_vs_vanilla = fused_vs_vanilla.max().item()
+    _check("fused dense (convert_ddpm_unet_to_fused) = VanillaDDPMUNet "
+           "(convert_ddpm_vanilla_unet), t 500", fused_vs_vanilla)
+    del vanilla, runner
+
+    native = os.path.join(tmp, "ddpm-native")
+    runs = {}
+    for label, extra in (("pth", ["--restore_from", pth, "--save_converted",
+                                  native]),
+                         ("native", ["--restore_from", native])):
+        flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+        save_dir = os.path.join(tmp, f"ddpm-out-{label}")
+        runner, out, s = _run_cli(diffusion.main, base + extra + [
+            "--mode", "generate", "--save_dir", save_dir])
+        secs[f"ddpm cli generate ({label})"] = s
+        print(f"    ddpm cli generate ({label}): {s:.3f} s", flush=True)
+        counts[f"generate_{label}"] = (flash.flash_mha.launches,
+                                       flash.flash_mha.combine_launches)
+        if counts[f"generate_{label}"] != expected_launches(flash, cfg):
+            raise AssertionError(f"ddpm cli generate ({label}): flash "
+                                 f"launches {counts[f'generate_{label}']}, "
+                                 f"expected {expected_launches(flash, cfg)}")
+        _expect_lines(f"ddpm cli generate ({label})", out, _GENERATE_LINE,
+                      r"^saved .*synthetic\.png$")
+        with open(os.path.join(save_dir, "synthetic.png"), "rb") as f:
+            png = f.read()
+        if not os.path.exists(os.path.join(save_dir, "index.html")):
+            raise AssertionError("ddpm cli generate: no gallery")
+        runs[label] = (runner.module.state_dict(),
+                       runner.generate(original, edited, seed=0), png)
+        del runner
+    same_weights = all(torch.equal(runs["pth"][0][k], runs["native"][0][k])
+                       for k in runs["pth"][0])
+    same_out = np.array_equal(runs["pth"][1], runs["native"][1])
+    same_png = runs["pth"][2] == runs["native"][2]
+    print(f"    native round trip (--save_converted, then --restore_from): "
+          f"weights equal {same_weights}, generate output equal "
+          f"{same_out}, PNG bytes equal {same_png}", flush=True)
+    if not (same_weights and same_out and same_png):
+        raise AssertionError("ddpm: --restore_from of the --save_converted "
+                             "directory differs from the .pth run")
+    torch.cuda.empty_cache()
+    return {"flash_counts": counts, "per_forward": per_forward,
+            "exact": exact, "fused_vs_vanilla": fused_vs_vanilla}
+
+
+def checkpoint_pd(flash, tmp, secs):
+    """PD church pd256 through a reference PD checkpoint and
+    ``cli.diffusion`` with ``configs/church_pd256-sige.yml``."""
+    import os
+
+    from sige_torch.cli import diffusion
+    from sige_torch.models.pd import PDUNetConfig, SIGEPDUNet
+    from sige_torch.utils import convert
+
+    cfg = PDUNetConfig()
+    with torch.device("meta"):
+        layout = reference_layout("ddpm", SIGEPDUNet(cfg))
+    ref = secs("pd reference values", lambda: reference_values(layout, 1))
+    pth = os.path.join(tmp, "church256-pd-unet.pth")
+    _save_and_load(secs, "pd", pth, ref, convert.load_torch_state_dict,
+                   convert.convert_pd_unet, os.path.join(tmp, "pd-native"))
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    runner, out, s = _run_cli(diffusion.main, [
+        "--config_path", "configs/church_pd256-sige.yml", "--synthetic",
+        "--restore_from", pth, "--mode", "generate", "--device", "cuda"])
+    secs["pd cli generate"] = s
+    print(f"    pd cli generate: {s:.3f} s", flush=True)
+    got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+    calls = pd_attention_calls(cfg)
+    want = expected_counts(flash, calls * (1 + 2 * runner.run_cfg.sample_steps))
+    print(f"    pd cli generate: flash launches {got[0]} + {got[1]} combine "
+          f"(expected {want[0]} + {want[1]})", flush=True)
+    if got != want or want[0] != 242:
+        raise AssertionError(f"pd cli: flash launches {got}, expected {want}")
+    _expect_lines("pd cli generate", out, _GENERATE_LINE)
+    original, edited = diffusion.synthetic_pair(cfg.resolution, 0)
+    x0, x1, _ = runner.preprocess(original, edited)
+    ls = runner._cond()
+    exact = _exact("pd ckpt", runner.model, (x0, ls), (x1, ls))
+    _, per_forward = counted(flash, "pd dense forward",
+                             lambda: runner.model.dense(x1, ls),
+                             expected_counts(flash, calls))
+    if per_forward["launches"] != 22:
+        raise AssertionError("pd: not 22 flash launches per forward")
+    del runner
+    torch.cuda.empty_cache()
+    return {"flash_counts": got, "per_forward": per_forward, "exact": exact}
+
+
+def checkpoint_sd(flash, tmp, secs):
+    """SD v1 at 512^2 through an sd-v1 LDM checkpoint (U-Net, VAE,
+    quant_conv and post_quant_conv) and ``cli.sd --task sdedit
+    --synthetic --embeddings``, 5 twin steps."""
+    import os
+    import shutil
+
+    from sige_torch.cli import sd as sd_cli
+    from sige_torch.models.sd import SDUNetConfig, SDVAEConfig
+    from sige_torch.utils import convert, convert_sd
+
+    unet_cfg, vae_cfg = SDUNetConfig(), SDVAEConfig(resolution=512)
+    layout = sd_reference_layout(unet_cfg, vae_cfg)
+    ref = secs("sd reference values", lambda: reference_values(layout, 2))
+    print(f"    sd reference state dict: {len(ref)} tensors, "
+          f"{sum(v.numel() for v in ref.values()) * 4 / 1e9:.2f} GB",
+          flush=True)
+    pth = os.path.join(tmp, "sd-v1.ckpt")
+    native = os.path.join(tmp, "sd-native")
+    _save_and_load(secs, "sd", pth, ref, convert.load_torch_state_dict,
+                   lambda sd: convert_sd.convert_sd(sd, resolution=512),
+                   native)
+    del ref
+    shutil.rmtree(native)
+    gen = torch.Generator().manual_seed(3)
+    emb = os.path.join(tmp, "embeddings.npz")
+    uc, c = (torch.randn(1, 77, 768, generator=gen).numpy() for _ in range(2))
+    np.savez(emb, uc=uc, c=c)
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    runner, out, s = _run_cli(sd_cli.main, [
+        "--task", "sdedit", "--synthetic", "--embeddings", emb,
+        "--restore_from", pth, "--ddim_steps", str(SD_STEPS), "--strength",
+        str(SD_STRENGTH), "--scale", str(SD_GUIDANCE), "--save_dir",
+        os.path.join(tmp, "sd-out"), "--device", "cuda"])
+    secs["sd cli sdedit"] = s
+    print(f"    sd cli sdedit: {s:.3f} s", flush=True)
+    os.remove(pth)
+    got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+    t_enc = int(SD_STRENGTH * SD_STEPS)
+    calls = sd_model_calls(runner)
+    want = expected_counts(flash, sdedit_calls(calls, t_enc))
+    print(f"    sd cli sdedit: {t_enc} twin steps, flash launches {got[0]} + "
+          f"{got[1]} combine (expected {want[0]} + {want[1]})", flush=True)
+    if got != want:
+        raise AssertionError(f"sd cli: flash launches {got}, expected {want}")
+    _expect_lines("sd cli sdedit", out, r"^saved .*sdedit\.png$")
+    # per full forward: 32 attention launches in the U-Net, 1 in each VAE
+    # model; a combine launch for each call whose key range is split
+    per_forward = {n: expected_counts(flash, calls[n, "full"])
+                   for n in ("unet", "encoder", "decoder")}
+    if {n: v[0] for n, v in per_forward.items()} != {
+            "unet": 32, "encoder": 1, "decoder": 1}:
+        raise AssertionError(f"sd: flash launches per full forward "
+                             f"{per_forward}, expected U-Net 32 and VAE 1")
+    init, edited, _ = sd_cli.synthetic_inputs(512, 512, 0)
+    exact, args = sd_exact(runner, init, edited, uc, c)
+    for n, model in (("unet", runner.unet), ("encoder", runner.encoder),
+                     ("decoder", runner.decoder)):
+        counted(flash, f"sd {n} full forward",
+                lambda: model.full(*args[n][0]), per_forward[n])
+    del runner, args
+    torch.cuda.empty_cache()
+    return {"flash_counts": got, "per_forward": per_forward,
+            "exact": exact}
+
+
+def checkpoint_gaugan(flash, tmp, secs):
+    """The Cityscapes SPADE generator through three reference layouts and
+    ``cli.gaugan --synthetic``: a fused checkpoint under
+    ``sige_fused_spade``, a plain SPADE checkpoint under
+    ``sige_fused_spade`` (the fusing surgery, chosen by the checkpoint's
+    keys), and a fused sub-mobile checkpoint (running statistics at
+    nominal width) under ``sige_fused_sub_mobile_spade``. Each reference
+    dict holds BatchNorm statistics calibrated on the synthetic original
+    through the port's conversion of it (:func:`calibrate_bn_stats`)."""
+    import os
+
+    from sige_torch.cli import gaugan
+    from sige_torch.models.gaugan import (SIGEFusedSPADEGenerator,
+                                          SIGESubMobileSPADEGenerator,
+                                          SPADEGenConfig,
+                                          VanillaSPADEGenerator,
+                                          decode_config)
+    from sige_torch.runners import GauGANRunner
+    from sige_torch.utils import convert
+
+    cfg = SPADEGenConfig()
+    channels = tuple(decode_config(SUB_MOBILE_CONFIG))
+    nul = cfg.num_upsampling_layers
+    cases = [
+        ("fused", "sige_fused_spade", lambda: SIGEFusedSPADEGenerator(cfg),
+         None, lambda sd: convert.convert_gaugan_fused_spade(sd, nul), None),
+        ("spade", "sige_fused_spade", lambda: VanillaSPADEGenerator(cfg),
+         None, lambda sd: convert.convert_gaugan_spade(sd, nul, fuse=True),
+         None),
+        ("sub_mobile", "sige_fused_sub_mobile_spade",
+         lambda: SIGESubMobileSPADEGenerator(cfg, channels),
+         sub_mobile_widths(cfg),
+         lambda sd: convert.convert_gaugan_sub_mobile_spade(
+             sd, channels=channels, ngf=cfg.ngf),
+         lambda: SIGESubMobileSPADEGenerator(cfg, channels)),
+    ]
+    args = gaugan.get_args(["--synthetic"])
+    item = gaugan.synthetic_items(args)[0]
+    result = {}
+    for i, (name, netg, make, widths, conv, engine_module) in enumerate(cases):
+        with torch.device("meta"):
+            layout = reference_layout("gaugan", make(), widths=widths)
+        ref = secs(f"gaugan {name} reference values",
+                   lambda: reference_values(layout, 4 + i))
+        # BatchNorm statistics as training leaves them, through the port's
+        # own reading of this checkpoint
+        cal = GauGANRunner(cfg, params=conv(ref), device="cuda",
+                           module=engine_module and engine_module())
+        seg = cal.preprocess_input(item["original_label"],
+                                   item["original_instance"])
+        calibrate_bn_stats(cal, seg)
+        for k, v in cal.module.state_dict().items():
+            if "running_" in k:
+                ref[reference_key("gaugan", k)][:v.numel()] = v.cpu()
+        del cal
+        pth = os.path.join(tmp, f"gaugan-{name}.pth")
+        _save_and_load(secs, f"gaugan {name}", pth, ref,
+                       convert.load_torch_state_dict, conv,
+                       os.path.join(tmp, f"gaugan-{name}-native"))
+        argv = ["--netG", netg, "--synthetic", "--restore_from", pth,
+                "--mode", "generate", "--device", "cuda"]
+        if "sub_mobile" in netg:
+            argv += ["--config_str", SUB_MOBILE_CONFIG]
+        flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+        runner, out, s = _run_cli(gaugan.main, argv)
+        secs[f"gaugan {name} cli generate"] = s
+        print(f"    gaugan {name} cli generate ({netg}): {s:.3f} s",
+              flush=True)
+        got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+        if got != (0, 0):
+            raise AssertionError(f"gaugan {name}: flash launches {got}")
+        _expect_lines(f"gaugan {name}", out, _GAUGAN_LINE)
+        s0, s1 = (runner.preprocess_input(item[f"{k}_label"],
+                                          item[f"{k}_instance"])
+                  for k in ("original", "edited"))
+        x0, x1, _ = runner.preprocess(s0, s1)
+        result[name] = {"flash_counts": got, "netG": netg,
+                        "exact": _exact(f"gaugan {name} ckpt", runner.model,
+                                        (x0,), (x1,))}
+        del runner, ref
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_checkpoints(flash):
+    """Phase 13: reference-layout checkpoints (keys and shapes from
+    :func:`reference_layout`, values from seeds) written as .pth files,
+    converted by the port and driven through its command lines at full
+    width."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = _Seconds()
+    with tempfile.TemporaryDirectory(prefix="sige-ckpt-") as tmp:
+        print("  [ddpm] church256 through a vanilla checkpoint:", flush=True)
+        ddpm = checkpoint_ddpm(flash, tmp, secs)
+        print("  [pd] church pd256:", flush=True)
+        pd = checkpoint_pd(flash, tmp, secs)
+        print("  [gaugan] Cityscapes SPADE at 512x256:", flush=True)
+        gaugan = checkpoint_gaugan(flash, tmp, secs)
+        print("  [sd] SD v1 at 512^2:", flush=True)
+        sd = checkpoint_sd(flash, tmp, secs)
+    return {"ddpm": ddpm, "pd": pd, "gaugan": gaugan, "sd": sd,
+            "seconds": dict(secs)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1687,6 +2280,9 @@ def main() -> int:
     print("demo (church256 at full width: per-step cache slots, sessions, "
           "the HTTP server):", flush=True)
     demo = phase_demo(flash)
+    print("checkpoints and command lines (reference layouts at full width, "
+          "cli.diffusion, cli.gaugan, cli.sd):", flush=True)
+    ckpt = phase_checkpoints(flash)
     if precision_flags() != defaults:
         raise AssertionError(f"precision flags {precision_flags()} after the "
                              f"run, {defaults} before it")
@@ -1707,7 +2303,10 @@ def main() -> int:
             gaugan_generate=gaugan["launches"],
             **{f"demo_{s}_{r}": demo[s]["requests"][r]["launches"]
                for s in ("ddim", "dpm_solver")
-               for r in demo[s]["requests"]}),
+               for r in demo[s]["requests"]},
+            cli_ddpm_generate=ckpt["ddpm"]["flash_counts"]["generate_pth"][0],
+            cli_pd_generate=ckpt["pd"]["flash_counts"][0],
+            cli_sd_sdedit=ckpt["sd"]["flash_counts"][0]),
         "combine_launches_by_path": dict(
             {n: p["combine_launches"] for n, p in paths.items()},
             sd_sdedit=sd["combine_launches"],
@@ -1734,7 +2333,8 @@ def main() -> int:
         "combine_a": combine,
     }]
     print(json.dumps({"paths": paths, "retime": retime, "sd": sd, "pd": pd,
-                      "gaugan": gaugan, "demo": demo, "card": card}),
+                      "gaugan": gaugan, "demo": demo, "checkpoints": ckpt,
+                      "card": card}),
           flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

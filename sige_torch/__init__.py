@@ -14,7 +14,11 @@ Diffusion SDEdit and inpainting path (``sige_torch.runners.SDRunner``),
 the PD and GauGAN editing paths, and the interactive editing path: the
 demo runners with per-step cache slots (``sige_torch.demo``), the
 multi-session ``sige_torch.parallel.SessionServer`` and the HTTP demo
-(``python -m sige_torch.demo.server``).
+(``python -m sige_torch.demo.server``). Reference checkpoints reach it
+through its own converters (``sige_torch.utils.convert``,
+``convert_sd``) and native checkpoints (``utils.checkpoint``), and the
+suites' command lines are ``python -m sige_torch.cli.diffusion``,
+``cli.gaugan`` and ``cli.sd``.
 """
 
 __version__ = "0.1.0"

@@ -27,7 +27,10 @@ from http.server import BaseHTTPRequestHandler, HTTPServer
 import numpy as np
 
 from ..models.ddpm import DDPMUNetConfig
-from ..nn.engine import _later, resolve_device
+from .. import data
+from ..nn.engine import resolve_device
+from ..utils.checkpoint import restore
+from ..utils.convert import convert_ddpm_fused_unet
 from .canvas import STAMP_NAMES, make_stamp
 from .png import decode_png, encode_png
 from .runner import DemoRunner, MultiSessionDemoRunner
@@ -286,23 +289,23 @@ def make_handler(runner, base_image: np.ndarray, resolution: int,
 
 def load_image(path: str, resolution: int) -> np.ndarray:
     """[R, R, 3] float32 in [0, 1] from a PNG (8-bit RGB or RGBA) or a
-    ``.npy`` array (uint8, or float in [0, 1]) of R x R pixels."""
-    if path.endswith(".npy"):
-        img = np.load(path)
-        img = img / 255.0 if img.dtype == np.uint8 else img
-    else:
-        with open(path, "rb") as f:
-            img = decode_png(f.read()) / 255.0
-    if img.shape[:2] != (resolution, resolution):
-        raise ValueError(f"{path} is {img.shape[1]}x{img.shape[0]}, not "
-                         f"{resolution}x{resolution}")
+    ``.npy`` array (uint8, or float in [0, 1]); an image of another size
+    is resized to R x R bicubically, as PIL does
+    (:func:`sige_torch.data.load_image`)."""
+    R = resolution
+    if not path.endswith(".npy"):
+        return data.load_image(path, size=(R, R))
+    img = np.load(path)
+    if img.shape[:2] != (R, R):
+        return data.resize_bicubic(to_uint8(
+            img / 255.0 if img.dtype == np.uint8 else img)[..., :3],
+            (R, R)).astype(np.float32) / 255.0
+    img = img / 255.0 if img.dtype == np.uint8 else img
     return np.asarray(img[..., :3], np.float32)
 
 
 def build(args):
     """(runner, base image) for parsed flags."""
-    if args.restore_from:
-        raise _later("--restore_from (the checkpoint converters)")
     device = resolve_device(args.device)
     R = args.resolution
     if args.tiny:
@@ -311,7 +314,12 @@ def build(args):
                              sparse_resolution_threshold=R)
     else:
         cfg = DDPMUNetConfig(resolution=R)
-    kw = dict(sample_steps=args.sample_steps,
+    params = None
+    if args.restore_from:  # a fused-UNet .pth or a native directory
+        params = restore(args.restore_from, lambda sd: convert_ddpm_fused_unet(
+            sd, cfg.ch_mult, cfg.num_res_blocks, cfg.attn_resolutions,
+            cfg.resolution), device)
+    kw = dict(sample_steps=args.sample_steps, params=params,
               bucket_min=1 if args.tiny else 8, sampler_type=args.sampler,
               device=device)
     runner = (MultiSessionDemoRunner(args.sessions, cfg, **kw)
@@ -327,7 +335,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--image", type=str, default=None,
-                   help="base image: a PNG or .npy of R x R pixels")
+                   help="base image: a PNG or .npy, resized to R x R")
     p.add_argument("--resolution", type=int, default=256)
     p.add_argument("--sample_steps", type=int, default=25)
     p.add_argument("--sampler", choices=("ddim", "dpm_solver"),
@@ -336,7 +344,8 @@ def parse_args(argv=None):
     p.add_argument("--tiny", action="store_true",
                    help="tiny random-weight model for smoke testing")
     p.add_argument("--restore_from", type=str, default=None,
-                   help="a converted checkpoint (not ported yet)")
+                   help="a reference fused-UNet .pth, or a native "
+                        "checkpoint dir written by --save_converted")
     p.add_argument("--sessions", type=int, default=1,
                    help="concurrent editing sessions (open /?session=N "
                         "per user)")

@@ -12,7 +12,9 @@ has no imaging library, so the port carries its own codec).
     session out of range, an image of another size and a request without
     an image answer 400; two sessions over HTTP keep their own state
     (``tests/test_demo_server.py:55-178``); the command line raises
-    without a GPU unless ``--device cpu`` and for ``--restore_from``.
+    without a GPU unless ``--device cpu``; ``--restore_from`` reads a
+    checkpoint (a missing file raises) and ``--image`` is resized to
+    R x R.
 """
 
 import base64
@@ -337,7 +339,7 @@ def test_command_line_needs_a_gpu_or_device_cpu(monkeypatch, tmp_path):
     no_device = [a for a in ARGS if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         server.build(server.parse_args(no_device))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(FileNotFoundError):
         server.build(server.parse_args(ARGS + ["--restore_from", "x.pth"]))
     # a base image from a PNG or a .npy of R x R pixels
     img = np.random.default_rng(4).random((R, R, 3)).astype(np.float32)
@@ -347,5 +349,10 @@ def test_command_line_needs_a_gpu_or_device_cpu(monkeypatch, tmp_path):
         server.load_image(str(tmp_path / "base.png"), R), img, atol=1 / 255)
     np.testing.assert_array_equal(
         server.load_image(str(tmp_path / "base.npy"), R), img)
-    with pytest.raises(ValueError, match="not 16x16"):
-        server.load_image(str(tmp_path / "base.npy"), 16)
+    # another size is resized to R x R, as PIL's bicubic resize does
+    from sige_torch.data import resize_bicubic
+    for name in ("base.png", "base.npy"):
+        small = server.load_image(str(tmp_path / name), 16)
+        np.testing.assert_array_equal(
+            small, resize_bicubic(server.to_uint8(img), (16, 16)) / np.float32(
+                255.0))

@@ -429,3 +429,43 @@ def test_tiny_demo_runner_card_matches_cpu(sampler):
         set_precision_flags(saved)
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert np.abs(got - want).max() <= 1e-4
+
+
+_CLI_TINY = {  # tests/test_cli.py's tiny shapes, through each command line
+    "diffusion": ["--config_path", "configs/church_ddim256-sige.yml",
+                  "--synthetic", "--hparams",
+                  "model.ch=16 model.ch_mult=1,2 model.num_res_blocks=1 "
+                  "model.attn_resolutions=16 "
+                  "model.sparse_resolution_threshold=32 model.num_groups=8 "
+                  "data.image_size=32 sampling.sample_steps=2 "
+                  "sampling.noise_level=100"],
+    "gaugan": ["--synthetic", "--ngf", "16", "--crop_size", "128",
+               "--num_sparse_layers", "2"],
+    "sd": ["--task", "sdedit", "--synthetic", "--H", "64", "--W", "64",
+           "--ddim_steps", "4", "--strength", "0.5", "--hparams",
+           "unet.model_channels=8 unet.channel_mult=1,2 "
+           "unet.attention_resolutions=2 unet.num_heads=2 "
+           "unet.context_dim=16 unet.num_groups=4 vae.ch=8 vae.ch_mult=1,2 "
+           "vae.num_groups=4"],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cli", sorted(_CLI_TINY))
+def test_command_line_defaults_to_the_card(cli, tmp_path):
+    """Each command line runs on the card by default and on the CPU with
+    ``--device cpu``."""
+    if not torch.cuda.is_available():
+        pytest.skip("the default device is the CUDA device")
+    import importlib
+
+    main = importlib.import_module(f"sige_torch.cli.{cli}").main
+    argv = _CLI_TINY[cli] + ["--save_dir", str(tmp_path)]
+    for extra, want in (([], "cuda"), (["--device", "cpu"], "cpu")):
+        runner = main(argv + extra)
+        assert runner.device.type == want
+        models = ([runner.unet, runner.encoder, runner.decoder]
+                  if cli == "sd" else [runner.model])
+        for model in models:
+            assert all(p.device.type == want
+                       for p in model.module.parameters())

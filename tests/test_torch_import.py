@@ -1,6 +1,6 @@
 """sige_torch, and the scripts and tests that run on the machine with the
-card (which has no JAX and no PIL), import nothing of JAX, flax, sige_tpu
-or PIL."""
+card (which has no JAX, no PIL and no PyYAML), import nothing of JAX,
+flax, sige_tpu, PIL or yaml."""
 
 import ast
 import pathlib
@@ -10,15 +10,16 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# the machine with the card has no imaging library either (the demo
-# server carries its own PNG codec)
-FORBIDDEN = ("jax", "jaxlib", "flax", "sige_tpu", "PIL")
+# the machine with the card has no imaging library either (the port
+# carries its own PNG codec) and no PyYAML (the port reads its configs)
+FORBIDDEN = ("jax", "jaxlib", "flax", "sige_tpu", "PIL", "yaml")
 
 
 def _sources():
     return sorted((ROOT / "sige_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "trace_torch_step.py",
         ROOT / "scripts" / "retime_cost.py",
+        ROOT / "scripts" / "checkpoint_times.py",
         ROOT / "tests" / "test_torch_gpu.py"]
 
 
@@ -37,6 +38,23 @@ def test_demo_server_and_serving_pull_in_no_jax_and_no_pil():
     code = (
         "import sys\n"
         "import sige_torch.demo.server, sige_torch.parallel.serving\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_command_lines_and_checkpoints_pull_in_nothing_forbidden():
+    code = (
+        "import sys\n"
+        "import sige_torch.cli.diffusion, sige_torch.cli.gaugan, "
+        "sige_torch.cli.sd, sige_torch.data, sige_torch.utils.config, "
+        "sige_torch.utils.convert, sige_torch.utils.convert_sd, "
+        "sige_torch.utils.checkpoint, sige_torch.utils.ema, "
+        "sige_torch.utils.watermark, sige_torch.utils.html\n"
+        "from sige_torch.utils.config import load_config\n"
+        "load_config('configs/sd-sige.yaml')\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
