@@ -140,9 +140,40 @@ Phases (any failure raises and the script exits non-zero):
               --embeddings`` (U-Net, VAE, ``quant_conv`` folded,
               ``post_quant_conv``; 5 twin steps): the sdedit's flash
               launches, 32 per U-Net and 1 per VAE forward (and a
-              combine launch for each split call), sparse = full.
+              combine launch for each split call), sparse = full; the
+              checkpoint stays for phase 14;
+14. sd text path and options — in phase 13's temporary directory:
+            (a) synthetic snapshots at the published widths: CLIP text
+            (768 hidden, 12 layers, 12 heads, 3072 MLP, 77 positions,
+            49 408 tokens: the 256 byte symbols, their ``</w>`` forms,
+            seeded merges, the two specials) in the hub-cache layout that
+            ``HF_HUB_CACHE`` points at, and the safety checker (ViT-L/14
+            at 224, a 768 projection, 17 concept and 3 special-care
+            embeddings) with a seeded threshold that a smooth image trips
+            and the synthetic init image does not;
+            (b) the card's ``encode_prompts(["", p])`` and pooled vision
+            features against the port's CPU float64 run (within 1e-4 *
+            max(1, max|ref|)), the verdicts, ms per forward on CUDA
+            events;
+            (c) ``cli.sd --task sdedit --synthetic --prompt ...
+            --safety_model ...`` over the SD checkpoint, then the same
+            with ``--embeddings`` of (b)'s (uc, c): byte-identical PNGs,
+            both times, the flash launches held to the sdedit's count,
+            the safety verdict;
+            (d) the U-Net with ``kv_cache_min_tokens=1024`` (the 64^2 and
+            32^2 levels take the K/V caches): sparse(x0) = full(x0), also
+            after a sparse(x1), within 1e-4 * max(1, max|full|); flash
+            launches per forward held to the count of the K/V-cached
+            mode; full and sparse medians, launches and idle shares
+            beside the default window chain's; the kernel against its
+            plain version at every new flash shape (rows from (z) on);
+            (e) the decoder at 512^2 in the tile layout with and without
+            ``tile_chain``: sparse(x0) = full(x0) in both, chained =
+            unchained on one edit and plan, the sparse medians, launches
+            and idle shares beside the window layout's; the phase's peak
+            device memory.
 
-The paths (phases 4-7, 9, 11, 12 and 13) run under PyTorch's default precision flags,
+The paths (phases 4-7, 9 and 11-14) run under PyTorch's default precision flags,
 which run cuDNN convs in TF32: the engine holds fp32 and benchmark mode
 for its own forwards, and the script checks that the flags are the
 defaults again at its end. The kernel phases enter the same scope.
@@ -185,12 +216,13 @@ def _dev_time(e):
         e, "self_cuda_time_total", 0.0)
 
 
-def device_ms(fn, iters: int = 20, tries: int = 3):
+def device_ms(fn, iters: int = 20, tries: int = 3, required: bool = True):
     """Device kernel time of one call of ``fn``: the summed busy time of
     its kernels in a torch.profiler trace of ``iters`` calls, per call;
     returns (total ms, {kernel name: ms}). Now and then a trace holds no
     device activity at all; it is then taken again, up to ``tries``
-    times."""
+    times, and then raises, or with ``required`` False returns (None,
+    {}): not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -208,8 +240,12 @@ def device_ms(fn, iters: int = 20, tries: int = 3):
                and _dev_time(e) > 0}
         if per:
             return sum(per.values()), per
-    raise AssertionError(f"the profiler recorded no device time in {tries} "
-                         f"traces")
+    if required:
+        raise AssertionError(f"the profiler recorded no device time in "
+                             f"{tries} traces")
+    print(f"  (the profiler recorded no device time in {tries} traces: "
+          f"device ms not measured)", flush=True)
+    return None, {}
 
 
 def time_ms(fn, warmup: int = 5, iters: int = 20) -> float:
@@ -289,13 +325,17 @@ def kernel_row(flash, label, B, N, M, H, D, bias):
            "library": lambda: F.scaled_dot_product_attention(
                qt, kt, vt, attn_mask=bias, scale=scale)}
     call = {n: time_ms(fn) for n, fn in fns.items()}
-    dev = {n: device_ms(fn)[0] for n, fn in fns.items()}
+    dev = {n: device_ms(fn, required=False)[0] for n, fn in fns.items()}
     bound_ms, bound_by = attention_bound(B, N, M, H, D, bias is not None)
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f}"
+
     print(f"  {label}: S={splits}  max err {err:.3e}  ms (events): "
           f"kernel {call['kernel']:.4f}  plain {call['plain']:.4f}  sdpa "
           f"{call['library']:.4f}  bound {bound_ms:.5f} ({bound_by}); "
-          f"device ms (profiler): kernel {dev['kernel']:.4f}  plain "
-          f"{dev['plain']:.4f}  sdpa {dev['library']:.4f}", flush=True)
+          f"device ms (profiler): kernel {fmt(dev['kernel'])}  plain "
+          f"{fmt(dev['plain'])}  sdpa {fmt(dev['library'])}", flush=True)
     return {"shape": label, "B": B, "N": N, "M": M, "H": H, "D": D,
             "bias": bias is not None, "splits": splits,
             "max_err": err, "kernel_ms": call["kernel"],
@@ -696,17 +736,18 @@ def _sparse_tokens(sparse_ok, gather, res):
     return gather.plan["indices"].shape[0] * bh * bw, False
 
 
-def sd_unet_calls(runner, mode):
-    """(B, N, M, heads, D) of every flash call of one U-Net forward with
-    guidance (batch 2): per transformer block a self-attention (masked
-    stale/fresh in the window chain) and a cross-attention over 77
-    tokens."""
+def sd_unet_calls(unet, latent, mode):
+    """(B, N, M, heads, D) of every flash call of one forward of the U-Net
+    ``unet`` (a ``SIGEModel``) at ``latent`` px with guidance (batch 2):
+    per transformer block a self-attention (masked stale/fresh in the
+    window chain; over the full K/V map at a K/V-cached level,
+    ``kv_cache_min_tokens``) and a cross-attention over 77 tokens."""
     from sige_torch.models.sd import SIGESpatialTransformer
 
-    cfg = runner.unet_cfg
-    mods = [m for m in runner.unet.module.modules()
+    cfg = unet.module.cfg
+    mods = [m for m in unet.module.modules()
             if isinstance(m, SIGESpatialTransformer)]
-    shapes = sd_transformer_shapes(cfg, runner.latent_hw[0])
+    shapes = sd_transformer_shapes(cfg, latent)
     if len(mods) != len(shapes):
         raise AssertionError(f"{len(mods)} transformers, config gives "
                              f"{len(shapes)}")
@@ -717,7 +758,9 @@ def sd_unet_calls(runner, mode):
         if mode == "sparse":
             N, masked = _sparse_tokens(m.sparse_ok, getattr(m, "gather", None),
                                        res)
-            M = res * res + (N if masked and cfg.window_chain else 0)
+            kv_cached = m.sparse_ok and res * res >= cfg.kv_cache_min_tokens
+            if masked and cfg.window_chain and not kv_cached:
+                M = res * res + N
         calls += [(2, N, M, H, ch // H), (2, N, 77, H, ch // H)] * len(
             m.blocks)
     return calls
@@ -800,7 +843,8 @@ def sd_model_calls(runner):
     its last ``sdedit`` set."""
     models = {"unet": runner.unet, "encoder": runner.encoder,
               "decoder": runner.decoder}
-    return {(n, mode): (sd_unet_calls(runner, mode) if n == "unet"
+    return {(n, mode): (sd_unet_calls(m, runner.latent_hw[0], mode)
+                        if n == "unet"
                         else sd_vae_calls(m, mode))
             for n, m in models.items() for mode in ("full", "sparse")}
 
@@ -2046,7 +2090,8 @@ def checkpoint_pd(flash, tmp, secs):
 def checkpoint_sd(flash, tmp, secs):
     """SD v1 at 512^2 through an sd-v1 LDM checkpoint (U-Net, VAE,
     quant_conv and post_quant_conv) and ``cli.sd --task sdedit
-    --synthetic --embeddings``, 5 twin steps."""
+    --synthetic --embeddings``, 5 twin steps. The checkpoint stays in
+    ``tmp`` (phase 14 reads it)."""
     import os
     import shutil
 
@@ -2079,7 +2124,6 @@ def checkpoint_sd(flash, tmp, secs):
         os.path.join(tmp, "sd-out"), "--device", "cuda"])
     secs["sd cli sdedit"] = s
     print(f"    sd cli sdedit: {s:.3f} s", flush=True)
-    os.remove(pth)
     got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
     t_enc = int(SD_STRENGTH * SD_STEPS)
     calls = sd_model_calls(runner)
@@ -2193,27 +2237,545 @@ def checkpoint_gaugan(flash, tmp, secs):
     return result
 
 
-def phase_checkpoints(flash):
+def phase_checkpoints(flash, tmp=None):
     """Phase 13: reference-layout checkpoints (keys and shapes from
-    :func:`reference_layout`, values from seeds) written as .pth files,
-    converted by the port and driven through its command lines at full
-    width."""
+    :func:`reference_layout`, values from seeds) written as .pth files
+    into ``tmp`` (a temporary directory of its own when None), converted
+    by the port and driven through its command lines at full width."""
     import tempfile
 
+    if tmp is None:
+        with tempfile.TemporaryDirectory(prefix="sige-ckpt-") as tmp:
+            return phase_checkpoints(flash, tmp)
     gc.collect()
     torch.cuda.empty_cache()
     secs = _Seconds()
-    with tempfile.TemporaryDirectory(prefix="sige-ckpt-") as tmp:
-        print("  [ddpm] church256 through a vanilla checkpoint:", flush=True)
-        ddpm = checkpoint_ddpm(flash, tmp, secs)
-        print("  [pd] church pd256:", flush=True)
-        pd = checkpoint_pd(flash, tmp, secs)
-        print("  [gaugan] Cityscapes SPADE at 512x256:", flush=True)
-        gaugan = checkpoint_gaugan(flash, tmp, secs)
-        print("  [sd] SD v1 at 512^2:", flush=True)
-        sd = checkpoint_sd(flash, tmp, secs)
+    print("  [ddpm] church256 through a vanilla checkpoint:", flush=True)
+    ddpm = checkpoint_ddpm(flash, tmp, secs)
+    print("  [pd] church pd256:", flush=True)
+    pd = checkpoint_pd(flash, tmp, secs)
+    print("  [gaugan] Cityscapes SPADE at 512x256:", flush=True)
+    gaugan = checkpoint_gaugan(flash, tmp, secs)
+    print("  [sd] SD v1 at 512^2:", flush=True)
+    sd = checkpoint_sd(flash, tmp, secs)
     return {"ddpm": ddpm, "pd": pd, "gaugan": gaugan, "sd": sd,
             "seconds": dict(secs)}
+
+
+
+# --- phase 14: SD from a text prompt, the safety checker, the options -------
+
+def synthetic_bpe(n_merges: int, seed: int = 0):
+    """A seeded byte-level BPE vocabulary in CLIP's layout: the 256 byte
+    symbols, their ``</w>`` forms, ``n_merges`` merges (each a new token;
+    eight in ten join pieces of lower-case ASCII letters, so ordinary
+    words merge over several ranks) and the two specials last. Returns
+    ({token: id}, [(left, right), ...] in rank order)."""
+    import string
+
+    from sige_torch.models.sd.tokenizer import BOS, EOS, bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    tokens = chars + [c + "</w>" for c in chars]
+    seen = set(tokens)
+    letters = set(string.ascii_lowercase)
+    ascii_lefts = [c for c in chars if c in letters]
+    ascii_rights = ascii_lefts + [c + "</w>" for c in ascii_lefts]
+    lefts, rights = list(chars), list(tokens)
+    rng = np.random.default_rng(seed)
+    merges = []
+    while len(merges) < n_merges:
+        ascii_pick = rng.random() < 0.8
+        ls, rs = (ascii_lefts, ascii_rights) if ascii_pick else (lefts,
+                                                                 rights)
+        a, b = ls[rng.integers(len(ls))], rs[rng.integers(len(rs))]
+        tok = a + b
+        if tok in seen:
+            continue
+        seen.add(tok)
+        merges.append((a, b))
+        tokens.append(tok)
+        rights.append(tok)
+        if ascii_pick:
+            ascii_rights.append(tok)
+        if not tok.endswith("</w>"):
+            lefts.append(tok)
+            if ascii_pick:
+                ascii_lefts.append(tok)
+    tokens += [BOS, EOS]
+    return {t: i for i, t in enumerate(tokens)}, merges
+
+
+def _write_json(path, obj):
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(obj, f, ensure_ascii=False)
+
+
+def clip_text_state(cfg, seed: int = 0, device="cuda"):
+    """Seeded weights of a CLIP text tower of ``cfg`` (the port's
+    ``CLIPTextModel`` keys, values as :func:`reference_values` draws
+    them), plus what torch snapshots carry beside them: an old
+    ``position_ids`` buffer and the ``text_projection``."""
+    from sige_torch.models.sd.clip import CLIPTextModel
+
+    with torch.device("meta"):
+        model = CLIPTextModel(cfg)
+    layout = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    layout["text_projection.weight"] = (cfg.hidden_size, cfg.hidden_size)
+    sd = reference_values(layout, seed, device)
+    sd["text_model.embeddings.position_ids"] = torch.arange(
+        cfg.max_position_embeddings)[None]
+    return sd
+
+
+def write_clip_snapshot(path, cfg, state_dict, seed: int = 0):
+    """An ``openai/clip-vit-large-patch14``-layout snapshot of a CLIP text
+    tower: ``vocab.json`` and ``merges.txt`` (:func:`synthetic_bpe`, as
+    many merges as ``cfg.vocab_size`` leaves room for),
+    ``special_tokens_map.json``, ``config.json`` (a ``CLIPConfig`` with
+    its ``text_config``) and ``pytorch_model.bin``."""
+    import dataclasses
+    import os
+
+    from sige_torch.models.sd.tokenizer import BOS, EOS
+
+    os.makedirs(path, exist_ok=True)
+    vocab, merges = synthetic_bpe(cfg.vocab_size - 514, seed)
+    _write_json(os.path.join(path, "vocab.json"), vocab)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n"
+                                             for a, b in merges))
+    special = {name: {"content": tok, "lstrip": False, "normalized": True,
+                      "rstrip": False, "single_word": False}
+               for name, tok in (("bos_token", BOS), ("eos_token", EOS),
+                                 ("unk_token", EOS))}
+    special["pad_token"] = EOS
+    _write_json(os.path.join(path, "special_tokens_map.json"), special)
+    _write_json(os.path.join(path, "config.json"), {
+        "model_type": "clip", "projection_dim": cfg.hidden_size,
+        "text_config": dict(dataclasses.asdict(cfg), model_type=
+                            "clip_text_model")})
+    torch.save(state_dict, os.path.join(path, "pytorch_model.bin"))
+
+
+def safety_state(vcfg, projection_dim: int, seed: int = 0, device="cuda"):
+    """Seeded weights of a ``StableDiffusionSafetyChecker`` in its torch
+    layout: the CLIP vision trunk nested as
+    ``vision_model.vision_model.*``, ``visual_projection`` (no bias), 17
+    concept and 3 special-care embeddings and their thresholds (all 1:
+    nothing trips until a caller sets them)."""
+    from sige_torch.models.sd.safety import CLIPVisionModel
+
+    with torch.device("meta"):
+        model = CLIPVisionModel(vcfg)
+    P = projection_dim
+    layout = {"vision_model." + k: tuple(v.shape)
+              for k, v in model.state_dict().items()}
+    layout.update({"visual_projection.weight": (P, vcfg.hidden_size),
+                   "concept_embeds": (17, P), "special_care_embeds": (3, P)})
+    sd = reference_values(layout, seed, device)
+    sd["concept_embeds_weights"] = torch.ones(17)
+    sd["special_care_embeds_weights"] = torch.ones(3)
+    return sd
+
+
+def write_safety_snapshot(path, vcfg, projection_dim: int, state_dict):
+    """A ``CompVis/stable-diffusion-safety-checker``-layout snapshot:
+    ``config.json`` (a ``CLIPConfig`` with its ``vision_config``) and
+    ``pytorch_model.bin``."""
+    import dataclasses
+    import os
+
+    os.makedirs(path, exist_ok=True)
+    _write_json(os.path.join(path, "config.json"), {
+        "model_type": "clip", "projection_dim": projection_dim,
+        "vision_config": dict(dataclasses.asdict(vcfg), model_type=
+                              "clip_vision_model")})
+    torch.save(state_dict, os.path.join(path, "pytorch_model.bin"))
+
+
+
+def split_thresholds(state, embeds):
+    """Seeded thresholds that the first image of ``embeds`` (projected
+    CLIP image embeddings, [2, P]) trips and the second does not: concept
+    0 along embeds[0] - embeds[1] (the first image's cosine with it is
+    the larger one), its threshold halfway between the two cosines; the
+    other concepts and the special-care ones at 1 (never)."""
+    e = torch.as_tensor(embeds[:2], dtype=torch.float64).cpu()
+    d = e[0] - e[1]
+    cos = torch.nn.functional.cosine_similarity(e, d[None], dim=1)
+    if not cos[0] - cos[1] > 0.01:
+        raise AssertionError(f"the two images' cosines {cos.tolist()} are "
+                             f"too close to split")
+    state["concept_embeds"][0] = d.float()
+    state["concept_embeds_weights"][:] = 1.0
+    state["concept_embeds_weights"][0] = float(cos.mean())
+    state["special_care_embeds_weights"][:] = 1.0
+    return cos.tolist()
+
+
+def row_label(i: int) -> str:
+    """The label of kernel row ``i``: a-z, then aa, ab, ..."""
+    return chr(ord("a") + i) if i < 26 else "a" + chr(ord("a") + i - 26)
+
+
+def trace_stats(fn, iters: int = 10):
+    """(busy ms, kernel launches) per call of ``fn`` in a torch.profiler
+    trace of ``iters`` calls (the device's activity only); (None, None)
+    when the trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and _dev_time(e) > 0]
+    if not kernels:
+        return None, None
+    return (sum(_dev_time(e) for e in kernels) / 1e3 / iters,
+            sum(e.count for e in kernels) / iters)
+
+
+def forward_row(flash, name, model, args, mode, calls):
+    """:func:`forward_stats` plus the trace's busy time (the sum of its
+    kernels' times), kernel launches and idle share (1 - busy / median,
+    floored at 0) of one forward."""
+    res = forward_stats(flash, name, model, args, mode, calls)
+    fwd = model.sparse if mode == "sparse" else model.full
+    busy, kernels = trace_stats(lambda: fwd(*args))
+    if busy is None:
+        res.update(busy_ms=None, kernel_launches=None, idle_share=None)
+        print(f"  [{name}] {mode}: the trace held no device activity: busy "
+              f"time, launches and idle share not measured", flush=True)
+        return res
+    res.update(busy_ms=busy, kernel_launches=kernels,
+               idle_share=max(0.0, 1.0 - busy / res["latency_ms"]))
+    print(f"  [{name}] {mode}: busy {busy:.3f} ms, {kernels:.0f} kernel "
+          f"launches, idle share {res['idle_share']:.3f}", flush=True)
+    return res
+
+
+def _close_to(name, got, ref):
+    """max |got - ref| within 1e-4 * max(1, max |ref|) (ref in float64)."""
+    ref = ref.double().cpu()
+    err = (got.double().cpu() - ref).abs().max().item()
+    scale = max(1.0, ref.abs().max().item())
+    print(f"  [{name}] card vs CPU float64: max err {err:.3e}, tolerance "
+          f"1e-4 * max(1, {scale:.3f}) = {TOL * scale:.3e}", flush=True)
+    if not err <= TOL * scale:
+        raise AssertionError(f"{name}: card vs CPU float64 max err {err}")
+    return {"max_err": err, "scale": scale}
+
+
+SD_PROMPT = "a stone church on a hill at dusk, 2 towers, oil painting"
+
+
+def text_encoders(tmp, hub, init, edited):
+    """(a) and (b) of phase 14: synthetic CLIP text and safety-checker
+    snapshots at the published widths, the card's encoders against the
+    port's CPU float64 run, their forward times; returns (record, the
+    card's (uc, c), the safety snapshot's directory)."""
+    import os
+
+    from sige_torch.models.sd.clip import SD_V1_TEXT, FrozenCLIPEmbedder
+    from sige_torch.models.sd.safety import (VIT_L14, SafetyChecker,
+                                             preprocess_images)
+
+    rec, secs = {}, _Seconds()
+    clip_dir = os.path.join(hub, "models--openai--clip-vit-large-patch14",
+                            "snapshots", "synthetic")
+    secs("clip snapshot (49 408 tokens, 123 M weights) written",
+         lambda: write_clip_snapshot(clip_dir, SD_V1_TEXT, clip_text_state(
+             SD_V1_TEXT, 7), seed=7))
+    emb = secs("FrozenCLIPEmbedder on the card (from the hub cache)",
+               lambda: FrozenCLIPEmbedder(device="cuda"))
+    emb64 = FrozenCLIPEmbedder(device="cpu", dtype=torch.float64)
+    prompts = ["", SD_PROMPT]
+    pair = emb(prompts)
+    rec["clip"] = _close_to("clip text last_hidden_state", pair,
+                            emb64(prompts))
+    ids = torch.as_tensor(emb.tokenizer(prompts)["input_ids"], device="cuda")
+    with torch.inference_mode(), fp32_scope():
+        fwd_ms, _ = events_ms(lambda: emb.model(input_ids=ids), 20)
+    call_ms, _ = events_ms(lambda: emb(prompts), 20)
+    rec["clip"].update(params_m=sum(p.numel() for p in emb.model.parameters())
+                       / 1e6, forward_ms=fwd_ms, encode_prompts_ms=call_ms,
+                       tokens=int((ids[1] != emb.tokenizer.pad_token_id)
+                                  .sum()) + 1)
+    print(f"  [clip] {rec['clip']['params_m']:.1f} M, forward at batch 2: "
+          f"{fwd_ms:.3f} ms (events, median of 20); encode_prompts(['', p]) "
+          f"with tokenization {call_ms:.3f} ms; the prompt is "
+          f"{rec['clip']['tokens']} tokens", flush=True)
+
+    # the safety checker: ViT-L/14 at 224, a 768 projection, 17 concept and
+    # 3 special-care embeddings; thresholds split a smooth image (trips)
+    # from the noisy init image (does not), so the command line's samples,
+    # edits of that image, are likely to pass and the PNGs it writes to
+    # hold the image
+    state = secs("safety checker weights (303 M) drawn",
+                 lambda: safety_state(VIT_L14, 768, 9))
+    yy, xx = np.mgrid[0:512, 0:512] / 511.0
+    smooth = np.stack([yy, xx, 0.5 * (yy + xx)], -1).astype(np.float32)
+    images = np.stack([smooth, (init + 1) / 2]).astype(np.float32)
+    trunk = vision_trunk(state).cuda()
+    with torch.inference_mode(), fp32_scope():
+        pv = preprocess_images(images, device="cuda").permute(0, 3, 1, 2)
+        embeds = trunk(pv).pooler_output @ \
+            state["visual_projection.weight"].cuda().T
+    rec["safety_cosines"] = split_thresholds(state, embeds)
+    del trunk
+    safety_dir = os.path.join(tmp, "safety-checker")
+    secs("safety snapshot written", lambda: write_safety_snapshot(
+        safety_dir, VIT_L14, 768, state))
+    del state
+    checker = secs("SafetyChecker.from_pretrained onto the card",
+                   lambda: SafetyChecker.from_pretrained(safety_dir,
+                                                         device="cuda"))
+    checker64 = SafetyChecker.from_pretrained(safety_dir, device="cpu",
+                                              dtype=torch.float64)
+    with torch.inference_mode(), fp32_scope():
+        pooled = checker.vision_fn(preprocess_images(images, device="cuda"))
+        pooled64 = checker64.vision_fn(preprocess_images(images,
+                                                         device="cpu"))
+    rec["safety"] = _close_to("safety pooled features", pooled, pooled64)
+    _, verdict = checker(images)
+    _, verdict64 = checker64(images)
+    print(f"  [safety] verdicts (smooth image, init image): card {verdict}, "
+          f"CPU float64 {verdict64}; cosines with concept 0 "
+          f"{rec['safety_cosines']}", flush=True)
+    if verdict != [True, False] or verdict64 != verdict:
+        raise AssertionError(f"safety verdicts {verdict} / {verdict64}, "
+                             f"expected [True, False]")
+    one = images[1:]
+    with torch.inference_mode(), fp32_scope():
+        pv = preprocess_images(one, device="cuda")
+        vis_ms, _ = events_ms(lambda: checker.vision_fn(pv), 20)
+    check_ms, _ = events_ms(lambda: checker(one), 20)
+    rec["safety"].update(
+        params_m=sum(p.numel() for p in checker.vision.parameters()) / 1e6,
+        vision_forward_ms=vis_ms, check_ms=check_ms, verdicts=verdict)
+    print(f"  [safety] {rec['safety']['params_m']:.1f} M, vision forward at "
+          f"batch 1: {vis_ms:.3f} ms (events, median of 20); the whole "
+          f"check of one 512^2 sample with preprocessing {check_ms:.3f} ms",
+          flush=True)
+    rec["seconds"] = dict(secs)
+    uc, c = pair[:1].cpu().numpy(), pair[1:].cpu().numpy()
+    del emb, emb64, checker, checker64
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, (uc, c), safety_dir
+
+
+def vision_trunk(state, cfg=None):
+    """The port's CLIP vision trunk with the weights of a
+    :func:`safety_state` (``cfg`` defaults to ViT-L/14)."""
+    from sige_torch.models.sd.safety import VIT_L14, CLIPVisionModel
+
+    trunk = CLIPVisionModel(cfg or VIT_L14)
+    trunk.load_state_dict({k[len("vision_model."):]: v
+                           for k, v in state.items()
+                           if k.startswith("vision_model.")}, strict=True)
+    return trunk.eval()
+
+
+def kv_cache_unet(flash, runner, args, masks, seen, first_row):
+    """(d) of phase 14: the SD U-Net with ``kv_cache_min_tokens=1024``
+    (the 64^2 and 32^2 levels take the K/V caches) beside the default
+    window chain, on the CLI run's plan; returns (record, kernel rows at
+    the new flash shapes)."""
+    import dataclasses
+
+    from sige_torch.models.sd import SIGESDUNet
+    from sige_torch.nn import SIGEModel
+
+    cfg = dataclasses.replace(runner.unet_cfg, kv_cache_min_tokens=1024)
+    kv = SIGEModel(SIGESDUNet(cfg), layout="window", device="cuda")
+    kv.module.load_state_dict(runner.unet.module.state_dict())
+    a0, a1 = args
+    full = kv.full(*a0)
+    kv.set_masks(masks)
+    base_full = runner.unet.full(*a0)
+    runner.unet.set_masks(masks)
+    exact = _exact_scaled("sd unet kv", kv, a0, a1, full)
+    same = (full - base_full).abs().max().item()
+    print(f"  [sd unet kv] full forward against the default's: max err "
+          f"{same:.3e}", flush=True)
+    latent = a0[0].shape[1]
+    rec = {"exact": exact, "full_vs_default": same}
+    for name, model in (("default", runner.unet), ("kv", kv)):
+        rec[name] = {mode: forward_row(
+            flash, f"sd unet {name}", model, a0 if mode == "full" else a1,
+            mode, sd_unet_calls(model, latent, mode))
+            for mode in ("full", "sparse")}
+    recorded = record_flash_calls({"unet kv": (kv, args)})
+    rows = []
+    with fp32_scope():
+        for key, (where, bias) in recorded.items():
+            if key in seen:
+                continue
+            B, N, M, H, D, masked = key
+            label = (f"{row_label(first_row + len(rows))}: SD {where} "
+                     f"{'K/V-cached self' if M > 77 else 'cross'}-attention "
+                     f"(B {B}, N {N}, M {M}, H {H}, D {D})")
+            rows.append(kernel_row(flash, label, B, N, M, H, D, bias))
+    del kv
+    torch.cuda.empty_cache()
+    return rec, rows
+
+
+def _exact_scaled(name, model, a0, a1, full):
+    """sparse(x0) = full(x0) within 1e-4 * max(1, max|full|), also after a
+    sparse(x1)."""
+    errs = [(model.sparse(*a0) - full).abs().max().item()]
+    edited = model.sparse(*a1)
+    errs.append((model.sparse(*a0) - full).abs().max().item())
+    scale = max(1.0, full.abs().max().item())
+    moved = (edited - full).abs().max().item()
+    print(f"  [{name}] sparse(x0) vs full(x0): max err {errs[0]:.3e}; after "
+          f"a sparse(x1) (which moved the output by {moved:.3e}): "
+          f"{errs[1]:.3e}; tolerance {TOL * scale:.3e}", flush=True)
+    if not all(e <= TOL * scale for e in errs):
+        raise AssertionError(f"{name}: sparse(x0) != full(x0): {errs}")
+    return {"max_err": errs[0], "max_err_after_edit": errs[1],
+            "scale": scale}
+
+
+def tile_chain_decoder(flash, runner, args, dec_masks):
+    """(e) of phase 14: the decoder at 512^2 in the tile layout with and
+    without ``tile_chain``, beside the runner's window layout, on the CLI
+    run's plan."""
+    import dataclasses
+
+    from sige_torch.models.sd import SIGEDecoder
+    from sige_torch.nn import SIGEModel
+
+    a0, a1 = args
+    rec, outs = {}, {}
+    for chain in (True, False):
+        name = f"sd decoder tiles chain{int(chain)}"
+        cfg = dataclasses.replace(runner.vae_cfg, tile_chain=chain)
+        model = SIGEModel(SIGEDecoder(cfg), layout="tiles", device="cuda")
+        model.module.load_state_dict(runner.decoder.module.state_dict())
+        full = model.full(*a0)
+        model.set_masks(dec_masks)
+        rec[name] = {"exact": _exact_scaled(name, model, a0, a1, full)}
+        outs[chain] = model.sparse(*a1)
+        rec[name]["sparse"] = forward_row(
+            flash, name, model, a1, "sparse", sd_vae_calls(model, "sparse"))
+        del model
+        torch.cuda.empty_cache()
+    err = (outs[True] - outs[False]).abs().max().item()
+    scale = max(1.0, outs[False].abs().max().item())
+    print(f"  [sd decoder tiles] chained vs unchained on one edit and plan: "
+          f"max err {err:.3e}, tolerance {TOL * scale:.3e}", flush=True)
+    if not err <= TOL * scale:
+        raise AssertionError(f"tile chain: chained != unchained ({err})")
+    rec["chained_vs_unchained"] = {"max_err": err, "scale": scale}
+    runner.decoder.full(*a0)
+    runner.decoder.set_masks(dec_masks)
+    rec["sd decoder window"] = {"sparse": forward_row(
+        flash, "sd decoder window", runner.decoder, a1, "sparse",
+        sd_vae_calls(runner.decoder, "sparse"))}
+    return rec
+
+
+def phase_sd_text(flash, tmp, seen, first_row):
+    """Phase 14: SD from a text prompt and the SD models' last options, at
+    full width, over phase 13's SD reference checkpoint in ``tmp``;
+    ``seen``: the flash call keys earlier phases held against the plain
+    version; new kernel rows are labelled from ``first_row`` on. Returns
+    (record, new kernel rows)."""
+    import os
+
+    from sige_torch.cli import sd as sd_cli
+
+    torch.cuda.reset_peak_memory_stats()
+    pth = os.path.join(tmp, "sd-v1.ckpt")
+    hub = os.path.join(tmp, "hub")
+    saved_env = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = hub
+    try:
+        init, edited, _ = sd_cli.synthetic_inputs(512, 512, 0)
+        rec, (uc, c), safety_dir = text_encoders(tmp, hub, init, edited)
+        peaks = [torch.cuda.max_memory_allocated() / 2**20]
+        emb = os.path.join(tmp, "prompt-embeddings.npz")
+        np.savez(emb, uc=uc, c=c)
+        t_enc = int(SD_STRENGTH * SD_STEPS)
+        cli, runner = {}, None
+        for name, extra in (("prompt", ["--prompt", SD_PROMPT]),
+                            ("embeddings", ["--embeddings", emb])):
+            if runner is not None:
+                del runner
+                gc.collect()
+                torch.cuda.empty_cache()
+            flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+            runner, out, secs = _run_cli(sd_cli.main, [
+                "--task", "sdedit", "--synthetic", *extra, "--safety_model",
+                safety_dir, "--restore_from", pth, "--ddim_steps",
+                str(SD_STEPS), "--strength", str(SD_STRENGTH), "--scale",
+                str(SD_GUIDANCE), "--save_dir", os.path.join(tmp, name),
+                "--device", "cuda"])
+            got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+            want = expected_counts(flash, sdedit_calls(sd_model_calls(runner),
+                                                       t_enc))
+            flagged = "NSFW concept detected" in out
+            print(f"  [cli.sd --{name}] {secs:.3f} s; flash launches "
+                  f"{got[0]} + {got[1]} (expected {want[0]} + {want[1]}); "
+                  f"safety verdict: "
+                  f"{'flagged, blacked out' if flagged else 'clean'}",
+                  flush=True)
+            if got != want:
+                raise AssertionError(f"cli.sd --{name}: launches {got}, "
+                                     f"expected {want}")
+            _expect_lines(f"cli.sd --{name}", out, r"^saved .*sdedit\.png$")
+            if "WARNING: no --safety_model" in out:
+                raise AssertionError("cli.sd skipped the safety check")
+            cli[name] = {"s": secs, "launches": got, "nsfw": flagged}
+            peaks.append(torch.cuda.max_memory_allocated() / 2**20)
+        pngs = [open(os.path.join(tmp, n, "sdedit.png"), "rb").read()
+                for n in ("prompt", "embeddings")]
+        if pngs[0] != pngs[1]:
+            raise AssertionError("cli.sd: --prompt and --embeddings wrote "
+                                 "different PNGs")
+        print(f"  [cli.sd] --prompt and --embeddings PNGs identical "
+              f"({len(pngs[0])} bytes)", flush=True)
+        rec["cli"] = cli
+        os.remove(pth)
+
+        # (d) and (e) on the last CLI run's models and plans
+        masks, dec_masks = runner.edit_masks(init, edited)
+        x0, x1 = runner._image(init), runner._image(edited)
+        z0, z1 = runner.encode(x0), runner.encode(x1, mode="sparse")
+        t = torch.full((2,), 501.0, device="cuda")
+        ctx = torch.cat([runner._tensor(uc), runner._tensor(c)])
+        unet_args = ((torch.cat([z0, z0]), t, ctx),
+                     (torch.cat([z1, z1]), t, ctx))
+        rec["kv_cache"], rows = kv_cache_unet(flash, runner, unet_args, masks,
+                                              seen, first_row)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**20)
+        dec_args = ((runner._pre_decode(z0),), (runner._pre_decode(z1),))
+        rec["tile_chain"] = tile_chain_decoder(flash, runner, dec_args,
+                                               dec_masks)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**20)
+    finally:
+        if saved_env is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = saved_env
+    rec["peak_mb"] = max(peaks + [
+        r[m]["peak_mb"] for r in (rec["kv_cache"]["default"],
+                                  rec["kv_cache"]["kv"])
+        for m in ("full", "sparse")])
+    print(f"  [sd text] peak device memory in phase 14: "
+          f"{rec['peak_mb']:.0f} MB", flush=True)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, rows
 
 
 def main() -> int:
@@ -2280,9 +2842,18 @@ def main() -> int:
     print("demo (church256 at full width: per-step cache slots, sessions, "
           "the HTTP server):", flush=True)
     demo = phase_demo(flash)
-    print("checkpoints and command lines (reference layouts at full width, "
-          "cli.diffusion, cli.gaugan, cli.sd):", flush=True)
-    ckpt = phase_checkpoints(flash)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="sige-ckpt-") as tmp:
+        print("checkpoints and command lines (reference layouts at full "
+              "width, cli.diffusion, cli.gaugan, cli.sd):", flush=True)
+        ckpt = phase_checkpoints(flash, tmp)
+        print("sd text path and options (CLIP and the safety checker at "
+              "their published widths, cli.sd --prompt --safety_model, the "
+              "U-Net's K/V caches, the decoder's tile chain):", flush=True)
+        sd_text, text_rows = phase_sd_text(
+            flash, tmp, set(recorded) | set(pd_recorded), len(rows))
+    rows += text_rows
     if precision_flags() != defaults:
         raise AssertionError(f"precision flags {precision_flags()} after the "
                              f"run, {defaults} before it")
@@ -2306,7 +2877,10 @@ def main() -> int:
                for r in demo[s]["requests"]},
             cli_ddpm_generate=ckpt["ddpm"]["flash_counts"]["generate_pth"][0],
             cli_pd_generate=ckpt["pd"]["flash_counts"][0],
-            cli_sd_sdedit=ckpt["sd"]["flash_counts"][0]),
+            cli_sd_sdedit=ckpt["sd"]["flash_counts"][0],
+            cli_sd_prompt=sd_text["cli"]["prompt"]["launches"][0],
+            sd_unet_kv_sparse=sd_text["kv_cache"]["kv"]["sparse"][
+                "launches"]),
         "combine_launches_by_path": dict(
             {n: p["combine_launches"] for n, p in paths.items()},
             sd_sdedit=sd["combine_launches"],
@@ -2334,7 +2908,7 @@ def main() -> int:
     }]
     print(json.dumps({"paths": paths, "retime": retime, "sd": sd, "pd": pd,
                       "gaugan": gaugan, "demo": demo, "checkpoints": ckpt,
-                      "card": card}),
+                      "sd_text": sd_text, "card": card}),
           flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -5,11 +5,18 @@ port of ``sige_tpu.cli.sd``.
       --embeddings emb.npz --restore_from sd-v1-4.ckpt
   python -m sige_torch.cli.sd --task inpainting --init_img a.png --mask_path m.npy \
       --embeddings emb.npz
+  HF_HUB_CACHE=/data/hub python -m sige_torch.cli.sd --task sdedit --synthetic \
+      --prompt "a church at dusk" --safety_model /data/safety-checker
 
 Text conditioning comes from ``--embeddings`` (an .npz with ``uc`` and
-``c``, [1, 77, 768]); ``--prompt`` without it needs the CLIP text encoder
-and ``--safety_model`` the safety checker, which are not ported yet: both
-raise. It runs on the GPU unless ``--device cpu`` is given.
+``c``, [1, 77, 768]) or from ``--prompt``: ``encode_prompts(["",
+prompt])`` through the port's CLIP text encoder, from a local
+``openai/clip-vit-large-patch14`` snapshot in the hub cache
+(``HF_HUB_CACHE``, ``$HF_HOME/hub`` or ``~/.cache/huggingface/hub``;
+nothing is downloaded). ``--safety_model`` screens the sample through a
+local ``CompVis/stable-diffusion-safety-checker`` snapshot before the
+watermark, as the reference screens every saved sample. It runs on the
+GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ def get_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--safety_model", type=str, default=None,
                    help="local CompVis/stable-diffusion-safety-checker "
-                        "snapshot (not ported yet: raises)")
+                        "snapshot; flagged outputs are blacked out "
+                        "(reference: stable-diffusion/utils.py:94-100)")
     p.add_argument("--no_watermark", action="store_true",
                    help="skip the invisible watermark (reference stamps "
                         "'StableDiffusionV1'; base_runner.py:63-65,93)")
@@ -132,12 +140,6 @@ def main(argv=None):
     """Run the CLI on ``argv`` (default: the command line); returns the
     runner."""
     args = get_args(argv)
-    from ..nn.engine import _later
-
-    if args.prompt and not args.embeddings:
-        raise _later("--prompt without --embeddings (the CLIP text encoder)")
-    if args.safety_model:
-        raise _later("--safety_model (the safety checker)")
     from ..data import load_image, save_image
 
     runner = build_runner(args)
@@ -155,6 +157,11 @@ def main(argv=None):
     if args.embeddings:
         z = np.load(args.embeddings)
         uc, c = z["uc"], z["c"]
+    elif args.prompt:
+        from ..models.sd.clip import encode_prompts
+
+        emb = encode_prompts(["", args.prompt], device=runner.device)
+        uc, c = emb[:1], emb[1:]
 
     if args.synthetic:
         init, edited, mask = synthetic_inputs(args.H, args.W, args.seed)
@@ -173,13 +180,23 @@ def main(argv=None):
             raise SystemExit("sdedit needs --edited_img")
         out = runner.sdedit(init, edited, uc=uc, c=c, seed=args.seed)
 
-    # save path mirrors the reference: clamp -> (safety check) -> uint8 ->
+    # save path mirrors the reference: clamp -> safety check -> uint8 ->
     # invisible watermark -> write (base_runner.py:83-96)
     sample = np.clip((out + 1.0) / 2.0, 0.0, 1.0)
-    # parity gap with the reference, which screens every saved sample
-    # (base_runner.py:83-92): surfaced so the skip is visible
-    print("WARNING: no --safety_model given; the NSFW safety check "
-          "was SKIPPED (the reference always screens outputs)")
+    if args.safety_model:
+        from ..models.sd.safety import SafetyChecker
+
+        checker = SafetyChecker.from_pretrained(args.safety_model,
+                                                device=runner.device)
+        checked, has_nsfw = checker(sample[None])
+        sample = checked[0]
+        if has_nsfw[0]:
+            print("NSFW concept detected; output blacked out")
+    else:
+        # parity gap with the reference, which screens every saved sample
+        # (base_runner.py:83-92): surfaced so the skip is visible
+        print("WARNING: no --safety_model given; the NSFW safety check "
+              "was SKIPPED (the reference always screens outputs)")
     if not args.no_watermark:
         from ..utils.watermark import WatermarkEncoder, put_watermark
 

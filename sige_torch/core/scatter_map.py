@@ -166,3 +166,17 @@ def bbox_of_map(m: np.ndarray, mult: int = 32, size=None):
     c0, bw = fit(c_lo, c_hi, W, size[1] if size is not None else None)
     origin = np.array([r0, c0], np.int32)
     return origin, np.ascontiguousarray(m[r0:r0 + bh, c0:c0 + bw])
+
+
+def gather_position_geom(geom: BlockGeometry) -> BlockGeometry:
+    """Pseudo-geometry whose conv-output tiles ARE the gather blocks:
+    origins = raw indices, extent = block size. Fed to
+    :func:`build_src_map` it gives the pixel -> gather-position map that
+    materializes a tile-resident chain."""
+    return BlockGeometry(
+        block_size=geom.block_size,
+        block_stride=geom.block_stride,
+        offset=(0, 0),
+        kernel_size=(1, 1),
+        conv_stride=(1, 1),
+    )

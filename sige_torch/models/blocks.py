@@ -19,7 +19,7 @@ from torch import nn
 
 from ..nn.module import (Gather, Scatter, ScatterGather,
                          ScatterWithBlockResidual, SIGECtx, SIGEConv2d,
-                         SIGEModule, WindowState, chain_rel)
+                         SIGEModule, TileState, WindowState, chain_rel)
 from ..nn.norm import group_norm_with_affine
 from ..ops.window import (window_chain_extend, window_chain_extend_up2,
                           window_epilogue, window_gather, window_slice)
@@ -28,8 +28,8 @@ RESAMPLES = (None, "down", "up")
 
 
 def to_map(x):
-    """Materialize a chain state at a chain break."""
-    return x.to_map() if isinstance(x, WindowState) else x
+    """Materialize a chain state (window or tile) at a chain break."""
+    return x.to_map() if isinstance(x, (WindowState, TileState)) else x
 
 
 def up2(x):

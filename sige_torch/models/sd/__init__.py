@@ -1,5 +1,9 @@
-"""Stable Diffusion with SIGE wiring: the U-Net and the VAE."""
+"""Stable Diffusion with SIGE wiring: the U-Net and the VAE; the CLIP
+text encoder with its tokenizer, and the safety checker."""
 
+from .clip import FrozenCLIPEmbedder, encode_prompts
+from .safety import SafetyChecker
+from .tokenizer import CLIPTokenizer
 from .unet import (SDUNetConfig, SIGECrossAttention, SIGESDDownsample,
                    SIGESDResBlock, SIGESDUNet, SIGESDUpsample,
                    SIGESpatialTransformer, sd_timestep_embedding)
@@ -10,4 +14,6 @@ __all__ = ["SDUNetConfig", "SIGESDUNet", "SIGESDResBlock",
            "SIGECrossAttention", "SIGESpatialTransformer",
            "SIGESDDownsample", "SIGESDUpsample", "sd_timestep_embedding",
            "SDVAEConfig", "SIGEEncoder", "SIGEDecoder", "SIGEVAEResnetBlock",
-           "SIGEVAEAttnBlock", "SIGEVAEDownsample", "SIGEVAEUpsample"]
+           "SIGEVAEAttnBlock", "SIGEVAEDownsample", "SIGEVAEUpsample",
+           "FrozenCLIPEmbedder", "encode_prompts", "CLIPTokenizer",
+           "SafetyChecker"]

@@ -26,10 +26,20 @@ over [stale full map ++ fresh window] with additive -1e9 biases that keep
 exactly one token per spatial position (stale where unedited, fresh where
 edited) — the token set of the scatter-updated map, without building it.
 
+K/V-cached transformers (``kv_cache_min_tokens``, off by default): at a
+level whose map has at least that many tokens, the full pass caches each
+block's projected K/V token maps through a pair of scatters, and a sparse
+pass projects only the edited tokens and scatters them over those caches
+(exact: LayerNorm and the projections are per-token), in place of
+scattering the features once and reprojecting the whole map. For depth
+> 1 the deeper blocks' K/V of unedited tokens are the full pass's, as in
+``sige_tpu`` (the reference's stale full map makes the same
+approximation). Such a level writes no ``k1_*`` caches, so in the window
+layout it takes the non-chain path.
+
 Module names follow ``sige_tpu``'s flax names (``in_blocks_1_1`` there is
 ``in_blocks.1.1`` here), so the weight bridge and the plan trees map one
-to one. One cache per module; ``cache_slots > 1`` and the K/V-scatter
-branch (``kv_cache_min_tokens``) raise.
+to one. One cache per module; ``cache_slots > 1`` raises.
 """
 
 from __future__ import annotations
@@ -42,7 +52,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn.engine import _later
 from ...nn.module import (Gather, Scatter, SIGECtx, SIGEConv2d, SIGEModule,
                           WindowState, add_dense_macs, add_macs)
 from ...nn.norm import group_norm_with_affine
@@ -74,8 +83,8 @@ class SDUNetConfig:
     #: sparse, the reference's wiring)
     sparse_resolution_threshold: int = 0
     #: token count at/above which the transformer's self-attention K/V
-    #: would come from a scatter-updated cache (off by default; not
-    #: ported: a value that takes that branch raises)
+    #: come from scatter-updated caches instead of reprojecting the full
+    #: map each sparse call (off by default)
     kv_cache_min_tokens: int = 1 << 30
     #: window-layout chains through resblocks, skip concatenations,
     #: resamples and transformers (masked stale-K/V attention)
@@ -277,8 +286,14 @@ class SIGESpatialTransformer(SIGEModule):
         if self.sparse_ok:
             self.gather = Gather(block_size=cfg.transformer_block_size,
                                  kernel_size=1, conv_stride=1, conv_padding=0)
+            # per block, the K/V scatters of the K/V-cached levels: the
+            # full pass caches the projected K/V maps, a sparse pass
+            # scatters the edited tokens' projections over them
+            self.kv_scatters = nn.ModuleList([
+                nn.ModuleList([Scatter(self.gather), Scatter(self.gather)])
+                for _ in range(depth)])
             # scatter1: the fresh proj_in tokens over the cached map (the
-            # K/V source); scatter2: the output join
+            # K/V source of the other levels); scatter2: the output join
             self.scatter1 = Scatter(self.gather)
             self.scatter2 = Scatter(self.gather)
 
@@ -290,10 +305,6 @@ class SIGESpatialTransformer(SIGEModule):
         B, H, W, _ = x.shape
         x_in = x
         sparse = ctx.mode == "sparse"
-        if self.sparse_ok and ctx.mode != "dense" \
-                and H * W >= self.cfg.kv_cache_min_tokens:
-            raise _later("kv_cache_min_tokens (the transformer's "
-                         "scatter-updated K/V caches)")
 
         if not sparse:
             h = self.gather(x, ctx) if self.sparse_ok else x
@@ -307,18 +318,31 @@ class SIGESpatialTransformer(SIGEModule):
         # tile layout: [B*K, bs, bs, C]; window: [B, WH, WW, C]
         tok = h.reshape(B, -1, self.inner)
 
+        kv_cached = self.sparse_ok and H * W >= self.cfg.kv_cache_min_tokens
         full_tok = None
-        if self.sparse_ok and ctx.mode != "dense":
+        if self.sparse_ok and not kv_cached and ctx.mode != "dense":
             # one feature scatter; K/V reprojected from the full map
             full_tok = self.scatter1(h, ctx).reshape(B, H * W, self.inner)
 
         for i, block in enumerate(self.blocks):
-            if self.sparse_ok and self.cfg.window_chain and ctx.mode == "full":
+            if (self.sparse_ok and self.cfg.window_chain and not kv_cached
+                    and ctx.mode == "full"):
                 # cache this block's K/V token maps for the chain path's
                 # masked stale-K/V attention (LayerNorm and the
                 # projections are per-token)
                 kv1 = block.attn1.kv(block.norm1(tok), ctx)
                 self.cache[f"k1_{i}"], self.cache[f"v1_{i}"] = kv1
+            elif kv_cached and ctx.mode != "dense":
+                # K/V over the full token map from the K/V caches: the
+                # full pass projects every token and caches the maps, a
+                # sparse pass projects the edited tokens only and scatters
+                # them over the caches
+                kt, vt = block.attn1.kv(block.norm1(tok), ctx)
+                sc_k, sc_v = self.kv_scatters[i]
+                kv1 = tuple(
+                    sc(t.reshape(*h_shape[:-1], self.inner), ctx).reshape(
+                        B, H * W, self.inner)
+                    for sc, t in ((sc_k, kt), (sc_v, vt)))
             elif full_tok is not None and sparse:
                 kv1 = block.attn1.kv(block.norm1(full_tok), ctx)
             else:

@@ -12,7 +12,12 @@ masked stale-K/V form of the SD U-Net's transformers: Q/K/V project only
 the carried window and attend over [cached K/V maps ++ fresh window].
 SD v1's VAE has no other attention (``attn_resolutions = ()``).
 
-The opt-in tile-resident chain (``tile_chain``) is not ported and raises.
+The opt-in tile-resident chain (``tile_chain``, tile layout): resblocks
+with an identity shortcut hand on a :class:`~sige_torch.nn.module.TileState`
+(their output at the shared gather positions) instead of a full map, so
+consecutive such blocks never materialize the map between them; the
+first consumer that needs the map (a resample, the attention, a block
+whose channels change, the tail) materializes it.
 """
 
 from __future__ import annotations
@@ -23,10 +28,10 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ...nn.engine import _later
 from ...nn.module import (Gather, Scatter, SIGECtx, SIGEConv2d, SIGEModule,
-                          WindowState, add_macs, chain_rel)
+                          TileState, WindowState, add_macs, chain_rel)
 from ...nn.norm import group_norm_with_affine
+from ...ops import gather_tiles, scatter_gather_residual_tiles
 from ...ops.attention import masked_mha, mha, stale_fresh_biases
 from ...ops.window import window_chain_extend, window_slice
 from ..blocks import (FoldedGroupNorm, FoldedNormAffine, ResBlock,
@@ -51,7 +56,8 @@ class SDVAEConfig:
     main_block_size: Optional[int] = 6
     shortcut_block_size: Optional[int] = 4
     attn_block_size: Optional[int] = 4
-    #: tile-resident resblock chains (not ported: True raises)
+    #: keep identity-shortcut resblock chains tile-resident in sparse
+    #: mode, tile layout (off by default; no reference counterpart)
     tile_chain: bool = False
     #: window-layout chains through resblocks, upsamples and the mid
     #: attention (masked stale-K/V)
@@ -70,9 +76,57 @@ class SIGEVAEResnetBlock(ResBlock):
         super().__init__(in_channels, out_channels, cfg.num_groups,
                          cfg.main_block_size if support_sparse else None,
                          cfg.shortcut_block_size, cfg.window_chain)
+        self.tile_chain = cfg.tile_chain
+
+    @property
+    def _chainable(self) -> bool:
+        """Whether the block joins a tile-resident chain (identity
+        shortcut, sparse main path)."""
+        return (self.tile_chain and self.main_sparse
+                and self.in_channels == self.out_channels)
 
     def forward(self, x, ctx: SIGECtx):
-        return self._run(x, ctx)
+        if (ctx.mode == "sparse" and self._chainable and not ctx.sparse_update
+                and not self.main_gather.planned_window()):
+            return self._chain_sparse(x, ctx)
+        out = self._run(x, ctx)
+        if self._chainable and ctx.mode == "full":
+            # plan products for the tile-resident sparse path
+            self.main_gather.request_sg(out.shape[1:3])
+            self.main_gather.request_pixsrc(out.shape[1:3])
+        return out
+
+    def _chain_sparse(self, x, ctx: SIGECtx) -> TileState:
+        """Tile-resident sparse path: the block's input and output stay at
+        the gather positions (every block of a chain shares its
+        resolution's gather plan), norm1 and swish applied explicitly on
+        the raw tiles, the residual join evaluated there too."""
+        g = self.main_gather
+        geom = g.geom
+        y0 = self.join.cache["original"]
+        res = tuple(y0.shape[1:3])
+        sg_src, sg_flat = g.read_sg(res)
+        pix_box, pix_org = g.read_pixsrc(res)
+        if isinstance(x, TileState):
+            T = x.tiles
+        else:  # raw tiles, without the gather's fused epilogue
+            T = gather_tiles(x, g.plan["indices"], g.plan["count"], geom)
+        B = y0.shape[0]
+        K = T.shape[0] // B
+        bh, bw = geom.block_size
+        ok = (sg_src > -2).reshape(1, K, bh, bw, 1)
+
+        _, s1, b1 = self.norm1(T, ctx)
+        h = swish(T.reshape(B, K, bh, bw, -1) * s1[:, None, None, None, :]
+                  + b1[:, None, None, None, :])
+        zero = torch.zeros((), dtype=h.dtype, device=h.device)
+        h = torch.where(ok, h, zero).reshape(B * K, bh, bw, -1)
+        h = self.conv1(h, ctx)
+        _, s2, b2 = self.norm2(h, ctx)
+        h = self.sg(h, ctx, scale=s2, shift=b2)
+        h = self.conv2(h, ctx)
+        T2 = scatter_gather_residual_tiles(h, y0, T, sg_src, sg_flat, geom)
+        return TileState(T2, y0, pix_box, pix_org, geom)
 
 
 class SIGEVAEAttnBlock(SIGEModule):
@@ -176,18 +230,12 @@ class SIGEVAEUpsample(SIGEUpsample):
                          cfg.main_block_size if support_sparse else None)
 
 
-def _check(cfg: SDVAEConfig) -> None:
-    if cfg.tile_chain:
-        raise _later("tile_chain (the VAE's tile-resident chain)")
-
-
 class SIGEEncoder(SIGEModule):
     """Reference: sige_model.py:175-276. ``forward(x, ctx)``: image
     [B, R, W, in_channels] -> moments [B, R/f, W/f, 2 * z_channels]."""
 
     def __init__(self, cfg: SDVAEConfig = SDVAEConfig()):
         super().__init__()
-        _check(cfg)
         self.cfg = cfg
         nres = len(cfg.ch_mult)
         self._head_sparse = cfg.sige_tail and cfg.main_block_size is not None
@@ -270,7 +318,6 @@ class SIGEDecoder(SIGEModule):
 
     def __init__(self, cfg: SDVAEConfig = SDVAEConfig()):
         super().__init__()
-        _check(cfg)
         self.cfg = cfg
         nres = len(cfg.ch_mult)
         block_in = cfg.ch * cfg.ch_mult[-1]

@@ -40,8 +40,9 @@ import torch
 from torch import nn
 
 from ..core.geometry import BlockGeometry
-from ..ops import (conv2d_nhwc, gather_tiles, scatter_gather_tiles,
-                   scatter_tiles_box, scatter_with_block_residual_box,
+from ..ops import (conv2d_nhwc, gather_tiles, materialize_tiles_box,
+                   scatter_gather_tiles, scatter_tiles_box,
+                   scatter_with_block_residual_box,
                    window_gather, window_scatter,
                    window_scatter_block_residual, window_scatter_gather,
                    window_state_materialize)
@@ -128,6 +129,26 @@ class WindowState:
         return window_state_materialize(self.cache, self.win, self.org)
 
 
+class TileState:
+    """Carried state of a tile-resident chain (the VAE's ``tile_chain``,
+    tile layout): the raw block output evaluated at the shared gather
+    positions ([B * K, bh, bw, C]), plus what a consumer needs to
+    materialize the full map: the join's cache and the bbox-cropped
+    pixel -> gather-position map with its origin (host ints)."""
+
+    def __init__(self, tiles: torch.Tensor, y0: torch.Tensor, pix_box,
+                 pix_org, geom: BlockGeometry):
+        self.tiles = tiles
+        self.y0 = y0
+        self.pix_box = pix_box
+        self.pix_org = pix_org
+        self.geom = geom
+
+    def to_map(self) -> torch.Tensor:
+        return materialize_tiles_box(self.tiles, self.y0, self.pix_box,
+                                     self.pix_org, self.geom)
+
+
 def chain_rel(gather: "Gather"):
     """The carried window's offset inside ``gather``'s extraction window,
     when it does not depend on the plan: for a stride-1 consumer it is the
@@ -205,6 +226,9 @@ class Gather(SIGEModule):
     def request_sg(self, res) -> None:
         self._request("sg_res", res)
 
+    def request_pixsrc(self, res) -> None:
+        self._request("pixsrc_res", res)
+
     def read_src_map(self, res):
         """(box, origin): the bbox-cropped source map on the device and its
         origin as host integers (see planner)."""
@@ -214,6 +238,13 @@ class Gather(SIGEModule):
     def read_sg(self, res):
         key = f"{res[0]}x{res[1]}"
         return self.plan[f"sgsrc_{key}"], self.plan[f"sgflat_{key}"]
+
+    def read_pixsrc(self, res):
+        """(box, origin): the bbox-cropped pixel -> gather-position map of a
+        tile-resident chain on the device and its origin as host integers
+        (see planner)."""
+        key = f"{res[0]}x{res[1]}"
+        return self.plan[f"pixbox_{key}"], self.plan_host[f"pixorg_{key}"]
 
     # --- window layout (ops/window.py; planner layout="window") ----------
     def planned_window(self) -> bool:

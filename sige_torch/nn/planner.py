@@ -26,7 +26,8 @@ import numpy as np
 
 from ..core.geometry import BlockGeometry
 from ..core.masks import reduce_mask_padded
-from ..core.scatter_map import bbox_of_map, build_sg_sources, build_src_map
+from ..core.scatter_map import (bbox_of_map, build_sg_sources,
+                                build_src_map, gather_position_geom)
 
 IntPair = Tuple[int, int]
 
@@ -247,8 +248,10 @@ def build_plan(
       ``indices`` [K, 2] int32, ``count`` int32 scalar, and either the
       tile products — per scatter output resolution a bbox-cropped
       ``srcbox_{h}x{w}`` map and its ``srcorg_{h}x{w}`` origin,
-      ``sgsrc_/sgflat_{h}x{w}`` lookups per fused re-gather resolution —
-      or the window products of :func:`_window_entry`.
+      ``sgsrc_/sgflat_{h}x{w}`` lookups per fused re-gather resolution,
+      ``pixbox_/pixorg_{h}x{w}`` (the bbox-cropped pixel -> gather-position
+      map) per tile-resident chain resolution — or the window products of
+      :func:`_window_entry`.
     """
     if layout not in ("tiles", "window"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -335,6 +338,15 @@ def build_plan(
                     _memo[okey] = build_sg_sources(indices, count, geom, ores)
                 entry[f"sgsrc_{ores[0]}x{ores[1]}"] = _memo[okey][0]
                 entry[f"sgflat_{ores[0]}x{ores[1]}"] = _memo[okey][1]
+            # the pixel -> gather-position map of a tile-resident chain
+            # (the VAE's ``tile_chain``), bbox-cropped like the source maps
+            for ores in _reses("pixsrc_res"):
+                org, box = _pinned_bbox(
+                    ("pixsrc", res, geom, cap, ores), "pixbox", ores,
+                    lambda: build_src_map(
+                        indices, count, gather_position_geom(geom), ores))
+                entry[f"pixbox_{ores[0]}x{ores[1]}"] = box
+                entry[f"pixorg_{ores[0]}x{ores[1]}"] = org
             plan[name] = entry
         elif isinstance(node, Mapping):
             sub = build_plan(node, masks, bucket_min, capacities, layout,
@@ -473,7 +485,7 @@ def plan_pins(plan: Mapping, _path: Tuple = ()) -> Dict[Tuple, object]:
             p = _path + (name,)
             pins[p] = int(np.asarray(sub["indices"]).shape[0])
             for k, v in sub.items():
-                if k.startswith("srcbox_"):
+                if k.startswith(("srcbox_", "pixbox_")):
                     pins[p + (k,)] = tuple(np.asarray(v).shape)
         elif isinstance(sub, Mapping):
             pins.update(plan_pins(sub, _path + (name,)))

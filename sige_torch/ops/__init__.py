@@ -14,6 +14,8 @@ from .gather import apply_epilogue, gather_tiles
 from .scatter import (
     calibrate_residual,
     materialize_tiles,
+    materialize_tiles_box,
+    scatter_gather_residual_tiles,
     scatter_gather_tiles,
     scatter_tiles,
     scatter_tiles_box,
@@ -45,6 +47,8 @@ __all__ = [
     "scatter_gather_tiles",
     "scatter_with_block_residual_box",
     "materialize_tiles",
+    "materialize_tiles_box",
+    "scatter_gather_residual_tiles",
     "calibrate_residual",
     "window_gather",
     "window_epilogue",

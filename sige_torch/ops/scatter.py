@@ -27,7 +27,11 @@ Ops:
   * :func:`scatter_gather_tiles` — fused scatter->re-gather between the
     two convs of a resblock, never materializing the full map
     (reference: sige/cpu/scatter_gather.cpp:5-57).
-  * :func:`materialize_tiles` — a tile-resident state back to a full map.
+  * :func:`scatter_gather_residual_tiles` — a resblock's residual join
+    evaluated at the gather positions, the step of a tile-resident chain
+    (the VAE's ``tile_chain``).
+  * :func:`materialize_tiles` / :func:`materialize_tiles_box` — a
+    tile-resident state back to a full map.
 """
 
 from __future__ import annotations
@@ -264,3 +268,83 @@ def materialize_tiles(
     fresh = _take(tile_state.reshape(B, K * bh * bw, C), src,
                   cache.device).reshape(B, H, W, C)
     return torch.where((src >= 0)[None, :, :, None], fresh, cache)
+
+
+def materialize_tiles_box(
+    tile_state: torch.Tensor,
+    cache: torch.Tensor,
+    pix_box,
+    origin,
+    geom: BlockGeometry,
+) -> torch.Tensor:
+    """Bounding-box form of :func:`materialize_tiles`: ``pix_box`` [BH, BW]
+    is the pixel -> gather-position map cropped to its covered bbox at
+    ``origin`` (host ints), so the cost is the bbox plus one copy of the
+    cache."""
+    B, H, W, C = cache.shape
+    bh, bw = geom.block_size
+    K = tile_state.shape[0] // B
+    box = _long(pix_box, cache.device)
+    BH, BW = box.shape
+    r0, c0 = clamp_origin(origin, (BH, BW), (H, W))
+    fresh = _take(tile_state.reshape(B, K * bh * bw, C), box,
+                  cache.device).reshape(B, BH, BW, C)
+    out = cache.clone()
+    out[:, r0:r0 + BH, c0:c0 + BW] = torch.where(
+        (box >= 0)[None, :, :, None], fresh, cache[:, r0:r0 + BH, c0:c0 + BW])
+    return out
+
+
+def scatter_gather_residual_tiles(
+    tiles: torch.Tensor,
+    cache: torch.Tensor,
+    res_tiles: torch.Tensor,
+    sg_src,
+    sg_flat,
+    geom: BlockGeometry,
+    scale: Optional[torch.Tensor] = None,
+    shift: Optional[torch.Tensor] = None,
+    activation: str = "identity",
+    activation_first: bool = False,
+) -> torch.Tensor:
+    """A resblock's residual join evaluated at the gather positions (the
+    step of a tile-resident chain): for each gather-position pixel
+
+        z = covered ? conv2_tile_px + residual_tile_px : cached_px
+
+    then the epilogue (per-channel ``scale`` / ``shift`` [B, C] and the
+    activation); out-of-bounds pixels are exact zero. The residual arrives
+    as tiles at the same gather positions (the chain's carried state), so
+    the full map never materializes.
+
+    Args:
+      tiles: [B * K, R, S, C] conv2-output tile batch.
+      cache: [B, H, W, C] the join's cached full-mode output.
+      res_tiles: [B * K, bh, bw, C] the residual at the gather positions.
+      sg_src / sg_flat: [K * bh * bw] host-planned lookups
+        (:func:`~sige_torch.core.scatter_map.build_sg_sources`).
+
+    Returns: [B * K, bh, bw, C], the block's output at the gather
+    positions.
+    """
+    B, H, W, C = cache.shape
+    R, S = geom.out_tile_size
+    bh, bw = geom.block_size
+    K = tiles.shape[0] // B
+    dev = cache.device
+    src = _long(sg_src, dev)
+    flat = _long(sg_flat, dev)
+
+    fresh = _take(tiles.reshape(B, K * R * S, C), src, dev) + \
+        res_tiles.reshape(B, K * bh * bw, C)
+    cached = cache.reshape(B, H * W, C).index_select(1, flat)
+    z = torch.where((src >= 0)[None, :, None], fresh, cached)
+
+    def per_channel(p):
+        p = broadcast_param(p)
+        return None if p is None else p.reshape(p.shape[0], 1, p.shape[3])
+
+    z = apply_epilogue(z, per_channel(scale), per_channel(shift), activation,
+                       activation_first)
+    z = torch.where((src >= -1)[None, :, None], z, _zero(z))
+    return z.reshape(B * K, bh, bw, C)

@@ -184,6 +184,21 @@ class SDRunner:
         return out[0].cpu().numpy()
 
     # ------------------------------------------------------------------
+    def edit_masks(self, init_img, edited_img):
+        """The mask pyramids of an SDEdit pair (images [R, W, 3] in
+        [-1, 1]): the encoder's and U-Net's (the difference mask dilated
+        by ``mask_dilate_radius``), and the decoder's (that mask
+        re-dilated by ``decoder_dilate_radius`` at image resolution, its
+        pyramid down to 4 without further dilation)."""
+        rc = self.run_cfg
+        x0, x1 = (self._image(a)[0].cpu().numpy()
+                  for a in (init_img, edited_img))
+        diff = dilate_mask(compute_difference_mask(x0, x1, eps=rc.mask_eps),
+                           rc.mask_dilate_radius)
+        masks = downsample_mask(diff, min_res=rc.mask_min_res, dilation=1)
+        dec_mask = dilate_mask(diff, rc.decoder_dilate_radius)
+        return masks, downsample_mask(dec_mask, min_res=(4, 4), dilation=0)
+
     def sdedit(self, init_img: np.ndarray, edited_img: np.ndarray, uc=None,
                c=None, seed: int = 0, noise=None) -> np.ndarray:
         """Reference: sdedit_runner.py + ddim.py:345-393. Images [R, W, 3]
@@ -194,11 +209,7 @@ class SDRunner:
         rc = self.run_cfg
         x0, x1 = self._image(init_img), self._image(edited_img)
         uc, c = self._default_contexts(uc, c)
-
-        diff = compute_difference_mask(x0[0].cpu().numpy(),
-                                       x1[0].cpu().numpy(), eps=rc.mask_eps)
-        diff = dilate_mask(diff, rc.mask_dilate_radius)
-        masks = downsample_mask(diff, min_res=rc.mask_min_res, dilation=1)
+        masks, dec_masks = self.edit_masks(init_img, edited_img)
 
         # sparse encode of the edited image over the init image's caches
         init_latent = self.encode(x0)
@@ -220,10 +231,6 @@ class SDRunner:
         s_init, s_edit = self.sampler.img2img_decode_sige(
             self.unet, z_init, z_edit, uc, c, t_start=t_enc)
 
-        # decoder: the mask re-dilated by 40 at image resolution, its
-        # pyramid down to 4 without further dilation
-        dec_mask = dilate_mask(diff, rc.decoder_dilate_radius)
-        dec_masks = downsample_mask(dec_mask, min_res=(4, 4), dilation=0)
         self.decoder.full(self._pre_decode(s_init))
         self.decoder.set_masks(dec_masks)
         out = self.decoder.sparse(self._pre_decode(s_edit))

@@ -11,6 +11,8 @@ segment: flax's list-module names ``down_blocks_0_1`` become torch's
     depthwise kernel (HWIO with I = 1) becomes ``[C, 1, kh, kw]``, the
     weight of a conv with ``groups = C``;
   * ``Dense`` ``kernel`` [in, out] -> ``Linear`` ``weight`` [out, in];
+  * ``Embed`` ``embedding`` [num, dim] -> ``nn.Embedding`` ``weight``
+    (the CLIP towers' token and position embeddings);
   * norm ``scale`` (GroupNorm and the SD transformers' LayerNorm) ->
     ``weight``; ``bias`` -> ``bias``; a conv or ``Dense`` without bias
     (the SD attention projections, GauGAN's shortcut convs) has no
@@ -23,8 +25,12 @@ segment: flax's list-module names ``down_blocks_0_1`` become torch's
 
 It serves every model of the port: the DDPM U-Net, the PD U-Net (whose
 per-block ``temb_proj`` and top-level ``temb_dense0/1`` are Dense
-layers), the SD U-Net, encoder and decoder, and the GauGAN generators
-(fused, sub-mobile and vanilla).
+layers), the SD U-Net, encoder and decoder, the GauGAN generators
+(fused, sub-mobile and vanilla), and ``transformers``' Flax CLIP text and
+vision models (``FlaxCLIPTextModel`` / ``FlaxCLIPVisionModel`` trees:
+``text_model.*`` / ``vision_model.*``, the layer lists keyed ``"0"``,
+``"1"``, ..., the vision ``class_embedding`` a bare leaf), whose names
+are the port's CLIP modules' and the torch checkpoints'.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ def _leaf(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
         if value.ndim == 2:    # [in, out] -> [out, in]
             return "weight", value.T
         raise ValueError(f"kernel of rank {value.ndim}")
-    if name == "scale":
+    if name in ("scale", "embedding"):
         return "weight", value
     return name, value
 

@@ -12,9 +12,13 @@ at ``tests/test_cli.py``'s tiny ``--hparams``:
     weights equal sige_tpu's conversion (SD, every GauGAN layout);
   * ``--save_converted`` then ``--restore_from`` of that directory gives
     the same weights and the same output, bit for bit;
-  * ``cli.sd --prompt`` without ``--embeddings`` and ``--safety_model``
-    raise ``NotImplementedError``; each command line raises without a GPU
-    unless ``--device cpu``; the demo server restores a checkpoint.
+  * ``cli.sd --prompt`` (a synthetic CLIP snapshot found through
+    ``HF_HUB_CACHE``) writes the same PNG, byte for byte, as
+    ``--embeddings`` of ``encode_prompts(["", prompt])``;
+    ``--safety_model`` (a synthetic checker snapshot) blacks out a sample
+    its seeded threshold flags and leaves one it does not as it was;
+  * each command line raises without a GPU unless ``--device cpu``; the
+    demo server restores a checkpoint.
 """
 
 import os
@@ -336,12 +340,67 @@ def test_sd_restore_sdedit_and_round_trip(capsys, tmp_path, sd_reference):
         tmp_path / "b" / "sdedit.png").read_bytes()
 
 
-def test_sd_later_flags_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="CLIP"):
-        sd.main(_sd_argv(tmp_path, "--prompt", "a church"))
-    with pytest.raises(NotImplementedError, match="safety"):
-        sd.main(_sd_argv(tmp_path, "--safety_model", "snapshot"))
-    assert not list(tmp_path.iterdir())
+def _png(path):
+    return path.read_bytes()
+
+
+def test_sd_prompt_equals_its_embeddings(capsys, tmp_path, monkeypatch):
+    """``--prompt`` through a CLIP snapshot in the hub cache, then
+    ``--embeddings`` of the pair that ``encode_prompts`` gives: the same
+    PNG, byte for byte."""
+    from sige_torch.models.sd.clip import CLIPTextConfig, encode_prompts
+
+    cfg = CLIPTextConfig(vocab_size=514 + 300, hidden_size=16,
+                         intermediate_size=32, num_hidden_layers=2,
+                         num_attention_heads=2)
+    snap = (tmp_path / "hub" / "models--openai--clip-vit-large-patch14" /
+            "snapshots" / "0")
+    chip_smoke.write_clip_snapshot(
+        str(snap), cfg, chip_smoke.clip_text_state(cfg, 1, device="cpu"), 1)
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
+    prompt = "a church at dusk, 2 towers"
+    _, out = _run(sd.main, _sd_argv(tmp_path / "a", "--prompt", prompt),
+                  capsys)
+    _has(out, r"^saved .*sdedit\.png$")
+    pair = encode_prompts(["", prompt], device="cpu").numpy()
+    assert pair.shape == (2, 77, 16) and not np.allclose(pair[0], pair[1])
+    emb = str(tmp_path / "emb.npz")
+    np.savez(emb, uc=pair[:1], c=pair[1:])
+    _run(sd.main, _sd_argv(tmp_path / "b", "--embeddings", emb), capsys)
+    assert _png(tmp_path / "a" / "sdedit.png") == _png(
+        tmp_path / "b" / "sdedit.png")
+
+
+@pytest.mark.parametrize("flag", [True, False], ids=["flagged", "clean"])
+def test_sd_safety_model(capsys, tmp_path, sd_reference, flag):
+    """A checker snapshot whose concept 0 has threshold -1 flags every
+    sample (blacked out, then watermarked); at threshold 1 none (the PNG
+    equals the unscreened run's)."""
+    from sige_torch.models.sd.safety import CLIPVisionConfig
+
+    _, emb, _, _, _ = sd_reference
+    vcfg = CLIPVisionConfig(hidden_size=16, intermediate_size=32,
+                            num_hidden_layers=2, num_attention_heads=2,
+                            patch_size=14)
+    state = chip_smoke.safety_state(vcfg, 8, 2, device="cpu")
+    state["concept_embeds_weights"][0] = -1.0 if flag else 1.0
+    chip_smoke.write_safety_snapshot(str(tmp_path / "safety"), vcfg, 8,
+                                     state)
+    _, out = _run(sd.main, _sd_argv(
+        tmp_path / "a", "--embeddings", emb, "--safety_model",
+        str(tmp_path / "safety"), "--no_watermark"), capsys)
+    assert "WARNING: no --safety_model" not in out
+    assert ("NSFW concept detected" in out) == flag
+    _run(sd.main, _sd_argv(tmp_path / "b", "--embeddings", emb,
+                           "--no_watermark"), capsys)
+    from sige_torch.data import load_image
+
+    img = load_image(str(tmp_path / "a" / "sdedit.png"))
+    if flag:
+        assert (img == 0).all()
+    else:
+        assert _png(tmp_path / "a" / "sdedit.png") == _png(
+            tmp_path / "b" / "sdedit.png")
 
 
 # --- devices and the demo server ------------------------------------------

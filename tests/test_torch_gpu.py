@@ -189,16 +189,17 @@ def _tiny_ddpm(chain=True):
             downsample_mask(dilate_mask(mask, 2), min_res=8))
 
 
-def _card_vs_cpu(make, args0, args1, masks, bucket_min=1, attention=True):
+def _card_vs_cpu(make, args0, args1, masks, bucket_min=1, attention=True,
+                 layout="window"):
     """full, sparse(edit), sparse(original) of one model on the card and
-    on the CPU (the same seeded weights), window layout, under the
+    on the CPU (the same seeded weights), in ``layout``, under the
     caller's precision flags; the card's sparse forwards launch the flash
     kernel (``attention``) or none (GauGAN)."""
     from sige_torch.nn import SIGEModel
 
     outs = {}
     for dev in ("cpu", "cuda"):
-        model = SIGEModel(make(), layout="window", bucket_min=bucket_min,
+        model = SIGEModel(make(), layout=layout, bucket_min=bucket_min,
                           device=dev)
         model.init(0)
         a0 = [a.to(dev) for a in args0]
@@ -227,17 +228,42 @@ def test_tiny_sd_unet_card_matches_cpu(chain):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tiles", "window"])
+@pytest.mark.parametrize("kv", [1, 200])
+def test_tiny_kv_cache_sd_unet_card_matches_cpu(kv, layout):
+    """The tiny SD U-Net with K/V-cached transformers (``kv=1``: every
+    sparse level; 200: the 16 px level only, 256 tokens against 64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    _card_vs_cpu(*_tiny_sd_unet(kv_cache_min_tokens=kv), layout=layout)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["encoder", "decoder"])
 def test_tiny_sd_vae_card_matches_cpu(kind):
     """The tiny SD VAE of tests/test_sd.py: the mid block's masked
     stale/fresh attention runs the flash kernel on the card."""
     if not torch.cuda.is_available():
         pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    _card_vs_cpu(*_tiny_sd_vae(kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["encoder", "decoder"])
+def test_tiny_sd_vae_tile_chain_card_matches_cpu(kind):
+    """The tiny SD VAE's tile-resident chain (``tile_chain``, tile
+    layout)."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    _card_vs_cpu(*_tiny_sd_vae(kind, tile_chain=True), layout="tiles")
+
+
+def _tiny_sd_vae(kind, **kw):
     from sige_torch.models.sd import SDVAEConfig, SIGEDecoder, SIGEEncoder
 
     cfg = SDVAEConfig(ch=16, ch_mult=(1, 2), num_res_blocks=1,
                       attn_resolutions=(), z_channels=4, resolution=32,
-                      num_groups=8)
+                      num_groups=8, **kw)
     mask = np.zeros((32, 32), bool)
     mask[8:13, 10:16] = True
     gen = torch.Generator().manual_seed(4)
@@ -249,8 +275,78 @@ def test_tiny_sd_vae_card_matches_cpu(kind):
             mask[::2, ::2], lambda: SIGEDecoder(cfg)
     x1 = x0 + 0.7 * torch.from_numpy(m)[None, :, :, None] * torch.randn(
         x0.shape, generator=gen)
-    _card_vs_cpu(make, (x0,), (x1,),
-                 downsample_mask(dilate_mask(mask, 1), min_res=4))
+    return make, (x0,), (x1,), downsample_mask(dilate_mask(mask, 1),
+                                               min_res=4)
+
+
+@pytest.mark.gpu
+def test_tiny_clip_text_card_matches_cpu(tmp_path):
+    """A tiny CLIP text encoder from a synthetic snapshot: the card's
+    ``encode_prompts`` against the CPU's, under PyTorch's default flags
+    (the encoder holds fp32 itself and restores them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    import chip_smoke
+    from sige_torch.models.sd.clip import CLIPTextConfig, encode_prompts
+
+    cfg = CLIPTextConfig(vocab_size=514 + 300, hidden_size=32,
+                         intermediate_size=64, num_hidden_layers=2,
+                         num_attention_heads=4)
+    chip_smoke.write_clip_snapshot(
+        str(tmp_path), cfg, chip_smoke.clip_text_state(cfg, 0, "cpu"), 0)
+    prompts = ["", "a church at dusk, 2 towers", "x" * 200]
+    saved = precision_flags()
+    try:
+        set_precision_flags(_pytorch_defaults())
+        got = encode_prompts(prompts, model_path=str(tmp_path),
+                             device="cuda")
+        assert precision_flags() == _pytorch_defaults()
+    finally:
+        set_precision_flags(saved)
+    want = encode_prompts(prompts, model_path=str(tmp_path), device="cpu")
+    assert got.device.type == "cuda" and got.shape == (3, 77, 32)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_tiny_safety_checker_card_matches_cpu(tmp_path):
+    """A tiny safety checker from a synthetic snapshot whose seeded
+    thresholds split two images: pooled features card = CPU (<= 1e-4),
+    the same verdicts, under PyTorch's default flags."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    import chip_smoke
+    from sige_torch.models.sd.safety import (CLIPVisionConfig, SafetyChecker,
+                                             preprocess_images)
+
+    cfg = CLIPVisionConfig(hidden_size=32, intermediate_size=64,
+                           num_hidden_layers=2, num_attention_heads=4,
+                           patch_size=14)
+    state = chip_smoke.safety_state(cfg, 16, 0, "cpu")
+    images = np.random.default_rng(5).random((2, 512, 384, 3)).astype(
+        np.float32)
+    trunk = chip_smoke.vision_trunk(state, cfg)
+    with torch.inference_mode():
+        pv = preprocess_images(images, device="cpu").permute(0, 3, 1, 2)
+        embeds = trunk(pv).pooler_output @ state["visual_projection.weight"].T
+    chip_smoke.split_thresholds(state, embeds)
+    chip_smoke.write_safety_snapshot(str(tmp_path), cfg, 16, state)
+    saved = precision_flags()
+    out = {}
+    try:
+        set_precision_flags(_pytorch_defaults())
+        for dev in ("cuda", "cpu"):
+            checker = SafetyChecker.from_pretrained(str(tmp_path), device=dev)
+            with torch.inference_mode(), fp32_scope():
+                pooled = checker.vision_fn(preprocess_images(images,
+                                                             device=dev))
+            out[dev] = (pooled.cpu(), checker(images))
+        assert precision_flags() == _pytorch_defaults()
+    finally:
+        set_precision_flags(saved)
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-4
+    assert out["cuda"][1][1] == out["cpu"][1][1] == [True, False]
+    np.testing.assert_array_equal(out["cuda"][1][0], out["cpu"][1][0])
 
 
 def _tiny_pd(chain=True):
@@ -336,13 +432,13 @@ def test_tiny_gaugan_card_matches_cpu(kind):
         set_precision_flags(saved)
 
 
-def _tiny_sd_unet(chain=True):
+def _tiny_sd_unet(chain=True, **kw):
     from sige_torch.models.sd import SDUNetConfig, SIGESDUNet
 
     cfg = SDUNetConfig(in_channels=4, model_channels=32, out_channels=4,
                        num_res_blocks=1, attention_resolutions=(1, 2),
                        channel_mult=(1, 2), num_heads=4, context_dim=16,
-                       num_groups=8, window_chain=chain)
+                       num_groups=8, window_chain=chain, **kw)
     gen = torch.Generator().manual_seed(3)
     x0 = torch.randn(2, 16, 16, 4, generator=gen)
     mask = np.zeros((16, 16), bool)

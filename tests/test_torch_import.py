@@ -1,6 +1,6 @@
 """sige_torch, and the scripts and tests that run on the machine with the
-card (which has no JAX, no PIL and no PyYAML), import nothing of JAX,
-flax, sige_tpu, PIL or yaml."""
+card (which has no JAX, no PIL, no PyYAML and no transformers), import
+nothing of JAX, flax, sige_tpu, PIL, yaml, transformers, ftfy or regex."""
 
 import ast
 import pathlib
@@ -11,8 +11,10 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the machine with the card has no imaging library either (the port
-# carries its own PNG codec) and no PyYAML (the port reads its configs)
-FORBIDDEN = ("jax", "jaxlib", "flax", "sige_tpu", "PIL", "yaml")
+# carries its own PNG codec), no PyYAML (the port reads its configs) and
+# no transformers, ftfy or regex (the port has its own CLIP tokenizer)
+FORBIDDEN = ("jax", "jaxlib", "flax", "sige_tpu", "PIL", "yaml",
+             "transformers", "ftfy", "regex")
 
 
 def _sources():
@@ -20,6 +22,7 @@ def _sources():
         ROOT / "chip_smoke.py", ROOT / "scripts" / "trace_torch_step.py",
         ROOT / "scripts" / "retime_cost.py",
         ROOT / "scripts" / "checkpoint_times.py",
+        ROOT / "scripts" / "sd_text_times.py",
         ROOT / "tests" / "test_torch_gpu.py"]
 
 
@@ -55,6 +58,21 @@ def test_command_lines_and_checkpoints_pull_in_nothing_forbidden():
         "sige_torch.utils.watermark, sige_torch.utils.html\n"
         "from sige_torch.utils.config import load_config\n"
         "load_config('configs/sd-sige.yaml')\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_text_path_pulls_in_nothing_forbidden():
+    code = (
+        "import sys\n"
+        "import sige_torch.models.sd.clip, sige_torch.models.sd.safety, "
+        "sige_torch.models.sd.tokenizer\n"
+        "from sige_torch.models.sd.tokenizer import clean_text, split_words\n"
+        "assert split_words(clean_text(\"It's 42\")) == "
+        "[\"it\", \"'s\", \"4\", \"2\"]\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -227,6 +227,71 @@ def test_materialize_tiles(rng):
                                       jnp.asarray(pix), jgeom))
 
 
+def test_gather_position_geom_equal(rng):
+    """The pixel -> gather-position map (the planner's ``pixbox_*``
+    source) is the same integer map in both packages."""
+    H, W = 22, 18
+    _, geom, jgeom, idx, count = _plan(rng, H, W)
+    pg, jpg = tsmap.gather_position_geom(geom), jsmap.gather_position_geom(
+        jgeom)
+    assert (pg.block_size, pg.block_stride, pg.offset, pg.kernel_size,
+            pg.conv_stride) == (jpg.block_size, jpg.block_stride, jpg.offset,
+                                jpg.kernel_size, jpg.conv_stride)
+    np.testing.assert_array_equal(
+        tsmap.build_src_map(idx, count, pg, (H, W)),
+        jsmap.build_src_map(idx, count, jpg, (H, W)))
+
+
+@pytest.mark.parametrize("origin", [None, (-1, -2), (11, 13)])
+def test_materialize_tiles_box(rng, origin):
+    """``origin=None`` is the planner's bbox of the pixel-source map; the
+    others put the box at and past the map's edge."""
+    H, W, C = 18, 20, 4
+    _, geom, jgeom, idx, count = _plan(rng, H, W)
+    pix = tsmap.build_src_map(idx, count, tsmap.gather_position_geom(geom),
+                              (H, W))
+    org, box = tsmap.bbox_of_map(pix, mult=8)
+    if origin is not None:
+        org = np.array(origin, np.int32)
+    state = rng.standard_normal(
+        (2 * idx.shape[0], *geom.block_size, C)).astype(np.float32)
+    cache = rng.standard_normal((2, H, W, C)).astype(np.float32)
+    got = tscatter.materialize_tiles_box(_t(state), _t(cache), _t(box), org,
+                                         geom)
+    want = jscatter.materialize_tiles_box(
+        jnp.asarray(state), jnp.asarray(cache), jnp.asarray(box),
+        jnp.asarray(org), jgeom)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("epilogue", [None, "swish"])
+def test_scatter_gather_residual_tiles(rng, epilogue):
+    """The tile-resident residual join, bare and with a per-channel
+    scale/shift and an activation."""
+    H, W, C = 20, 20, 8
+    _, geom, jgeom, idx, count = _plan(rng, H, W)
+    sg_src, sg_flat = tsmap.build_sg_sources(idx, count, geom, (H, W))
+    tiles = np.concatenate([_conv_tiles(rng, idx.shape[0], geom, C)] * 2)
+    res = rng.standard_normal(
+        (2 * idx.shape[0], *geom.block_size, C)).astype(np.float32)
+    cache = rng.standard_normal((2, H, W, C)).astype(np.float32)
+    kw, jkw = {}, {}
+    if epilogue:
+        scale, shift = (rng.standard_normal((2, C)).astype(np.float32)
+                        for _ in range(2))
+        kw = dict(scale=_t(scale), shift=_t(shift), activation=epilogue)
+        jkw = dict(scale=jnp.asarray(scale), shift=jnp.asarray(shift),
+                   activation=epilogue)
+    got = tscatter.scatter_gather_residual_tiles(
+        _t(tiles), _t(cache), _t(res), _t(sg_src), _t(sg_flat), geom, **kw)
+    want = jscatter.scatter_gather_residual_tiles(
+        jnp.asarray(tiles), jnp.asarray(cache), jnp.asarray(res),
+        jnp.asarray(sg_src), jnp.asarray(sg_flat), jgeom, **jkw)
+    _close(got, want)
+    got = got.numpy().reshape(2, idx.shape[0], *geom.block_size, C)
+    assert (got[:, count:] == 0).all()  # dead slots are exact zero
+
+
 @pytest.mark.parametrize("stride,padding", [(1, 1), (2, ((0, 1), (0, 1))),
                                             (1, "VALID")])
 def test_conv2d_nhwc(rng, stride, padding):

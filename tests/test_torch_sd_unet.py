@@ -301,10 +301,6 @@ def test_timestep_embedding_matches_sige_tpu():
 
 
 def test_later_options_raise():
-    p = _pair(1)
     with pytest.raises(NotImplementedError):
         SIGEModel(SIGESDUNet(SDUNetConfig(**TINY_UNET, cache_slots=2)),
                   device="cpu")
-    tm = p.torch_model(kv_cache_min_tokens=64)
-    with pytest.raises(NotImplementedError, match="kv_cache_min_tokens"):
-        tm.full(*map(_t, p.args0))

@@ -188,9 +188,3 @@ def test_border_edit_through_the_stride2_downsample(layout):
                                atol=ATOL, rtol=0)
     np.testing.assert_allclose(tm.sparse(_t(p.x0)).numpy(), full,
                                atol=ATOL, rtol=0)
-
-
-@pytest.mark.parametrize("cls", [SIGEEncoder, SIGEDecoder])
-def test_tile_chain_raises(cls):
-    with pytest.raises(NotImplementedError, match="tile_chain"):
-        cls(SDVAEConfig(**TINY_VAE, tile_chain=True))
