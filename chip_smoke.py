@@ -171,9 +171,33 @@ Phases (any failure raises and the script exits non-zero):
             ``tile_chain``: sparse(x0) = full(x0) in both, chained =
             unchained on one edit and plan, the sparse medians, launches
             and idle shares beside the window layout's; the phase's peak
-            device memory.
+            device memory;
+15. engine options — at full width, random weights from seeds:
+            (a) ``cache_dtype`` on the church256 DDPM U-Net with the
+            demo's 25 slots: MiB per slot at fp32 and bf16, as many bf16
+            sessions of 25 filled slots as the card holds (2 GiB kept
+            free) and their peak, the sparse forward's median and
+            launches with bf16 caches against fp32 ones on the DDPM
+            paths' edit in the window and tile layouts, and the contract:
+            bf16 storage = fp32 storage of the same rounded values
+            (within 1e-5 * max(1, max|out|));
+            (b) two cache slots and ``sparse_update`` on ``PDUNetConfig()``,
+            ``SDUNetConfig()`` (latent 64^2, batch 2), the SD encoder and
+            decoder at 512^2 (window layout), and one slot on GauGAN
+            fused and sub-mobile at 512x256: full passes, a commit into
+            the last slot (no other slot's tensor touched), a second edit
+            over it, slot 0's sparse(x0) = full(x0) (one slot: the commit
+            replays under its plan); every forward's flash launches held
+            to the count of its mode (the chains step aside for the
+            commit); the kernel against its plain version at every new
+            call shape;
+            (c) ``pin_capacities`` in the tile layout on DDPM: smaller
+            edits keep the pinned shapes, a new edit's cost (first call
+            minus its repeat) with pins and without, pinned = unpinned
+            output, and ``merge_pins`` over two sessions' plans feeding
+            one ``set_masks`` each.
 
-The paths (phases 4-7, 9 and 11-14) run under PyTorch's default precision flags,
+The paths (phases 4-7, 9 and 11-15) run under PyTorch's default precision flags,
 which run cuDNN convs in TF32: the engine holds fp32 and benchmark mode
 for its own forwards, and the script checks that the flags are the
 defaults again at its end. The kernel phases enter the same scope.
@@ -736,12 +760,13 @@ def _sparse_tokens(sparse_ok, gather, res):
     return gather.plan["indices"].shape[0] * bh * bw, False
 
 
-def sd_unet_calls(unet, latent, mode):
+def sd_unet_calls(unet, latent, mode, update=False):
     """(B, N, M, heads, D) of every flash call of one forward of the U-Net
     ``unet`` (a ``SIGEModel``) at ``latent`` px with guidance (batch 2):
     per transformer block a self-attention (masked stale/fresh in the
-    window chain; over the full K/V map at a K/V-cached level,
-    ``kv_cache_min_tokens``) and a cross-attention over 77 tokens."""
+    window chain, which ``sparse_update`` (``update``) turns off; over the
+    full K/V map at a K/V-cached level, ``kv_cache_min_tokens``) and a
+    cross-attention over 77 tokens."""
     from sige_torch.models.sd import SIGESpatialTransformer
 
     cfg = unet.module.cfg
@@ -759,23 +784,25 @@ def sd_unet_calls(unet, latent, mode):
             N, masked = _sparse_tokens(m.sparse_ok, getattr(m, "gather", None),
                                        res)
             kv_cached = m.sparse_ok and res * res >= cfg.kv_cache_min_tokens
-            if masked and cfg.window_chain and not kv_cached:
+            if masked and cfg.window_chain and not kv_cached and not update:
                 M = res * res + N
         calls += [(2, N, M, H, ch // H), (2, N, 77, H, ch // H)] * len(
             m.blocks)
     return calls
 
 
-def sd_vae_calls(model, mode):
+def sd_vae_calls(model, mode, update=False):
     """The flash call of one encoder or decoder forward (the mid block's
-    single-head attention)."""
+    single-head attention; its masked window-chain form off under
+    ``sparse_update``, ``update``)."""
     m = model.module.mid_attn
     cfg = model.module.cfg
     res = cfg.resolution // 2 ** (len(cfg.ch_mult) - 1)
     N = M = res * res
     if mode == "sparse":
         N, masked = _sparse_tokens(m.sparse_ok, m.gather, res)
-        M = res * res + (N if masked and cfg.window_chain else 0)
+        M = res * res + (N if masked and cfg.window_chain and not update
+                         else 0)
     return [(1, N, M, 1, m.channels)]
 
 
@@ -1006,32 +1033,43 @@ def phase_sd(flash):
     return result, recorded
 
 
+def record_calls(fn, seen, where):
+    """Run ``fn`` with the attention entry recording each flash call whose
+    (B, N, M, H, D, masked) key is not in ``seen`` (added to it):
+    {key: (where, bias copy)}."""
+    from sige_torch.ops import attention
+
+    real, new = attention.flash_mha, {}
+
+    def rec(qh, kh, vh, scale, bias=None):
+        B, N, H, D = qh.shape
+        key = (B, N, kh.shape[1], H, D, bias is not None)
+        if key not in seen:
+            seen.add(key)
+            new[key] = (where, None if bias is None else bias.clone())
+        return real(qh, kh, vh, scale, bias=bias)
+
+    attention.flash_mha = rec
+    try:
+        out = fn()
+    finally:
+        attention.flash_mha = real
+    torch.cuda.synchronize()
+    return out, new
+
+
 def record_flash_calls(models):
     """One full and one sparse forward of each model (``{name: (model,
     (full args, sparse args))}``) with the attention entry recording its
     flash calls: ``{(B, N, M, H, D, masked): (label, bias)}`` in the
     order of first call, each bias a copy of the one the model built."""
-    from sige_torch.ops import attention
-
-    real, seen = attention.flash_mha, {}
+    seen, out = set(), {}
     for name, (model, (a0, a1)) in models.items():
         for mode, fwd, args in (("full", model.full, a0),
                                 ("sparse", model.sparse, a1)):
-            def rec(qh, kh, vh, scale, bias=None, where=f"{name} {mode}"):
-                B, N, H, D = qh.shape
-                key = (B, N, kh.shape[1], H, D, bias is not None)
-                if key not in seen:
-                    seen[key] = (where, None if bias is None
-                                 else bias.clone())
-                return real(qh, kh, vh, scale, bias=bias)
-
-            attention.flash_mha = rec
-            try:
-                fwd(*args)
-            finally:
-                attention.flash_mha = real
-    torch.cuda.synchronize()
-    return seen
+            out.update(record_calls(lambda: fwd(*args), seen,
+                                    f"{name} {mode}")[1])
+    return out
 
 
 def phase_sd_kernels(flash, recorded):
@@ -2778,6 +2816,497 @@ def phase_sd_text(flash, tmp, seen, first_row):
     return rec, rows
 
 
+# --- phase 15: the engine's options -----------------------------------------
+
+OPTIONS_SLOTS = 25  # the demo's cache slots (one per step)
+OPTIONS_ITERS = 20  # timed sparse forwards per setting
+OPTIONS_MAX_SESSIONS = 16  # bf16 sessions filled at most
+OPTIONS_HEADROOM_MIB = 2048  # free memory kept for a forward's temporaries
+CONTRACT_TOL = 1e-5  # bf16 storage against fp32 storage of the same values
+
+
+def image_masks(original, edited, eps, dilate, min_res, dilation=None):
+    """The runners' mask pyramid of an image pair ([H, W, C] numpy): the
+    difference mask over ``eps``, dilated by ``dilate``, downsampled to
+    ``min_res`` (with ``dilation`` per level where given)."""
+    from sige_torch.core.masks import (compute_difference_mask, dilate_mask,
+                                       downsample_mask)
+
+    mask = dilate_mask(compute_difference_mask(original, edited, eps=eps),
+                       dilate)
+    kw = {} if dilation is None else {"dilation": dilation}
+    return downsample_mask(mask, min_res=min_res, **kw)
+
+
+def ddpm_edit(cfg, pair):
+    """(x0, x1, mask pyramid) of an image pair in [0, 1] as
+    ``DiffusionRunner.preprocess`` plans it (``DiffusionRunConfig()``)."""
+    from sige_torch.runners import DiffusionRunConfig, data_transform
+
+    rc = DiffusionRunConfig()
+    o, e = (data_transform(a[None], rc.rescaled) for a in pair)
+    masks = image_masks(o[0], e[0], rc.eps, rc.mask_dilate_radius,
+                        cfg.resolution // 2 ** (len(cfg.ch_mult) - 1))
+    return (torch.as_tensor(o, device="cuda"),
+            torch.as_tensor(e, device="cuda"), masks)
+
+
+def over(edited, pair):
+    """``edited`` with ``pair``'s edit (where its two images differ) on
+    top: a second edit over a committed one."""
+    return np.where(pair[1] != pair[0], pair[1], edited)
+
+
+def cache_dtype_sessions(model, x0, ts, session_mib):
+    """Fill sessions of ``len(ts)`` slots (one full pass each) on
+    ``model`` while the card's free memory holds another session of
+    ``session_mib`` plus :data:`OPTIONS_HEADROOM_MIB` for a forward's
+    temporaries, up to :data:`OPTIONS_MAX_SESSIONS`; returns (sessions,
+    peak MB, free MB left, seconds per session)."""
+    states, secs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    def free_mib():  # free device memory plus the allocator's unused cache
+        return (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
+                - torch.cuda.memory_allocated()) / 2**20
+
+    while len(states) < OPTIONS_MAX_SESSIONS:
+        if free_mib() < session_mib + OPTIONS_HEADROOM_MIB:
+            break
+        state = model.new_state()
+        model.use(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k, t in enumerate(ts):
+            model.full(x0, t, cache_id=k)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        states.append(state)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    return states, peak, free_mib(), secs
+
+
+def options_cache_dtype(flash):
+    """(a) of phase 15: ``cache_dtype`` on the church256 DDPM U-Net with
+    the demo's 25 slots."""
+    from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
+    from sige_torch.nn import SIGEModel
+
+    cfg = DDPMUNetConfig(cache_slots=OPTIONS_SLOTS)
+    module = SIGEFusedUNet(cfg)
+    x0, x1, masks = ddpm_edit(cfg, edit_pair(cfg.resolution))
+    ts = [torch.full((1,), 16.0 * k, device="cuda")
+          for k in range(OPTIONS_SLOTS)]
+    rec = {}
+    for dtype in (None, torch.bfloat16):
+        name = "bf16" if dtype else "fp32"
+        model = SIGEModel(module, layout="tiles", bucket_min=DEMO_BUCKET_MIN,
+                          cache_dtype=dtype, device="cuda")
+        if dtype is None:
+            model.init(0)
+        for k, t in enumerate(ts):
+            model.full(x0, t, cache_id=k)
+        slot = _storage_mb(model.state.tensors(0))
+        session = _storage_mb(model.state.tensors())
+        rec[name] = {"slot_mib": slot, "session_mib": session}
+        print(f"  [cache_dtype {name}] {slot:.1f} MiB per slot, "
+              f"{session:.1f} MiB a session of {OPTIONS_SLOTS} slots",
+              flush=True)
+        if dtype is None:
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    ratio = rec["bf16"]["slot_mib"] / rec["fp32"]["slot_mib"]
+    print(f"  [cache_dtype] bf16 / fp32 per slot: {ratio:.4f}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    states, peak, left, secs = cache_dtype_sessions(
+        model, x0, ts, rec["bf16"]["session_mib"])
+    total = torch.cuda.get_device_properties(0).total_memory / 2**20
+    print(f"  [cache_dtype bf16] {len(states)} sessions of {OPTIONS_SLOTS} "
+          f"filled slots held (at most {OPTIONS_MAX_SESSIONS}; another "
+          f"needs {rec['bf16']['session_mib']:.0f} + "
+          f"{OPTIONS_HEADROOM_MIB} MiB, {left:.0f} MiB free), peak "
+          f"{peak:.0f} MiB of {total:.0f}, {np.median(secs):.2f} s to fill "
+          f"a session", flush=True)
+    if len(states) < 2:
+        raise AssertionError("cache_dtype: fewer than two bf16 sessions fit")
+    rec.update(ratio=ratio, sessions=len(states), sessions_peak_mib=peak,
+               free_mib_left=left, session_fill_s=secs)
+    del states, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the sparse forward with bf16 caches against fp32 ones, and the
+    # contract: bf16 storage = fp32 storage of the same rounded values
+    t = ts[0]
+    want = expected_launches(flash, cfg, 1)
+    rec["sparse"] = {}
+    for layout in ("window", "tiles"):
+        wide = SIGEModel(module, layout=layout, device="cuda")
+        narrow = SIGEModel(module, layout=layout, device="cuda",
+                           cache_dtype=torch.bfloat16)
+        for m in (wide, narrow):
+            m.full(x0, t)
+        for name, slots in narrow.state.caches.items():
+            for key, v in slots[0].items():
+                if v.dtype == torch.bfloat16:
+                    wide.state.caches[name][0][key] = v.float()
+        row = {}
+        outs = {}
+        for name, m in (("fp32", wide), ("bf16", narrow)):
+            m.set_masks(masks)
+            if m.active_layout != layout:
+                raise AssertionError(f"cache_dtype: ran {m.active_layout}")
+            outs[name], got = counted(
+                flash, f"{layout} {name} sparse forward",
+                lambda m=m: m.sparse(x1, t), want)
+            for _ in range(3):
+                m.sparse(x1, t)
+            median, p90 = events_ms(lambda m=m: m.sparse(x1, t),
+                                    OPTIONS_ITERS)
+            row[name] = {"median_ms": median, "p90_ms": p90,
+                         "flash_launches": got["launches"],
+                         "kernel_launches": launches_per_forward(
+                             lambda m=m: m.sparse(x1, t))}
+        err = (outs["bf16"] - outs["fp32"]).abs().max().item()
+        scale = max(1.0, outs["fp32"].abs().max().item())
+        print(f"  [cache_dtype {layout}] sparse median ms: bf16 "
+              f"{row['bf16']['median_ms']:.3f} (p90 "
+              f"{row['bf16']['p90_ms']:.3f}) "
+              f"against fp32 {row['fp32']['median_ms']:.3f} (p90 "
+              f"{row['fp32']['p90_ms']:.3f}); kernel launches "
+              f"{row['bf16']['kernel_launches']:.1f} against "
+              f"{row['fp32']['kernel_launches']:.1f}; bf16 storage vs fp32 "
+              f"storage of the same values: max err {err:.3e} (tolerance "
+              f"{CONTRACT_TOL * scale:.3e})", flush=True)
+        if not err <= CONTRACT_TOL * scale:
+            raise AssertionError(f"cache_dtype {layout}: {err:.3e}")
+        row["contract_err"] = err
+        rec["sparse"][layout] = row
+        del wide, narrow
+        torch.cuda.empty_cache()
+    return rec
+
+
+def slot_sequence(flash, name, model, args, edit1, edit2, calls, seen):
+    """Phase 15 (b) on one model: a full pass per slot (``args[k]``), the
+    first edit (``edit1`` = (masks, args)) committed into the last slot,
+    a second edit over it, then slot 0's replay (its original under the
+    second plan; with one slot, the committed edit under its own plan),
+    within 1e-4 * max(1, max|ref|). Every forward's flash launches are
+    held to ``calls(mode, update)``; flash calls not in ``seen`` are
+    returned for kernel rows."""
+    last = len(args) - 1
+    new, fulls, rec = {}, [], {}
+    for k, a in enumerate(args):
+        out, _ = counted(flash, f"{name} full, slot {k}",
+                         lambda a=a, k=k: model.full(*a, cache_id=k),
+                         expected_counts(flash, calls("full", False)))
+        fulls.append(out)
+    model.set_masks(edit1[0])
+    before = [[id(t) for t in model.state.tensors(k)]
+              for k in range(last + 1)]
+    upd_calls = calls("sparse", True)
+    (upd, got), found = record_calls(
+        lambda: counted(flash, f"{name} sparse_update, slot {last}",
+                        lambda: model.sparse(*edit1[1], cache_id=last,
+                                             sparse_update=True),
+                        expected_counts(flash, upd_calls)),
+        seen, f"{name} sparse_update")
+    new.update(found)
+    if any([id(t) for t in model.state.tensors(k)] != before[k]
+           for k in range(last)):
+        raise AssertionError(f"{name}: the commit touched another slot")
+    if [id(t) for t in model.state.tensors(last)] == before[last]:
+        raise AssertionError(f"{name}: the commit wrote nothing")
+    rec["update"] = {"launches": got["launches"],
+                     "combine_launches": got["combine_launches"],
+                     "moved": (upd - fulls[last]).abs().max().item()}
+    rec["update"]["kernel_launches"] = launches_per_forward(
+        lambda: model.sparse(*edit1[1], cache_id=last, sparse_update=True))
+    rec["default_kernel_launches"] = launches_per_forward(
+        lambda: model.sparse(*edit1[1], cache_id=last))
+    model.set_masks(edit2[0])
+    (second, got), found = record_calls(
+        lambda: counted(flash, f"{name} second edit over the commit",
+                        lambda: model.sparse(*edit2[1], cache_id=last),
+                        expected_counts(flash, calls("sparse", False))),
+        seen, f"{name} second edit")
+    new.update(found)
+    for o in [upd, second] + fulls:
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name}: a non-finite output")
+    rec["second"] = {"launches": got["launches"],
+                     "combine_launches": got["combine_launches"]}
+    median, p90 = events_ms(lambda: model.sparse(*edit2[1], cache_id=last),
+                            OPTIONS_ITERS)
+    rec["second"].update(median_ms=median, p90_ms=p90)
+    if last:
+        replay = model.sparse(*args[0], cache_id=0)
+        ref, what = fulls[0], "slot 0: sparse(x0) = full(x0)"
+    else:
+        model.set_masks(edit1[0])
+        replay = model.sparse(*edit1[1], cache_id=0)
+        ref, what = upd, "the committed edit replays under its plan"
+    err = (replay - ref).abs().max().item()
+    scale = max(1.0, ref.abs().max().item())
+    print(f"  [{name}] {what}: max err {err:.3e} (tolerance "
+          f"{TOL * scale:.3e}); the commit moved the output by "
+          f"{rec['update']['moved']:.3e}; kernel launches per forward: "
+          f"sparse_update {rec['update']['kernel_launches']:.1f}, without "
+          f"{rec['default_kernel_launches']:.1f}; second edit "
+          f"{median:.3f} ms median (p90 {p90:.3f})", flush=True)
+    if not err <= TOL * scale:
+        raise AssertionError(f"{name}: {what}: {err:.3e}")
+    rec["replay_err"] = err
+    return rec, new
+
+
+def options_slots(flash, seen):
+    """(b) of phase 15: two cache slots and ``sparse_update`` on the PD
+    U-Net, the SD U-Net (latent 64^2, guidance batch 2), the SD encoder
+    and decoder at 512^2, and one slot on GauGAN fused and sub-mobile at
+    512x256; random weights from seed 0 (GauGAN's BatchNorm statistics
+    calibrated on the original)."""
+    from sige_torch.models.gaugan import (SIGESubMobileSPADEGenerator,
+                                          SPADEGenConfig, decode_config)
+    from sige_torch.models.pd import PDUNetConfig, SIGEPDUNet
+    from sige_torch.models.sd import (SDUNetConfig, SDVAEConfig, SIGEDecoder,
+                                      SIGEEncoder, SIGESDUNet)
+    from sige_torch.nn import SIGEModel
+    from sige_torch.runners import (GauGANRunConfig, GauGANRunner,
+                                    SDRunConfig, data_transform)
+
+    rec, new = {}, {}
+
+    def run(name, model, args, edit1, edit2, calls):
+        rec[name], found = slot_sequence(flash, name, model, args, edit1,
+                                          edit2, calls, seen)
+        new.update(found)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # PD: slot k at its own logsnr, the DDPM paths' edits
+    cfg = PDUNetConfig(cache_slots=2)
+    R = cfg.resolution
+    original, edited = edit_pair(R)
+    edited2 = over(edited, second_edit(R))
+    o, e, e2 = (data_transform(a[None], True) for a in
+                (original, edited, edited2))
+    min_res = R // 2 ** (len(cfg.ch_mult) - 1)
+    m1 = image_masks(o[0], e[0], 1e-2, 5, min_res)
+    m2 = image_masks(e[0], e2[0], 1e-2, 5, min_res)
+    model = SIGEModel(SIGEPDUNet(cfg), layout="window", device="cuda")
+    model.init(0)
+    x0, x1, x2 = (torch.as_tensor(a, device="cuda") for a in (o, e, e2))
+    ls = [torch.full((1,), v, device="cuda") for v in (2.5, -1.0)]
+    pd_calls = pd_attention_calls(cfg)
+    run("pd", model, [(x0, ls[0]), (x0, ls[1])], (m1, (x1, ls[1])),
+        (m2, (x2, ls[1])), lambda mode, update: pd_calls)
+
+    # SD: the U-Net on latents, the VAE on images and latents at 512^2
+    rc = SDRunConfig()
+    unet_cfg = SDUNetConfig(cache_slots=2)
+    vae_cfg = SDVAEConfig(resolution=512, cache_slots=2)
+    R = vae_cfg.resolution
+    f = 2 ** (len(vae_cfg.ch_mult) - 1)  # the VAE's downsampling factor
+    L = R // f
+    original, edited = edit_pair(R)
+    edited2 = over(edited, second_edit(R))
+    o, e, e2 = (2.0 * a - 1.0 for a in (original, edited, edited2))
+    diff1 = image_masks(o, e, rc.mask_eps, rc.mask_dilate_radius,
+                        rc.mask_min_res, 1)
+    diff2 = image_masks(e, e2, rc.mask_eps, rc.mask_dilate_radius,
+                        rc.mask_min_res, 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def latent_edit(z, img_a, img_b):
+        """``z`` with fresh values where the images differ (f x f
+        blocks)."""
+        m = torch.as_tensor(np.abs(img_a - img_b).max(-1) > 0,
+                            device="cuda")
+        m = m.reshape(L, f, L, f).any(3).any(1)[None, :, :, None]
+        return torch.where(m, torch.randn(z.shape, generator=gen,
+                                          device="cuda"), z)
+
+    z0 = [torch.randn(1, L, L, vae_cfg.z_channels, generator=gen,
+                      device="cuda") for _ in range(2)]
+    z1 = latent_edit(z0[1], o, e)
+    z2 = latent_edit(z1, e, e2)
+    ctx = torch.randn(2, 77, unet_cfg.context_dim, generator=gen,
+                      device="cuda")
+    ts = [torch.full((2,), v, device="cuda") for v in (501.0, 301.0)]
+    two = lambda z: torch.cat([z, z])  # noqa: E731 (the guidance batch)
+    model = SIGEModel(SIGESDUNet(unet_cfg), layout="window", device="cuda")
+    model.init(0)
+    run("sd unet", model, [(two(z0[0]), ts[0], ctx), (two(z0[1]), ts[1],
+                                                        ctx)],
+        (diff1, (two(z1), ts[1], ctx)), (diff2, (two(z2), ts[1], ctx)),
+        lambda mode, update, m=model: sd_unet_calls(m, L, mode, update))
+
+    imgs = [torch.as_tensor(a[None], device="cuda") for a in (o, e, e2)]
+    model = SIGEModel(SIGEEncoder(vae_cfg), layout="window", device="cuda")
+    model.init(0)
+    other = torch.rand(imgs[0].shape, generator=gen, device="cuda") * 2 - 1
+    run("sd encoder", model, [(other,), (imgs[0],)], (diff1, (imgs[1],)),
+        (diff2, (imgs[2],)),
+        lambda mode, update, m=model: sd_vae_calls(m, mode, update))
+
+    def dec_masks(a, b):
+        from sige_torch.core.masks import (compute_difference_mask,
+                                           dilate_mask, downsample_mask)
+
+        diff = dilate_mask(compute_difference_mask(a, b, eps=rc.mask_eps),
+                           rc.mask_dilate_radius)
+        return downsample_mask(dilate_mask(diff, rc.decoder_dilate_radius),
+                               min_res=(4, 4), dilation=0)
+
+    model = SIGEModel(SIGEDecoder(vae_cfg), layout="window", device="cuda")
+    model.init(0)
+    run("sd decoder", model, [(z0[0],), (z0[1],)],
+        (dec_masks(o, e), (z1,)), (dec_masks(e, e2), (z2,)),
+        lambda mode, update, m=model: sd_vae_calls(m, mode, update))
+
+    # GauGAN, fused and sub-mobile: one slot (the config has none)
+    gcfg = SPADEGenConfig()
+    grc = GauGANRunConfig()
+    labels = gaugan_edit_pair(gcfg)
+    labels2 = over(labels[1], gaugan_second_edit(gcfg))
+    for name, module in (("gaugan", None), ("gaugan sub-mobile",
+                                            SIGESubMobileSPADEGenerator(
+                                                gcfg, tuple(decode_config(
+                                                    SUB_MOBILE_CONFIG))))):
+        runner = GauGANRunner(gcfg, module=module, layout="window",
+                              device="cuda", seed=0)
+        s0, s1, s2 = (runner.preprocess_input(lab)
+                      for lab in (labels[0], labels[1], labels2))
+        calibrate_bn_stats(runner, s0)
+        gm = [image_masks(a[0], b[0], grc.mask_eps, grc.mask_dilate_radius,
+                          gcfg.latent_hw, grc.downsample_dilate_radius)
+              for a, b in ((s0, s1), (s1, s2))]
+        x = [torch.as_tensor(a, device="cuda") for a in (s0, s1, s2)]
+        model = runner.model
+        del runner
+        run(name, model, [(x[0],)], (gm[0], (x[1],)), (gm[1], (x[2],)),
+            lambda mode, update: [])
+    return rec, new
+
+
+def options_pins(flash):
+    """(c) of phase 15: ``pin_capacities`` and ``merge_pins`` in the tile
+    layout on the church256 DDPM U-Net."""
+    from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
+    from sige_torch.nn import SIGEModel, merge_pins, plan_pins
+
+    cfg = DDPMUNetConfig()
+    R = cfg.resolution
+    module = SIGEFusedUNet(cfg)
+    t = torch.full((1,), 100.0, device="cuda")
+    big = ddpm_edit(cfg, edit_pair(R, frac=0.06, at=(60, 60)))
+    smalls = [ddpm_edit(cfg, edit_pair(R, frac=f, at=at))
+              for f, at in ((0.006, (150, 30)), (0.008, (30, 170)),
+                            (0.007, (170, 150)), (0.009, (100, 200)))]
+
+    def new_edit(model, x1, masks):
+        """Host seconds of a new edit's plan and sparse forward, and of
+        its repeat."""
+        out = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.set_masks(masks)
+            model.sparse(x1, t)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    rec = {"unpinned": [], "pinned": []}
+    # exact capacities (no buckets), so an unpinned new edit has new shapes
+    free = SIGEModel(module, layout="tiles", bucket_min=1, device="cuda")
+    free.init(0)
+    pinned = SIGEModel(module, layout="tiles", bucket_min=1, device="cuda")
+    x0 = big[0]
+    free.full(x0, t)
+    pinned.full(x0, t)
+    pinned.set_masks(big[2])
+    pinned.sparse(big[1], t)  # times the pinned shapes once
+    pins = pinned.pin_capacities()
+    for i, (_, x1, masks) in enumerate(smalls):
+        model, kind = (free, "unpinned") if i % 2 == 0 else (pinned,
+                                                             "pinned")
+        first, again = new_edit(model, x1, masks)
+        rec[kind].append(first - again)
+        if kind == "pinned" and plan_pins(model.plan_host) != pins:
+            raise AssertionError("pins: a smaller edit changed the shapes")
+        print(f"  [pins] {kind} new edit {i}: {first:.3f} s, repeat "
+              f"{again:.3f} s, extra {first - again:.3f} s", flush=True)
+    # the pinned plan computes what the unpinned one does
+    _, x1, masks = smalls[1]
+    free.set_masks(masks)
+    pinned.set_masks(masks)
+    y_free, y_pin = free.sparse(x1, t), pinned.sparse(x1, t)
+    err = (y_free - y_pin).abs().max().item()
+    med = {n: events_ms(lambda m=m: m.sparse(x1, t), OPTIONS_ITERS)[0]
+           for n, m in (("unpinned", free), ("pinned", pinned))}
+    print(f"  [pins] {len(pins)} pins; pinned vs unpinned output on one "
+          f"edit: max err {err:.3e}; sparse median ms: pinned "
+          f"{med['pinned']:.3f}, unpinned {med['unpinned']:.3f}", flush=True)
+    if not err <= TOL:
+        raise AssertionError(f"pins: pinned != unpinned ({err:.3e})")
+    rec.update(pins=len(pins), pinned_vs_unpinned=err, sparse_ms=med)
+
+    # merge_pins over two sessions' plans feeding one set_masks each
+    states, outs, plans = [free.new_state(), free.new_state()], [], []
+    for state, (_, x1, masks) in zip(states, (big, smalls[0])):
+        free.use(state)
+        free.full(x0, t)
+        plans.append(free.set_masks(masks))
+        outs.append(free.sparse(x1, t))
+    merged = merge_pins(*(plan_pins(p) for p in plans))
+    errs = []
+    for state, (_, x1, masks), want in zip(states, (big, smalls[0]), outs):
+        free.use(state)
+        if plan_pins(free.set_masks(masks, capacities=merged)) != merged:
+            raise AssertionError("merge_pins: a plan missed the merged pins")
+        errs.append((free.sparse(x1, t) - want).abs().max().item())
+    print(f"  [pins] merge_pins over two sessions: both plans take the "
+          f"merged shapes; outputs against their own plans' max err "
+          f"{max(errs):.3e}", flush=True)
+    if not max(errs) <= TOL:
+        raise AssertionError(f"merge_pins: {errs}")
+    rec["merge_err"] = max(errs)
+    del free, pinned, states
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_engine_options(flash, seen, first_row):
+    """Phase 15: the engine's options at full width: (a) ``cache_dtype``,
+    (b) cache slots and ``sparse_update`` on PD, SD and GauGAN, (c)
+    ``pin_capacities`` and ``merge_pins``; ``seen``: the flash call keys
+    already held against the plain version; new kernel rows are labelled
+    from ``first_row`` on. Returns (record, new kernel rows)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = {"cache_dtype": options_cache_dtype(flash)}
+    rec["slots"], new = options_slots(flash, seen)
+    rec["pins"] = options_pins(flash)
+    rows = []
+    with fp32_scope():
+        for (B, N, M, H, D, masked), (where, bias) in new.items():
+            label = (f"{row_label(first_row + len(rows))}: {where} "
+                     f"{'masked ' if masked else ''}attention (B {B}, N {N}, "
+                     f"M {M}, H {H}, D {D})")
+            rows.append(kernel_row(flash, label, B, N, M, H, D, bias))
+    rec["s"] = time.perf_counter() - t0
+    print(f"  [options] phase 15 in {rec['s']:.1f} s, {len(rows)} new flash "
+          f"shapes", flush=True)
+    return rec, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2854,6 +3383,13 @@ def main() -> int:
         sd_text, text_rows = phase_sd_text(
             flash, tmp, set(recorded) | set(pd_recorded), len(rows))
     rows += text_rows
+    print("engine options (cache_dtype on the demo's 25 slots, slots and "
+          "sparse_update on PD, SD and GauGAN, pin_capacities and "
+          "merge_pins, full width):", flush=True)
+    options, option_rows = phase_engine_options(
+        flash, {(r["B"], r["N"], r["M"], r["H"], r["D"], r["bias"])
+                for r in rows}, len(rows))
+    rows += option_rows
     if precision_flags() != defaults:
         raise AssertionError(f"precision flags {precision_flags()} after the "
                              f"run, {defaults} before it")
@@ -2880,7 +3416,10 @@ def main() -> int:
             cli_sd_sdedit=ckpt["sd"]["flash_counts"][0],
             cli_sd_prompt=sd_text["cli"]["prompt"]["launches"][0],
             sd_unet_kv_sparse=sd_text["kv_cache"]["kv"]["sparse"][
-                "launches"]),
+                "launches"],
+            **{f"options_{n.replace(' ', '_')}_{k}": r[k]["launches"]
+               for n, r in options["slots"].items()
+               for k in ("update", "second")}),
         "combine_launches_by_path": dict(
             {n: p["combine_launches"] for n, p in paths.items()},
             sd_sdedit=sd["combine_launches"],
@@ -2908,7 +3447,8 @@ def main() -> int:
     }]
     print(json.dumps({"paths": paths, "retime": retime, "sd": sd, "pd": pd,
                       "gaugan": gaugan, "demo": demo, "checkpoints": ckpt,
-                      "sd_text": sd_text, "card": card}),
+                      "sd_text": sd_text, "options": options,
+                      "card": card}),
           flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

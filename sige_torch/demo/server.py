@@ -12,8 +12,9 @@ POST /reset {session} -> base conversion; POST /generate {image: PNG
 dataURL, session} -> sparse edit preview; POST /apply {image, session} ->
 commit the edit (sparse_update); GET /stamps -> the stamp PNGs. Images
 travel as PNG data URLs through the port's own codec
-(:mod:`sige_torch.demo.png`); an edit must be R x R pixels (the page
-draws at that size): another size answers 400.
+(:mod:`sige_torch.demo.png`); the page draws at R x R pixels, and an
+edit of another size is resized to R x R with PIL's bicubic filter (as
+``sige_tpu``'s server does); a payload that is not an image answers 400.
 """
 
 from __future__ import annotations
@@ -207,13 +208,13 @@ def to_uint8(arr: np.ndarray) -> np.ndarray:
 
 
 def png_to_array(data_url: str, resolution: int) -> np.ndarray:
-    """[R, R, 3] float32 in [0, 1] from a PNG data URL of R x R pixels
-    (RGB, or RGBA with the alpha dropped)."""
-    img = decode_png(base64.b64decode(data_url.split(",", 1)[1]))
+    """[R, R, 3] float32 in [0, 1] from a PNG data URL, read as PIL's
+    ``convert("RGB")`` reads it; an image of another size is resized to
+    R x R with PIL's bicubic filter, as ``sige_tpu``'s server does."""
+    img = decode_png(base64.b64decode(data_url.split(",", 1)[1]))[..., :3]
     if img.shape[:2] != (resolution, resolution):
-        raise ValueError(f"the image is {img.shape[1]}x{img.shape[0]}; the "
-                         f"demo draws at {resolution}x{resolution}")
-    return img[..., :3].astype(np.float32) / 255.0
+        img = data.resize_bicubic(img, (resolution, resolution))
+    return img.astype(np.float32) / 255.0
 
 
 def array_to_data_url(arr: np.ndarray, alpha: np.ndarray = None) -> str:
@@ -272,8 +273,8 @@ def make_handler(runner, base_image: np.ndarray, resolution: int,
                 return
             try:
                 edited = png_to_array(payload["image"], resolution)
-            except (KeyError, ValueError) as e:
-                self._send({"error": f"bad image: {e}"}, code=400)
+            except (KeyError, IndexError, AttributeError, ValueError) as e:
+                self._send({"error": f"bad image: {e!r}"}, code=400)
                 return
             upd = self.path == "/apply"
             out = (runner.generate(sid, edited, sparse_update=upd) if multi

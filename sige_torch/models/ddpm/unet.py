@@ -186,8 +186,6 @@ class SIGEFusedUNet(SIGEUNetEnds):
     binds the slot) and ``sparse_update`` (the window chains step aside:
     a chain never forms the scattered maps the caches take)."""
 
-    supports_slots = True
-
     def __init__(self, cfg: DDPMUNetConfig = DDPMUNetConfig()):
         super().__init__()
         self.cfg = cfg

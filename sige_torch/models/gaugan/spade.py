@@ -22,6 +22,9 @@ gaugan/models/sige_normalization.py):
 In the window layout the blocks thread window chains across the bare
 nearest-2x upsamples between them (``_Up2State``, the planner's
 ``wup_ok``), so full maps materialize only once, before ``conv_img``.
+Under ``sparse_update`` (on the one cache slot: the config has no
+``cache_slots``, as in ``sige_tpu``) the chains step aside and the
+shortcut norms scatter their γβ, so every scatter commits its map.
 
 Nearest resizes follow torch's ``F.interpolate`` indexing
 (src = floor(dst * in / out)). Module names follow ``sige_tpu``'s flax
@@ -182,7 +185,8 @@ class FusedSPADENorm(SIGEModule):
         if self.pairing == "main":
             gamma_beta = self.sg(gamma_beta, ctx)
         elif self.pairing == "shortcut" and not (
-                ctx.mode == "sparse" and self.seg_gather.planned_window()):
+                ctx.mode == "sparse" and not ctx.sparse_update
+                and self.seg_gather.planned_window()):
             # (window layout: every gather at a resolution shares THE
             # canonical window, so the tile-geometry re-pairing is an
             # exact identity there and is skipped)
@@ -307,7 +311,7 @@ class SIGEFusedSPADEResnetBlock(SIGEModule):
 
     def forward(self, x, seg, ctx: SIGECtx):
         if (ctx.mode == "sparse" and self.main_sparse
-                and self.cfg.window_chain
+                and self.cfg.window_chain and not ctx.sparse_update
                 and self.main_gather.planned_window()
                 and (not self.learned_shortcut or self.shortcut_sparse)
                 and (not isinstance(x, _Up2State)

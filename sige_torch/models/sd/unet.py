@@ -37,9 +37,16 @@ scattering the features once and reprojecting the whole map. For depth
 approximation). Such a level writes no ``k1_*`` caches, so in the window
 layout it takes the non-chain path.
 
+Cache slots and ``sparse_update``: every cache is per slot (the engine
+binds it), the text and ``k1_*`` K/V caches too; under ``sparse_update``
+the window chains step aside (a chain never forms the scattered maps the
+caches take), so the transformers scatter their features, and the
+K/V-cached levels their K/V, into the slot; the ``k1_*`` caches keep the
+full pass's projections, as in ``sige_tpu``.
+
 Module names follow ``sige_tpu``'s flax names (``in_blocks_1_1`` there is
 ``in_blocks.1.1`` here), so the weight bridge and the plan trees map one
-to one. One cache per module; ``cache_slots > 1`` raises.
+to one.
 """
 
 from __future__ import annotations
@@ -299,7 +306,8 @@ class SIGESpatialTransformer(SIGEModule):
 
     def forward(self, x, ctx: SIGECtx, context=None):
         if (ctx.mode == "sparse" and self.sparse_ok and self.cfg.window_chain
-                and self.gather.planned_window() and "k1_0" in self.cache):
+                and not ctx.sparse_update and self.gather.planned_window()
+                and "k1_0" in self.cache):
             return self._chain_window(x, ctx, context)
         x = to_map(x)
         B, H, W, _ = x.shape

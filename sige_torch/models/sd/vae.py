@@ -18,6 +18,10 @@ with an identity shortcut hand on a :class:`~sige_torch.nn.module.TileState`
 consecutive such blocks never materialize the map between them; the
 first consumer that needs the map (a resample, the attention, a block
 whose channels change, the tail) materializes it.
+
+Under ``sparse_update`` every chain (the window chains, the stem's and
+the attention's, and the tile chain) steps aside: a chain never forms the
+scattered maps the caches take.
 """
 
 from __future__ import annotations
@@ -153,7 +157,7 @@ class SIGEVAEAttnBlock(SIGEModule):
 
     def forward(self, x, ctx: SIGECtx):
         if (ctx.mode == "sparse" and self.sparse_ok and self.window_chain
-                and self.gather.planned_window()):
+                and not ctx.sparse_update and self.gather.planned_window()):
             return self._chain_window(x, ctx)
         x = to_map(x)
         C = self.channels
@@ -282,7 +286,8 @@ class SIGEEncoder(SIGEModule):
         cfg = self.cfg
         if self._head_sparse and ctx.mode == "sparse":
             hwin = self.conv_in(self.in_gather(x, ctx), ctx)
-            if cfg.window_chain and self.in_gather.planned_window():
+            if (cfg.window_chain and not ctx.sparse_update
+                    and self.in_gather.planned_window()):
                 # start the window chain at the stem
                 cache = self.in_scatter.cache["original"]
                 org, cov = self.in_gather.read_wsc(cache.shape[1:3])

@@ -7,8 +7,11 @@ which method you call, plus ``set_masks`` / ``clear_cache``
 module eagerly under ``torch.inference_mode``, on cache slot
 ``cache_id`` (``sparse_update`` commits an edit into its slot);
 :meth:`set_masks` plans on the host and moves the plan's leaves to the
-device in one copy. An :class:`EngineState` holds one session's caches
-and plan; :meth:`SIGEModel.use` switches sessions by reference.
+device in one copy; :meth:`SIGEModel.pin_capacities` freezes the current
+plan's tile-layout shapes for later edits. An :class:`EngineState` holds
+one session's caches, plan and pins; :meth:`SIGEModel.use` switches
+sessions by reference. ``cache_dtype`` narrows the storage of the
+scatter caches (see :class:`~.module.SIGECtx`).
 
 Every forward runs inside :func:`fp32_scope`: PyTorch's defaults run
 cuDNN convolutions in TF32 and let cuDNN pick its algorithms by
@@ -30,7 +33,7 @@ import torch
 from torch import nn
 
 from .module import Gather, SIGECtx, SIGEModule
-from .planner import build_plan, choose_layout, plan_stats
+from .planner import build_plan, choose_layout, plan_pins, plan_stats
 
 
 def resolve_device(device=None) -> torch.device:
@@ -113,12 +116,6 @@ def fp32_scope():
         set_precision_flags(saved)
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with a later slice of the "
-        "port (see ROADMAP.md)")
-
-
 def _set_path(tree: Dict, path: Tuple[str, ...], value) -> None:
     for p in path[:-1]:
         tree = tree.setdefault(p, {})
@@ -162,7 +159,9 @@ def upload_plan(plan: Mapping, device: torch.device) -> Dict:
 class EngineState:
     """One editing session's state in a :class:`SIGEModel`: the caches
     (for each SIGE layer, by module path, one dict per cache slot), the
-    plan on the device and on the host, and the layout it was built in.
+    plan on the device and on the host, the layout it was built in, and
+    the session's shape pins (:meth:`SIGEModel.pin_capacities`: kept per
+    session, so one session's pins never shape another's plan).
     :meth:`SIGEModel.use` switches the model to a state by reference: no
     cache tensor is copied."""
 
@@ -170,16 +169,17 @@ class EngineState:
     active_layout: str
     plan: Dict = dataclasses.field(default_factory=dict)
     plan_host: Optional[Dict] = None
+    pins: Dict = dataclasses.field(default_factory=dict)
 
     def fork(self) -> "EngineState":
         """A state that shares this one's cache tensors and plan but owns
-        its slot dicts: a write into either (a full pass, or a sparse pass
-        with ``sparse_update``) replaces an entry of its own dict and
-        leaves the other as it was."""
+        its slot dicts and pins: a write into either (a full pass, a
+        sparse pass with ``sparse_update``, or new pins) changes its own
+        and leaves the other as it was."""
         return EngineState(
             {path: [dict(d) for d in slots]
              for path, slots in self.caches.items()},
-            self.active_layout, self.plan, self.plan_host)
+            self.active_layout, self.plan, self.plan_host, dict(self.pins))
 
     def tensors(self, slot: Optional[int] = None) -> List[torch.Tensor]:
         """The cache tensors, of one slot or of all."""
@@ -209,23 +209,25 @@ class SIGEModel:
     Caches, plan and ``active_layout`` live in :attr:`state` (an
     :class:`EngineState`); :meth:`new_state` and :meth:`use` hold several
     sessions on one model and switch between them. The module's
-    ``cfg.cache_slots`` sets the slots per cache; ``full`` and ``sparse``
-    take the slot as ``cache_id``. Slots above one and ``sparse_update``
-    run on a module whose ``supports_slots`` is true (the DDPM U-Net).
+    ``cfg.cache_slots`` sets the slots per cache (one where the config
+    has no such field, as GauGAN's); ``full`` and ``sparse`` take the slot
+    as ``cache_id``.
+
+    ``cache_dtype`` (e.g. ``torch.bfloat16``) is the storage dtype of the
+    scatter caches: it halves what the caches of an fp32 model hold, and
+    only cached content carries its rounding (fresh regions are computed
+    in the compute dtype; the folded-norm affines and K/V caches keep
+    it). None keeps the caches at the compute dtype.
     """
 
     def __init__(self, module: nn.Module, bucket_min: int = 2,
                  layout: str = "tiles", chain_nesting: bool = True,
-                 cache_dtype=None, device=None):
+                 cache_dtype: Optional[torch.dtype] = None, device=None):
         if layout not in ("tiles", "window", "auto"):
             raise ValueError(f"unknown layout {layout!r}")
-        if cache_dtype is not None:
-            raise _later("cache_dtype")
+        self.cache_dtype = cache_dtype
         self.cache_slots = getattr(getattr(module, "cfg", None),
                                    "cache_slots", 1)
-        self._slotted = getattr(module, "supports_slots", False)
-        if self.cache_slots != 1 and not self._slotted:
-            raise _later(f"cache_slots > 1 on {type(module).__name__}")
         self.device = resolve_device(device)
         self.module = module.to(self.device).eval().requires_grad_(False)
         self.bucket_min = bucket_min
@@ -316,15 +318,17 @@ class SIGEModel:
     def full(self, *args, cache_id: int = 0, **kwargs):
         """Dense pass on the original input: refreshes every scatter cache
         of slot ``cache_id`` and the planning metadata. A new input shape
-        drops the stale plan."""
+        drops the stale plan and pins."""
         sig = tuple(tuple(a.shape) if hasattr(a, "shape") else a
                     for a in args)
         if sig != self._input_sig:
             if self._input_sig is not None:
                 self.state.plan, self.state.plan_host = {}, None
+                self.state.pins = {}
             self._input_sig = sig
             self.meta = None
-        y = self._run(args, kwargs, SIGECtx(mode="full", cache_id=cache_id))
+        y = self._run(args, kwargs, SIGECtx(mode="full", cache_id=cache_id,
+                                            cache_dtype=self.cache_dtype))
         if self.meta is None:
             self.meta = self._gathers_meta()
         return y
@@ -333,19 +337,35 @@ class SIGEModel:
         """Host-side planning: mask pyramid -> indices/source maps or
         windows, moved to the device and handed to every Gather.
         ``capacities`` pins buffer and box shapes (see
-        :func:`~.planner.plan_pins`)."""
+        :func:`~.planner.plan_pins` and :func:`~.planner.merge_pins`);
+        without it, the session's own pins (:meth:`pin_capacities`)."""
         if self.meta is None:
             raise RuntimeError("run a full() pass before set_masks()")
         layout = self.layout
         if layout == "auto":
             layout = choose_layout(masks)
-        plan = build_plan(self.meta, masks, self.bucket_min, capacities,
-                          layout=layout, chain_nesting=self.chain_nesting)
+        plan = build_plan(self.meta, masks, self.bucket_min,
+                          capacities or self.state.pins, layout=layout,
+                          chain_nesting=self.chain_nesting)
         state = self.state
         state.active_layout = layout
         state.plan_host, state.plan = plan, upload_plan(plan, self.device)
         self.use(state)
         return plan
+
+    def pin_capacities(self) -> Dict:
+        """Freeze every tile buffer's capacity and bbox-cropped source-map
+        shape of the current plan in the current session, so later
+        ``set_masks`` calls with smaller edits plan exactly these shapes
+        (the same conv shapes, so no new cuDNN timing; fixed shapes for
+        plans stacked across sessions). Returns the pin map; call after
+        planning the largest expected edit. Tile layout only: window
+        layouts bucket their own extents. A new input shape in ``full``
+        drops the pins."""
+        if self.plan_host is None:
+            raise RuntimeError("call set_masks() before pin_capacities()")
+        self.state.pins.update(plan_pins(self.plan_host))
+        return dict(self.state.pins)
 
     @torch.inference_mode()
     @fp32_scope()
@@ -353,13 +373,13 @@ class SIGEModel:
                **kwargs):
         """Sparse inference on the edited input over slot ``cache_id``;
         ``sparse_update`` writes the scattered maps into the slot (the
-        edit becomes the slot's baseline)."""
-        if sparse_update and not self._slotted:
-            raise _later(f"sparse_update on {type(self.module).__name__}")
+        edit becomes the slot's baseline; the models' window chains step
+        aside for it, since a chain never forms the scattered maps)."""
         if not self.plan:
             raise RuntimeError("call set_masks() before sparse()")
         return self._run(args, kwargs, SIGECtx(
-            mode="sparse", cache_id=cache_id, sparse_update=sparse_update))
+            mode="sparse", cache_id=cache_id, sparse_update=sparse_update,
+            cache_dtype=self.cache_dtype))
 
     @torch.inference_mode()
     @fp32_scope()

@@ -63,14 +63,21 @@ class SIGECtx:
 
     ``cache_id`` is the cache slot the call reads and writes (the engine
     binds it); ``sparse_update`` makes a sparse call write its scattered
-    maps into that slot. ``macs``, when a list, collects the analytic MACs
-    of every layer the call runs (the port of the ``"profile"``
-    collection).
+    maps into that slot. ``cache_dtype`` is the storage dtype of the
+    scatter caches (None: the compute dtype): the scatters store their
+    maps narrowed to it, and every op that reads one computes in the
+    dtype of the fresh values, casting the cached part as it copies or
+    slices it, so fresh regions stay in the compute dtype and only cached
+    content carries the narrow rounding. The folded-norm affines and K/V
+    projections keep the compute dtype. ``macs``, when a list, collects
+    the analytic MACs of every layer the call runs (the port of the
+    ``"profile"`` collection).
     """
 
     mode: str = "full"
     cache_id: int = 0
     sparse_update: bool = False
+    cache_dtype: Optional[torch.dtype] = None
     macs: Optional[List[float]] = None
 
 
@@ -107,6 +114,13 @@ class SIGEModule(nn.Module):
     def __init__(self):
         super().__init__()
         self.cache: Dict[str, torch.Tensor] = {}
+
+    def store(self, name: str, value: torch.Tensor, ctx: SIGECtx) -> None:
+        """Write a scatter cache at the call's storage dtype (the tensor
+        itself when it already has that dtype)."""
+        dtype = ctx.cache_dtype
+        self.cache[name] = (value if dtype is None or value.dtype == dtype
+                            else value.to(dtype))
 
 
 class WindowState:
@@ -290,7 +304,7 @@ class Scatter(SIGEModule):
         if ctx.mode == "full":
             out = x if residual is None else x + residual
             self.gather.request_src_map(out.shape[1:3])
-            self.cache["original"] = out
+            self.store("original", out, ctx)
             return out
         if ctx.mode == "sparse":
             y = self.cache["original"]
@@ -302,7 +316,7 @@ class Scatter(SIGEModule):
                 out = scatter_tiles_box(x, y, box, org, self.gather.geom,
                                         residual)
             if ctx.sparse_update:
-                self.cache["original"] = out
+                self.store("original", out, ctx)
             return out
         raise ValueError(f"unknown mode {ctx.mode}")
 
@@ -323,7 +337,7 @@ class ScatterGather(SIGEModule):
         if ctx.mode == "full":
             self.gather.request_src_map(x.shape[1:3])
             self.gather.request_sg(x.shape[1:3])
-            self.cache["original"] = x
+            self.store("original", x, ctx)
             return x
         if ctx.mode == "sparse":
             y = self.cache["original"]
@@ -335,7 +349,8 @@ class ScatterGather(SIGEModule):
                     shift, self.activation)
                 if ctx.sparse_update:  # the fused op never forms the map
                     org, wcov = self.gather.read_wsc(res)
-                    self.cache["original"] = window_scatter(x, y, org, wcov)
+                    self.store("original", window_scatter(x, y, org, wcov),
+                               ctx)
                 return out
             sg_src, sg_flat = self.gather.read_sg(res)
             out = scatter_gather_tiles(
@@ -343,8 +358,8 @@ class ScatterGather(SIGEModule):
                 self.activation)
             if ctx.sparse_update:
                 box, org = self.gather.read_src_map(res)
-                self.cache["original"] = scatter_tiles_box(
-                    x, y, box, org, self.gather.geom)
+                self.store("original", scatter_tiles_box(
+                    x, y, box, org, self.gather.geom), ctx)
             return out
         raise ValueError(f"unknown mode {ctx.mode}")
 
@@ -365,8 +380,8 @@ class ScatterWithBlockResidual(SIGEModule):
             out = x + residual
             self.main_gather.request_src_map(out.shape[1:3])
             self.shortcut_gather.request_src_map(out.shape[1:3])
-            self.cache["original"] = out
-            self.cache["residual"] = residual
+            self.store("original", out, ctx)
+            self.store("residual", residual, ctx)
             return out
         if ctx.mode == "sparse":
             y0 = self.cache["original"]
@@ -378,9 +393,9 @@ class ScatterWithBlockResidual(SIGEModule):
                 out = window_scatter_block_residual(
                     x, y0, residual, y1, org, cov_m, cov_s)
                 if ctx.sparse_update:
-                    self.cache["original"] = out
-                    self.cache["residual"] = window_scatter(
-                        residual, y1, org, cov_s)
+                    self.store("original", out, ctx)
+                    self.store("residual", window_scatter(
+                        residual, y1, org, cov_s), ctx)
                 return out
             m_box, m_org = self.main_gather.read_src_map(res)
             s_box, s_org = self.shortcut_gather.read_src_map(res)
@@ -389,9 +404,10 @@ class ScatterWithBlockResidual(SIGEModule):
                 m_box, m_org, self.main_gather.geom,
                 s_box, s_org, self.shortcut_gather.geom)
             if ctx.sparse_update:
-                self.cache["original"] = out
-                self.cache["residual"] = scatter_tiles_box(
-                    residual, y1, s_box, s_org, self.shortcut_gather.geom)
+                self.store("original", out, ctx)
+                self.store("residual", scatter_tiles_box(
+                    residual, y1, s_box, s_org, self.shortcut_gather.geom),
+                    ctx)
             return out
         raise ValueError(f"unknown mode {ctx.mode}")
 

@@ -492,6 +492,23 @@ def plan_pins(plan: Mapping, _path: Tuple = ()) -> Dict[Tuple, object]:
     return pins
 
 
+def merge_pins(*pin_maps: Mapping) -> Dict[Tuple, object]:
+    """Elementwise max over pin maps (ints and shape tuples alike): the
+    smallest single pinning that fits every constituent plan (several
+    sessions' plans feeding one ``set_masks(capacities=)``)."""
+    out: Dict[Tuple, object] = {}
+    for pins in pin_maps:
+        for k, v in pins.items():
+            prev = out.get(k)
+            if prev is None:
+                out[k] = v
+            elif isinstance(v, tuple):
+                out[k] = tuple(max(a, b) for a, b in zip(prev, v))
+            else:
+                out[k] = max(prev, v)
+    return out
+
+
 def choose_layout(masks: Mapping[IntPair, np.ndarray],
                   threshold: float = 3.0) -> str:
     """Pick the execution layout for one edit: "window" for a compact

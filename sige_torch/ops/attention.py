@@ -71,10 +71,11 @@ def masked_mha(q: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
     B, N, _ = q.shape
     Ms, Mf = ks.shape[1], kf.shape[1]
     qh = q.reshape(B, N, heads, dim_head)
-    kh = torch.cat([ks.reshape(B, Ms, heads, dim_head).to(q.dtype),
-                    kf.reshape(B, Mf, heads, dim_head).to(q.dtype)], dim=1)
-    vh = torch.cat([vs.reshape(B, Ms, heads, dim_head).to(q.dtype),
-                    vf.reshape(B, Mf, heads, dim_head).to(q.dtype)], dim=1)
+    # the concatenation promotes a narrow stale map as it copies it
+    kh = torch.cat([ks.reshape(B, Ms, heads, dim_head),
+                    kf.reshape(B, Mf, heads, dim_head)], dim=1).to(q.dtype)
+    vh = torch.cat([vs.reshape(B, Ms, heads, dim_head),
+                    vf.reshape(B, Mf, heads, dim_head)], dim=1).to(q.dtype)
     bias = torch.cat([bias_s, bias_f]).to(torch.float32)
     out = flash_mha(qh, kh, vh, dim_head ** -0.5, bias=bias)
     return out.reshape(B, N, heads * dim_head)

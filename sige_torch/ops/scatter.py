@@ -15,6 +15,11 @@ The box forms take the bbox origin as host integers and clamp it so the
 box fits inside the map, exactly as ``jax.lax.dynamic_slice`` and
 ``dynamic_update_slice`` clamp their start indices.
 
+A cache may be stored in a narrower dtype than the tiles
+(``SIGEModel(cache_dtype=)``): every op computes in the tiles' dtype, its
+copy of the cache made in that dtype (the cast rides in the copy) and its
+selects promoting, so fresh values are never rounded to the cache's.
+
 Ops:
   * :func:`scatter_tiles` / :func:`scatter_tiles_box` — plain scatter into
     a cached map, optional residual added at covered pixels only
@@ -120,10 +125,9 @@ def scatter_tiles_box(
         if r.shape[1] == H and r.shape[2] == W:
             r = r[:, r0:r0 + BH, c0:c0 + BW]
         fresh = fresh + r
-    out = cache.clone()
-    sl = cache[:, r0:r0 + BH, c0:c0 + BW]
-    out[:, r0:r0 + BH, c0:c0 + BW] = torch.where(
-        (box >= 0)[None, :, :, None], fresh, sl)
+    out = cache.to(fresh.dtype, copy=True)
+    sl = out[:, r0:r0 + BH, c0:c0 + BW]  # the copy's: no cast in the select
+    sl.copy_(torch.where((box >= 0)[None, :, :, None], fresh, sl))
     return out
 
 
@@ -160,10 +164,10 @@ def scatter_with_block_residual_box(
     fresh_m = _take(main_tiles.reshape(B, Km * Rm * Sm, C), mbox,
                     dev).reshape(B, MH, MW, C)
     y1_m = cache_residual[:, r0:r0 + MH, c0:c0 + MW]
-    y0_m = cache_out[:, r0:r0 + MH, c0:c0 + MW]
-    out = cache_out.clone()
-    out[:, r0:r0 + MH, c0:c0 + MW] = torch.where(
-        (mbox >= 0)[None, :, :, None], fresh_m + y1_m, y0_m)
+    out = cache_out.to(fresh_m.dtype, copy=True)
+    y0_m = out[:, r0:r0 + MH, c0:c0 + MW]
+    y0_m.copy_(torch.where((mbox >= 0)[None, :, :, None], fresh_m + y1_m,
+                           y0_m))
 
     sbox = _long(shortcut_src_box, dev)
     SH, SW = sbox.shape
@@ -289,9 +293,9 @@ def materialize_tiles_box(
     r0, c0 = clamp_origin(origin, (BH, BW), (H, W))
     fresh = _take(tile_state.reshape(B, K * bh * bw, C), box,
                   cache.device).reshape(B, BH, BW, C)
-    out = cache.clone()
-    out[:, r0:r0 + BH, c0:c0 + BW] = torch.where(
-        (box >= 0)[None, :, :, None], fresh, cache[:, r0:r0 + BH, c0:c0 + BW])
+    out = cache.to(fresh.dtype, copy=True)
+    sl = out[:, r0:r0 + BH, c0:c0 + BW]
+    sl.copy_(torch.where((box >= 0)[None, :, :, None], fresh, sl))
     return out
 
 

@@ -22,7 +22,11 @@ fully in image) or 4-form ``(clamped_r, clamped_c, roll_r, roll_c)``; the
 window's virtual origin is ``clamped - roll``.
 
 No op writes into its inputs: caches hold the full pass's activations
-themselves, so every overlay writes into a copy.
+themselves, so every overlay writes into a copy. A cache may be stored
+in a narrower dtype than the fresh values (``SIGEModel(cache_dtype=)``):
+the overlay's copy is made in the fresh values' dtype (the cast rides in
+the copy), and the elementwise joins promote, so fresh windows are never
+rounded to the cache's dtype.
 """
 
 from __future__ import annotations
@@ -71,9 +75,9 @@ def _extract_window(x: torch.Tensor, meta: Sequence[int],
 
 def _paste(base: torch.Tensor, win: torch.Tensor, r: int, c: int,
            cov: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """A copy of ``base`` with ``win`` written at (r, c) — where ``cov``
-    is set, when given."""
-    out = base.clone()
+    """A copy of ``base`` in ``win``'s dtype with ``win`` written at
+    (r, c) — where ``cov`` is set, when given."""
+    out = base.to(win.dtype, copy=True)
     h, w = win.shape[1:3]
     dst = out[:, r:r + h, c:c + w]
     dst.copy_(win if cov is None
@@ -268,12 +272,11 @@ def window_scatter_block_residual(
 
         out = where(m, fresh_m + y1, y0) + where(s, fresh_s - y1, 0)
     """
-    sl0 = window_slice(cache_out, org, cov_main.shape)
+    out = cache_out.to(main_win.dtype, copy=True)
+    sl0 = window_slice(out, org, cov_main.shape)  # the copy's: no cast
     sl1 = window_slice(cache_residual, org, cov_main.shape)
-    zero = torch.zeros((), dtype=sl0.dtype, device=sl0.device)
-    upd = (torch.where(cov_main[None, :, :, None], main_win + sl1, sl0)
-           + torch.where(cov_shortcut[None, :, :, None], shortcut_win - sl1,
-                         zero))
-    _, H, W, _ = cache_out.shape
-    r0, c0 = clamp_origin(org, tuple(cov_main.shape), (H, W))
-    return _paste(cache_out, upd, r0, c0)
+    zero = torch.zeros((), dtype=out.dtype, device=out.device)
+    sl0.copy_(torch.where(cov_main[None, :, :, None], main_win + sl1, sl0)
+              + torch.where(cov_shortcut[None, :, :, None],
+                            shortcut_win - sl1, zero))
+    return out

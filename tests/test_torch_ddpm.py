@@ -146,12 +146,27 @@ def test_macs_match_sige_tpu(pair, mode):
 
 
 def test_later_slices_raise_not_implemented():
-    """cache_dtype comes with a later slice of the port; cache slots and
-    sparse_update run on the DDPM U-Net (tests/test_torch_demo.py, which
-    also holds the PD, SD and GauGAN models to raising for them)."""
-    module = SIGEFusedUNet(DDPMUNetConfig(**CONFIGS["join"]))
-    with pytest.raises(NotImplementedError):
-        SIGEModel(module, device="cpu", cache_dtype=torch.bfloat16)
+    """The engine options that once waited for a later slice now run:
+    ``cache_dtype`` stores the scatter caches narrow (the folded-norm
+    affines keep fp32) without changing the full pass's output, and
+    cache slots take ``sparse_update`` (tests/test_torch_engine_options.py
+    and tests/test_torch_slots.py hold both to sige_tpu); a sparse call
+    still needs a plan."""
+    cfg = DDPMUNetConfig(**CONFIGS["join"])
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 16, 16, 3)).astype(np.float32))
+    t = torch.full((1,), 5.0)
+    outs = {}
+    for dtype in (None, torch.bfloat16):
+        model = SIGEModel(SIGEFusedUNet(cfg), device="cpu", cache_dtype=dtype)
+        model.init(seed=0)
+        outs[dtype] = model.full(x, t)
+        maps = {v.dtype for v in model.state.tensors() if v.ndim == 4}
+        vecs = {v.dtype for v in model.state.tensors() if v.ndim == 2}
+        assert maps == {dtype or torch.float32}
+        assert vecs == {torch.float32}
+    torch.testing.assert_close(outs[torch.bfloat16], outs[None], rtol=0,
+                               atol=0)
     model = SIGEModel(SIGEFusedUNet(DDPMUNetConfig(**CONFIGS["join"],
                                                    cache_slots=2)),
                       device="cpu")

@@ -14,7 +14,9 @@ on both sides, atol 1e-4.
   * ``DemoRunner`` with DDIM and with DPM-Solver++: reset, generate, the
     empty edit, apply, the no-op re-generate after apply and a second
     edit over the applied caches, each against sige_tpu's runner;
-  * the options that stay for a later slice raise ``NotImplementedError``.
+  * the options that came with a later slice run: slots and
+    ``sparse_update`` on the PD, SD and GauGAN models, and bf16 caches
+    with the demo's slots.
 """
 
 import functools
@@ -310,12 +312,14 @@ def test_generate_needs_a_reset():
                    sampler_type="ddpm", **KW)
 
 
-# --- what stays for a later slice ---------------------------------------------
+# --- the options that came with a later slice -------------------------------
 
 
 def _later_models():
-    """A builder per model whose slots and ``sparse_update`` come later,
-    taking config overrides."""
+    """Per model whose slots and ``sparse_update`` came with a later
+    slice: a constructor taking config overrides, its inputs for a seed (an
+    edit of ``base`` in a box when ``box`` is given), and the mask
+    pyramid of a box."""
     from sige_torch.models.gaugan import SIGEFusedSPADEGenerator, SPADEGenConfig
     from sige_torch.models.pd import PDUNetConfig, SIGEPDUNet
     from sige_torch.models.sd import (SDUNetConfig, SDVAEConfig, SIGEDecoder,
@@ -324,30 +328,106 @@ def _later_models():
     from test_torch_pd import CONFIGS as PD_CONFIGS
     from test_torch_sd_unet import TINY_UNET, TINY_VAE
 
+    def noise(shape, seed, box=None, base=None):
+        x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            shape).astype(np.float32))
+        if box is None:
+            return x
+        m = torch.zeros(shape[1:3], dtype=torch.bool)
+        m[box[0] // (R // shape[1]):box[1] // (R // shape[1]),
+          box[2] // (R // shape[1]):box[3] // (R // shape[1])] = True
+        return torch.where(m[None, :, :, None], base + 0.5 * x, base)
+
+    def seg(seed, box=None, base=None):
+        """One-hot labels [1, R, 2R, 6] (the edge channel empty)."""
+        if box is None:
+            labels = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, 4, (R, 2 * R)))
+        else:
+            labels = base[0].argmax(-1).clone()
+            labels[box[0]:box[1], box[2]:box[3]] = 4
+        return torch.nn.functional.one_hot(labels, 6).float()[None]
+
+    def pyramid(box, shape=(R, R), min_res=4):
+        m = np.zeros(shape, bool)
+        m[box[0]:box[1], box[2]:box[3]] = True
+        return downsample_mask(dilate_mask(m, 1), min_res=min_res,
+                               dilation=1)
+
     return {
-        "pd": lambda **kw: SIGEPDUNet(PDUNetConfig(**PD_CONFIGS["tiny"],
-                                                   **kw)),
-        "sd_unet": lambda **kw: SIGESDUNet(SDUNetConfig(**TINY_UNET, **kw)),
-        "sd_decoder": lambda **kw: SIGEDecoder(SDVAEConfig(**TINY_VAE, **kw)),
-        "gaugan": lambda **kw: SIGEFusedSPADEGenerator(
+        "pd": (lambda **kw: SIGEPDUNet(PDUNetConfig(**PD_CONFIGS["tiny"],
+                                                    **kw)),
+               lambda k, box=None, base=None: (
+                   noise((1, R, R, 3), k, box, base and base[0]),
+                   torch.full((1,), 0.5 + k)), pyramid),
+        "sd_unet": (lambda **kw: SIGESDUNet(SDUNetConfig(**TINY_UNET, **kw)),
+                    lambda k, box=None, base=None: (
+                        noise((1, R, R, 4), k, box, base and base[0]),
+                        torch.full((1,), 3.0 + k),
+                        noise((1, 7, 16), 100)), pyramid),
+        "sd_decoder": (lambda **kw: SIGEDecoder(SDVAEConfig(**TINY_VAE,
+                                                            **kw)),
+                       lambda k, box=None, base=None: (
+                           noise((1, R // 2, R // 2, 4), k, box,
+                                 base and base[0]),), pyramid),
+        "gaugan": (lambda **kw: SIGEFusedSPADEGenerator(
             SPADEGenConfig(**GAUGAN_TINY, **kw)),
+                   lambda k, box=None, base=None: (
+                       seg(k, box, base and base[0]),),
+                   lambda box: pyramid(box, (R, 2 * R), (1, 2))),
     }
 
 
 @pytest.mark.parametrize("name", ["pd", "sd_unet", "sd_decoder", "gaugan"])
 def test_slots_and_updates_on_other_models_raise(name):
-    """Cache slots and sparse_update run on the DDPM U-Net; on the PD,
-    SD and GauGAN models they come with a later slice."""
-    build = _later_models()[name]
-    if name != "gaugan":  # its config has no slots
-        with pytest.raises(NotImplementedError, match="later slice"):
-            SIGEModel(build(cache_slots=2), device="cpu")
-    model = SIGEModel(build(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sparse_update"):
-        model.sparse(torch.zeros(1), sparse_update=True)
+    """Cache slots and sparse_update, once left for a later slice, run on
+    the PD, SD and GauGAN models (tests/test_torch_slots.py and
+    tests/test_torch_sd_slots.py hold them to sige_tpu): two slots (one
+    for GauGAN, whose config has none), a commit into the last that
+    touches no tensor of another, the committed edit replaying as the
+    slot's new baseline, and slot 0 replaying its full pass."""
+    build, inputs, masks = _later_models()[name]
+    kw = {} if name == "gaugan" else {"cache_slots": 2}
+    model = SIGEModel(build(**kw), layout="window", device="cpu")
+    model.init(seed=0)
+    last = model.cache_slots - 1
+    args = [inputs(k) for k in range(last + 1)]
+    full = [model.full(*a, cache_id=k) for k, a in enumerate(args)]
+    box = (8, 16, 8, 20)
+    model.set_masks(masks(box))
+    edited = inputs(last + 7, box, args[last])
+    before = [[id(t) for t in model.state.tensors(k)] for k in range(2)]
+    upd = model.sparse(*edited, cache_id=last, sparse_update=True)
+    assert (upd - full[last]).abs().max() > 1e-3
+    assert [id(t) for t in model.state.tensors(last)] != before[last]
+    torch.testing.assert_close(model.sparse(*edited, cache_id=last), upd,
+                               atol=ATOL, rtol=0)
+    if last:
+        assert [id(t) for t in model.state.tensors(0)] == before[0]
+        torch.testing.assert_close(model.sparse(*args[0], cache_id=0),
+                                   full[0], atol=ATOL, rtol=0)
 
 
 def test_cache_dtype_raises():
-    with pytest.raises(NotImplementedError, match="cache_dtype"):
-        SIGEModel(SIGEFusedUNet(DDPMUNetConfig(**TINY)), device="cpu",
-                  cache_dtype=torch.bfloat16)
+    """``cache_dtype``, once left for a later slice, runs with the demo's
+    cache slots: bf16 scatter caches in every slot, a commit that keeps
+    them bf16, and outputs within sige_tpu's own bf16 tolerance (0.05,
+    tests/test_cache_dtype.py) of sige_tpu's fp32 ones (the contract of
+    narrow storage is tests/test_torch_engine_options.py's)."""
+    p = _slot_pair("window")
+    tm = SIGEModel(SIGEFusedUNet(DDPMUNetConfig(**SLOT_CFG)), layout="window",
+                   bucket_min=1, cache_dtype=torch.bfloat16, device="cpu")
+    tm.module.load_state_dict(p.sd)
+    for k in range(SLOTS):
+        got = tm.full(_t(p.xs[k]), _t(p.ts[k]), cache_id=k).numpy()
+        np.testing.assert_allclose(got, p.j_full[k], atol=ATOL, rtol=0)
+    tm.set_masks(p.masks1)
+    got = tm.sparse(_t(p.x1), _t(p.ts[1]), cache_id=1,
+                    sparse_update=True).numpy()
+    np.testing.assert_allclose(got, p.j_update, atol=0.05, rtol=0)
+    for k in range(SLOTS):
+        assert {t.dtype for t in tm.state.tensors(k) if t.ndim == 4} == \
+            {torch.bfloat16}
+    tm.set_masks(p.masks2)
+    got = tm.sparse(_t(p.x2), _t(p.ts[1]), cache_id=1).numpy()
+    np.testing.assert_allclose(got, p.j_second, atol=0.05, rtol=0)

@@ -4,13 +4,15 @@ has no imaging library, so the port carries its own codec).
   * the codec against PIL: PIL-encoded RGB and RGBA images of several
     sizes and contents decode exactly; rows written with each of the five
     filter types decode exactly; the port's encoder is read back by PIL;
-    what it does not read raises ``ValueError``;
+    grey, palette and 16-bit grey as PIL converts them to RGB; what is
+    not a PNG, or a corrupt one, raises ``ValueError``;
   * the canvas ops equal ``sige_tpu.demo.canvas``'s;
   * the in-process HTTP server at ``--tiny`` on the CPU: the page, the
     stamps, reset -> generate -> apply -> generate, each image equal to a
     twin runner's direct output after the server's uint8 conversion; a
-    session out of range, an image of another size and a request without
-    an image answer 400; two sessions over HTTP keep their own state
+    session out of range, a payload that is not an image and a request
+    without an image answer 400, an image of another size is resized to
+    R x R as sige_tpu's server resizes it; two sessions over HTTP keep their own state
     (``tests/test_demo_server.py:55-178``); the command line raises
     without a GPU unless ``--device cpu``; ``--restore_from`` reads a
     checkpoint (a missing file raises) and ``--image`` is resized to
@@ -140,18 +142,19 @@ def test_decode_undoes_every_filter_type(channels):
 
 
 def test_decode_refuses_what_it_does_not_read():
+    """Grey, palette and 16-bit grey PNGs are read as PIL converts them
+    to RGB (tests/test_torch_png.py covers every color type and depth);
+    what is not a PNG, or a corrupt one, raises."""
     a = _content("random", 6, 6, 3)
     good = _pil_png(a)
-    for mode, arr in (("L", a[..., 0]), ("P", a[..., 0])):
+    for mode, arr in (("L", a[..., 0]), ("P", a[..., 0]),
+                      ("I;16", a[..., 0].astype(np.uint16) * 200)):
         buf = io.BytesIO()
-        Image.fromarray(arr, mode).save(buf, format="PNG")
-        with pytest.raises(ValueError, match="bit depth|color type"):
-            decode_png(buf.getvalue())
-    buf = io.BytesIO()
-    Image.fromarray(a[..., 0].astype(np.uint16) * 200).save(buf,
-                                                            format="PNG")
-    with pytest.raises(ValueError):
-        decode_png(buf.getvalue())
+        Image.fromarray(arr, None if mode == "I;16" else mode).save(
+            buf, format="PNG")
+        np.testing.assert_array_equal(
+            decode_png(buf.getvalue()),
+            np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB")))
     with pytest.raises(ValueError, match="signature"):
         decode_png(b"GIF89a" + good[6:])
     corrupt = bytearray(good)
@@ -296,14 +299,39 @@ def test_reset_generate_apply_flow(served):
 
 
 def test_bad_requests_answer_400(served):
-    s, _, base = served
+    """A session out of range, a request without an image and a payload
+    that is not an image answer 400; an edit of another size (R x 2R) is
+    resized to R x R as sige_tpu's server resizes it (PIL's bicubic) and
+    answered 200."""
+    s, twin, base = served
     code, js = _post_status(s.url + "/reset", {"session": 9})
     assert code == 400 and "out of range" in js["error"]
-    code, js = _post_status(s.url + "/generate",
-                            {"image": _data_url(np.zeros((R, 2 * R, 3)))})
-    assert code == 400 and f"{R}x{R}" in js["error"]
     code, js = _post_status(s.url + "/generate", {})
     assert code == 400
+    for image in ("data:image/png;base64," + base64.b64encode(
+            b"not an image").decode(), "no data url", 7):
+        code, js = _post_status(s.url + "/generate", {"image": image})
+        assert code == 400 and "bad image" in js["error"]
+
+    from sige_tpu.demo.server import _png_to_array as j_png_to_array
+
+    _post(s.url + "/reset", {})
+    twin.reset_base_image(base)
+    edited = base.copy()
+    edited[4:14, 6:22] = 0.8
+    wide = _data_url(np.repeat(edited, 2, axis=1))  # R x 2R
+    sent = j_png_to_array(wide, R)
+    np.testing.assert_array_equal(server.png_to_array(wide, R), sent)
+    js = _post(s.url + "/generate", {"image": wide})
+    want = server.to_uint8(twin.generate(sent))
+    got = _decode(js["image"]).astype(np.int64)
+    assert got.shape == (R, R, 3)
+    np.testing.assert_allclose(got, want, atol=2, rtol=0)  # 2/255
+    js = _post(s.url + "/apply", {"image": wide})
+    np.testing.assert_allclose(
+        _decode(js["image"]).astype(np.int64),
+        server.to_uint8(twin.generate(sent, sparse_update=True)), atol=2,
+        rtol=0)
 
 
 def test_multi_session_http_flow():

@@ -172,12 +172,13 @@ def test_tiny_window_unet_card_matches_cpu(chain):
     _card_vs_cpu(*_tiny_ddpm(chain), bucket_min=2)
 
 
-def _tiny_ddpm(chain=True):
+def _tiny_ddpm(chain=True, **kw):
     from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
 
     cfg = DDPMUNetConfig(ch=32, ch_mult=(1, 2, 2), num_res_blocks=1,
                          attn_resolutions=(8,), resolution=32,
-                         sparse_resolution_threshold=16, window_chain=chain)
+                         sparse_resolution_threshold=16, window_chain=chain,
+                         **kw)
     rng = np.random.default_rng(7)
     x0 = torch.from_numpy(rng.standard_normal((1, 32, 32, 3)).astype(
         np.float32))
@@ -349,7 +350,7 @@ def test_tiny_safety_checker_card_matches_cpu(tmp_path):
     np.testing.assert_array_equal(out["cuda"][1][0], out["cpu"][1][0])
 
 
-def _tiny_pd(chain=True):
+def _tiny_pd(chain=True, **kw):
     """tests/test_pd.py's TINY PD U-Net: the window chain crosses its
     resampling resblocks; 4-head attention in the middle block."""
     from sige_torch.models.pd import PDUNetConfig, SIGEPDUNet
@@ -357,7 +358,7 @@ def _tiny_pd(chain=True):
     cfg = PDUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
                        attn_resolutions=(8,), resolution=32, temb_ch=64,
                        head_dim=16, sparse_resolution_threshold=16,
-                       window_chain=chain)
+                       window_chain=chain, **kw)
     gen = torch.Generator().manual_seed(6)
     x0 = torch.randn(1, 32, 32, 3, generator=gen)
     mask = np.zeros((32, 32), bool)
@@ -565,3 +566,131 @@ def test_command_line_defaults_to_the_card(cli, tmp_path):
         for model in models:
             assert all(p.device.type == want
                        for p in model.module.parameters())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tiles", "window"])
+def test_bf16_caches_card_matches_cpu(layout):
+    """``cache_dtype=torch.bfloat16`` on the tiny DDPM U-Net: on the card,
+    bf16 storage gives what fp32 storage of the same rounded values gives
+    (within 1e-5: only storage narrows, the casts ride in the copies), and
+    with the CPU's bf16 caches the card's sparse forward and commit agree
+    with the CPU's (1e-4; the committed caches within one bf16 step and
+    1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    from sige_torch.nn import SIGEModel
+
+    make, args0, args1, masks = _tiny_ddpm(cache_slots=2)
+    models, outs = {}, {}
+    for name, dev, dtype in (("cpu", "cpu", torch.bfloat16),
+                             ("card", "cuda", torch.bfloat16),
+                             ("wide", "cuda", None)):
+        model = SIGEModel(make(), layout=layout, bucket_min=1,
+                          cache_dtype=dtype, device=dev)
+        model.init(0)
+        for k in range(2):
+            model.full(*[a.to(dev) for a in args0], cache_id=k)
+        models[name] = model
+    for name in ("card", "wide"):  # the CPU's rounded caches, on the card
+        for path, slots in models["cpu"].state.caches.items():
+            for k, d in enumerate(slots):
+                for key, v in d.items():
+                    models[name].state.caches[path][k][key] = v.to(
+                        "cuda", None if name == "card" else torch.float32)
+    for name, model in models.items():
+        dev = model.device
+        model.set_masks(masks)
+        a0, a1 = ([a.to(dev) for a in args] for args in (args0, args1))
+        outs[name] = [model.sparse(*a1, cache_id=0).cpu(),
+                      model.sparse(*a1, cache_id=1, sparse_update=True).cpu(),
+                      model.sparse(*a0, cache_id=0).cpu()]
+    for got, wide, want in zip(outs["card"], outs["wide"], outs["cpu"]):
+        assert (got - wide).abs().max().item() <= 1e-5
+        assert (got - want).abs().max().item() <= 1e-4
+    card, cpu = (models[n].state.tensors(1) for n in ("card", "cpu"))
+    for a, b in zip(card, cpu):
+        assert a.dtype == b.dtype
+        if a.dtype == torch.bfloat16:
+            # bf16 roundings of values within 1e-4: half a bf16 step each
+            # (2 ** -8 relative) plus the fp32 difference
+            a, b = a.cpu().float(), b.float()
+            assert ((a - b).abs() <= 2 ** -7 * torch.maximum(a.abs(), b.abs())
+                    + 1e-4).all()
+
+
+def _tiny_family(family):
+    """(make, args0, args1, masks, attention) of one tiny model per
+    family, with two cache slots where the config has them."""
+    if family == "ddpm":
+        return (*_tiny_ddpm(cache_slots=2), True)
+    if family == "pd":
+        return (*_tiny_pd(cache_slots=2), True)
+    if family == "sd_unet":
+        return (*_tiny_sd_unet(cache_slots=2), True)
+    if family == "sd_decoder":
+        return (*_tiny_sd_vae("decoder", cache_slots=2), True)
+    return (*_tiny_gaugan("fused"), False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["ddpm", "pd", "sd_unet", "sd_decoder",
+                                    "gaugan"])
+def test_sparse_update_card_matches_cpu(family):
+    """One tiny model of each family, window layout: full passes on its
+    slots, an edit committed into the last, the committed edit replayed,
+    and slot 0's replay of its original, on the card against the CPU
+    (1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    from sige_torch.nn import SIGEModel
+
+    make, args0, args1, masks, attention = _tiny_family(family)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = SIGEModel(make(), layout="window", bucket_min=1, device=dev)
+        model.init(0)
+        a0, a1 = ([a.to(dev) for a in args] for args in (args0, args1))
+        last = model.cache_slots - 1
+        out = [model.full(*a0, cache_id=k).cpu() for k in range(last + 1)]
+        model.set_masks(masks)
+        before = flash.flash_mha.launches
+        out += [model.sparse(*a1, cache_id=last, sparse_update=True).cpu(),
+                model.sparse(*a1, cache_id=last).cpu(),
+                model.sparse(*a0, cache_id=0).cpu()]
+        if dev == "cuda":
+            assert (flash.flash_mha.launches > before) == attention
+        outs[dev] = out
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert (got - want).abs().max().item() <= 1e-4
+    card = outs["cuda"]
+    assert (card[-2] - card[-3]).abs().max().item() <= 1e-4  # the commit
+    if len(card) == 5:  # two slots: slot 0 kept its full pass
+        assert (card[-1] - card[0]).abs().max().item() <= 1e-4
+
+
+def test_png_codec_on_this_host():
+    """The port's PNG decoder on this host (numpy and zlib as installed
+    here) reads every color type, bit depth and interlacing as PIL does
+    (the expectations of tests/torch_png_writer.py), and the bicubic
+    resize is deterministic; no card needed."""
+    from sige_torch.data import resize_bicubic
+    from sige_torch.demo.png import decode_png, encode_png
+    from torch_png_writer import CASES, encode, expected_rgb, pixels
+
+    rng = np.random.default_rng(9)
+    for color, depth, interlace in CASES:
+        palette = (rng.integers(0, 256, (12, 3)) if color == 3 else None)
+        for h, w in ((1, 1), (5, 7), (9, 13)):
+            px = pixels(rng, h, w, color, depth)
+            got = decode_png(encode(px, color, depth, interlace, palette))
+            assert np.array_equal(got[..., :3],
+                                  expected_rgb(px, color, depth, palette)), \
+                (color, depth, interlace, h, w)
+    img = rng.integers(0, 256, (12, 20, 3), dtype=np.uint8)
+    assert np.array_equal(decode_png(encode_png(img)), img)
+    small = resize_bicubic(img, (6, 10))
+    assert small.shape == (6, 10, 3) and small.dtype == np.uint8
+    assert np.array_equal(small, resize_bicubic(img, (6, 10)))
+    with pytest.raises(ValueError, match="JPEG"):
+        decode_png(b"\xff\xd8\xff\xe0" + bytes(16))

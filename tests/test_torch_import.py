@@ -23,6 +23,8 @@ def _sources():
         ROOT / "scripts" / "retime_cost.py",
         ROOT / "scripts" / "checkpoint_times.py",
         ROOT / "scripts" / "sd_text_times.py",
+        ROOT / "scripts" / "engine_option_times.py",
+        ROOT / "tests" / "torch_png_writer.py",
         ROOT / "tests" / "test_torch_gpu.py"]
 
 

@@ -301,6 +301,19 @@ def test_timestep_embedding_matches_sige_tpu():
 
 
 def test_later_options_raise():
-    with pytest.raises(NotImplementedError):
-        SIGEModel(SIGESDUNet(SDUNetConfig(**TINY_UNET, cache_slots=2)),
-                  device="cpu")
+    """Cache slots, once left for a later slice, run on the SD U-Net: a
+    full pass fills its own slot only, the text K/V caches included
+    (tests/test_torch_slots.py holds slots and sparse_update to
+    sige_tpu)."""
+    model = SIGEModel(SIGESDUNet(SDUNetConfig(**TINY_UNET, cache_slots=2)),
+                      device="cpu")
+    assert model.cache_slots == 2
+    model.init(seed=0)
+    rng = np.random.default_rng(4)
+    model.full(_t(rng.standard_normal((1, H, H, 4)).astype(np.float32)),
+               _t(np.full((1,), 3.0, np.float32)),
+               _t(rng.standard_normal((1, 7, 16)).astype(np.float32)),
+               cache_id=1)
+    assert not model.state.tensors(0)
+    names = {k for slots in model.state.caches.values() for k in slots[1]}
+    assert {"original", "k", "v", "scale", "shift"} <= names
