@@ -1,6 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase {checkpoints,sd_text,engine_options,quality}
+
+With ``--phase`` it builds the kernels and runs that phase alone (13, 14
+with phase 13's SD checkpoint, 15 or 16), printing the card first and
+the phase's record as one JSON line last.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -195,9 +200,35 @@ Phases (any failure raises and the script exits non-zero):
             edits keep the pinned shapes, a new edit's cost (first call
             minus its repeat) with pins and without, pinned = unpinned
             output, and ``merge_pins`` over two sessions' plans feeding
-            one ``set_masks`` each.
+            one ``set_masks`` each;
+16. quality path — at the backbones' published widths, synthetic
+            weights from seeds written in the published checkpoints'
+            layouts (:func:`metric_weights`) into a temporary directory:
+            (a) AlexNet's LPIPS taps on a 256^2 pair, ``FIDInception`` on
+            16 images of 256^2 and 8 of 512^2 (resized to 299) and
+            ``DRNSeg`` at 512x256 on the card against the port's CPU
+            float64 run of the same module (within 1e-4 * max(1,
+            max|ref|); the LPIPS distance within 1e-5 and the FID within
+            1e-3 relative; the DRN labels equal away from near-ties), and
+            each backbone run under TF32 outside the fp32 scope has to
+            miss that limit (a control: the limit sees the precision); ms
+            per forward on CUDA events, GMACs, launches, peak MB;
+            (c) ``cli.golden --family ddpm`` at church256 (a reference
+            fused checkpoint over a ``file://`` mirror with its md5 in the
+            registry spec, a 2-image SDEdit dataset, PSNR, LPIPS and FID):
+            the md5-verified fetch, the files, the scored list, the flash
+            launches of its two generates held exactly;
+            (b) ``cli.get_metric`` on the card over (c)'s images against
+            their originals (PSNR with masks, LPIPS, FID, mIoU through the
+            DRN), each held to an in-process ``--device cpu`` run: PSNR
+            and mIoU lines equal, LPIPS within 1e-4, FID within 1e-3
+            relative.
 
-The paths (phases 4-7, 9 and 11-15) run under PyTorch's default precision flags,
+Phases 6, 7, 9 and 11 also time ``SIGEModel.set_masks`` (host planning
+and the plan's upload) per family on its edit, median of 10 on the host
+clock, beside the sparse forward's median.
+
+The paths (phases 4-7, 9 and 11-16) run under PyTorch's default precision flags,
 which run cuDNN convs in TF32: the engine holds fp32 and benchmark mode
 for its own forwards, and the script checks that the flags are the
 defaults again at its end. The kernel phases enter the same scope.
@@ -644,6 +675,40 @@ def expected_launches(flash, cfg, forwards: int = 1 + 2 * STEPS):
     return forwards * sum(calls.values()), combines
 
 
+def planning_ms(name, model, plan, sparse_ms, n: int = 10):
+    """Host ms of ``model.set_masks`` on the mask pyramids that ``plan()``
+    hands to it (the host planner and the plan's one copy to the card,
+    synchronised): median of ``n`` calls, printed beside the sparse
+    forward's median ``sparse_ms``; the plan it sets is the one ``plan()``
+    set."""
+    seen = []
+
+    def record(masks, *a, **kw):
+        seen.append(masks)
+        return type(model).set_masks(model, masks, *a, **kw)
+
+    model.set_masks = record
+    try:
+        plan()
+    finally:
+        del model.set_masks
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.set_masks(seen[-1])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res = {"set_masks_ms": float(np.median(times)),
+           "set_masks_ms_min_max": [min(times), max(times)],
+           "sparse_ms": sparse_ms, "layout": model.state.active_layout}
+    print(f"  [{name}] planning: set_masks {res['set_masks_ms']:.3f} ms "
+          f"median of {n} (host clock, {min(times):.3f}-{max(times):.3f}; "
+          f"{res['layout']}) beside the sparse forward's "
+          f"{sparse_ms:.3f} ms median", flush=True)
+    return res
+
+
 def phase_path(flash, name, layout, want_layout, rc, profile_iters):
     """One full-width path through ``DiffusionRunner`` (``layout=None``:
     the runner's default); returns its launch counts of ``generate`` and,
@@ -718,9 +783,13 @@ def phase_path(flash, name, layout, want_layout, rc, profile_iters):
               f"(p90 {p['latency_p90_ms']:.3f}, n={p['iters']}), "
               f"{p['macs_g']:.2f} GMACs, peak {p['peak_mb']:.1f} MB",
               flush=True)
+    planning = (planning_ms(name, runner.model,
+                            lambda: runner.preprocess(original, edited),
+                            prof["sparse"]["latency_ms"])
+                if profile_iters else None)
     result = {"layout": runner.active_layout, "launches": launches,
               "combine_launches": combines, "generate_s": gen_s,
-              "profile": prof}
+              "profile": prof, "planning": planning}
     del runner
     torch.cuda.empty_cache()
     return result
@@ -994,6 +1063,11 @@ def phase_sd(flash):
                                     calls[n, mode])
                 for mode in ("full", "sparse")}
             for n in ("unet", "decoder", "encoder")}
+    masks, dec_masks = runner.edit_masks(init, edit)
+    planning = {n: planning_ms(f"sd {n}", models[n],
+                               lambda n=n, m=m: models[n].set_masks(m),
+                               prof[n]["sparse"]["latency_ms"])
+                for n, m in (("unet", masks), ("decoder", dec_masks))}
     dec = prof["decoder"]
     print(f"  [sd decoder] sparse forward {dec['sparse']['latency_ms']:.3f} "
           f"ms (peak {dec['sparse']['peak_mb']:.1f} MB) against full "
@@ -1026,6 +1100,7 @@ def phase_sd(flash):
               "combine_launches": combines, "twin_steps": t_enc,
               "params_m": params, "exact": exact, "profile": prof,
               "resident_mb": resident, "retime_sdedit_s": secs,
+              "planning": planning,
               "unet_calls": {m: len(calls["unet", m]) for m in
                              ("full", "sparse")}}
     del runner, models, args
@@ -1177,13 +1252,16 @@ def phase_pd(flash):
     prof = {mode: forward_stats(flash, "pd", runner.model, args[mode], mode,
                                 calls, iters=PD_ITERS)
             for mode in ("dense", "full", "sparse")}
+    planning = planning_ms("pd", runner.model,
+                           lambda: runner.preprocess(original, edited),
+                           prof["sparse"]["latency_ms"])
     resident = resident_mb(runner.model)
     print(f"  [pd] resident (params + caches) MB: {resident:.1f}",
           flush=True)
     result = {"layout": runner.active_layout, "params_m": params_m,
               "exact": errs, "generate_s": gen_s, "launches": launches,
               "combine_launches": combines, "profile": prof,
-              "resident_mb": resident}
+              "resident_mb": resident, "planning": planning}
     del runner
     torch.cuda.empty_cache()
     return result, recorded
@@ -1350,6 +1428,9 @@ def phase_gaugan(flash):
     if round(dense_g, 1) != GAUGAN_DENSE_GMACS:
         raise AssertionError(f"gaugan: dense {dense_g:.3f} GMACs, sige_tpu "
                              f"counts {GAUGAN_DENSE_GMACS}")
+    planning = planning_ms("gaugan", runner.model,
+                           lambda: runner.preprocess(original, edited),
+                           prof["sparse"]["latency_ms"])
     resident = resident_mb(runner.model)
     print(f"  [gaugan] resident (params + caches) MB: {resident:.1f}",
           flush=True)
@@ -1389,7 +1470,7 @@ def phase_gaugan(flash):
             "retime_generate_s": secs, "exact": exact,
             "sparse_vs_dense": {"max": diff.max().item(),
                                 "mean": diff.mean().item()},
-            "profile": prof, "resident_mb": resident,
+            "profile": prof, "resident_mb": resident, "planning": planning,
             "tiles": {"exact": tiles_exact, "profile": tiles_prof},
             "sub_mobile": {"config": SUB_MOBILE_CONFIG, "params_m": sub_m,
                            "layout": "window", "exact": sub_exact,
@@ -3307,10 +3388,439 @@ def phase_engine_options(flash, seen, first_row):
     return rec, rows
 
 
-def main() -> int:
+# --- phase 16: the quality path ---------------------------------------------
+
+def metric_weights(tmp, seed: int = 0):
+    """Synthetic checkpoints of the metric backbones at their published
+    widths, in the published files' layouts, written into ``tmp``:
+    torchvision ``alexnet`` (``features.*``) and ``inception_v3`` (with
+    its ``fc`` head, which the converter drops), the lpips ``alex.pth``
+    lins (``lin<i>.model.1.weight``, uniform in [0, 1)) and the
+    DataParallel ``drn-d-105_ms_cityscapes.pth`` (``module.`` prefix, the
+    frozen ``up.weight``); values from ``seeded_state`` (which keeps the
+    DRN's logits ~1e1, so that 1e-4 * max|ref| is a limit that a loss of
+    precision fails). Returns {flag name: path}."""
+    import os
+
+    from sige_torch.metrics.backbones import (AlexNetFeatures, DRNSeg,
+                                              InceptionV3Features)
+    from sige_torch.metrics.backbones.alexnet import CHANNELS
+    from sige_torch.metrics.backbones.common import seeded_state
+    from sige_torch.metrics.backbones.drn import _bilinear_up_kernel
+
+    with torch.device("meta"):
+        alex, inception, drn = AlexNetFeatures(), InceptionV3Features(), DRNSeg()
+    gen = torch.Generator().manual_seed(seed + 3)
+    weights = {
+        "backbone_weights": seeded_state(alex, seed),
+        "lpips_weights": {f"lin{i}.model.1.weight":
+                          torch.rand((1, c, 1, 1), generator=gen)
+                          for i, c in enumerate(CHANNELS)},
+        "inception_weights": dict(
+            seeded_state(inception, seed + 1),
+            **{"fc.weight": 0.01 * torch.randn((1000, 2048), generator=gen),
+               "fc.bias": torch.zeros(1000)}),
+        "drn_weights": dict(
+            {f"module.{k}": v for k, v in seeded_state(drn, seed + 2).items()},
+            **{"module.up.weight": torch.from_numpy(
+                _bilinear_up_kernel(16)).expand(19, 1, 16, 16).clone()}),
+    }
+    paths = {}
+    for flag, sd in weights.items():
+        paths[flag] = os.path.join(tmp, f"{flag}.pth")
+        torch.save(sd, paths[flag])
+    return paths
+
+
+def _rel_err(name, got, ref, tol):
+    """|got - ref| / |ref| within ``tol``, printed; returns it."""
+    rel = abs(got - ref) / abs(ref)
+    print(f"    {name}: card {got:.9g}, CPU {ref:.9g}, relative "
+          f"{rel:.3e} (tolerance {tol:.0e})", flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"{name}: relative {rel:.3e} > {tol:.0e}")
+    return rel
+
+
+def on_cpu_float64(wrapper):
+    """A shallow copy of a metric wrapper whose module is a float64 copy
+    on the CPU (the wrappers read their device and dtype from it)."""
+    import copy
+
+    ref = copy.copy(wrapper)
+    ref.module = copy.deepcopy(wrapper.module).to("cpu", torch.float64)
+    return ref
+
+
+def tf32_control(name, module, x, refs):
+    """The control of (a)'s limit: ``module(x)`` on the card with TF32
+    allowed in cuDNN's convs and CUDA's matmuls (outside the engine's
+    fp32 scope), against the CPU float64 outputs ``refs`` (NHWC, or
+    [B, F]) that the fp32 run was held to. It has to miss 1e-4 * max(1,
+    max|ref|) on some output: then the limit sees the precision that the
+    scope holds. The caller's flags come back. Returns the worst
+    error over its limit."""
+    saved = precision_flags()
+    set_precision_flags(("tf32", "tf32", *saved[2:]))
+    try:
+        with torch.inference_mode():
+            out = module(x)
+    finally:
+        set_precision_flags(saved)
+    ratios = []
+    for o, r in zip(out if isinstance(out, (list, tuple)) else [out], refs):
+        o = o.double().cpu()
+        o = o.permute(0, 2, 3, 1) if o.ndim == 4 else o
+        r = torch.as_tensor(np.asarray(r)).double().reshape(o.shape)
+        scale = max(1.0, r.abs().max().item())
+        ratios.append((o - r).abs().max().item() / (TOL * scale))
+    print(f"    {name} TF32 control: max err / limit {max(ratios):.2f} over "
+          f"{len(ratios)} output(s) (must exceed 1)", flush=True)
+    if not max(ratios) > 1:
+        raise AssertionError(f"{name}: TF32 stays within the limit; it "
+                             f"cannot tell fp32 from TF32")
+    return max(ratios)
+
+
+def backbone_row(name, module, x, iters: int = 20):
+    """ms per forward of ``module(x)`` on CUDA events (median of ``iters``
+    after 3 warm-ups), its GMACs (``FlopCounterMode`` / 2), kernel
+    launches and busy ms per forward (a profiler trace) and peak MB."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sige_torch.metrics.backbones.common import run
+
+    fwd = lambda: run(module, x)  # noqa: E731
+    for _ in range(3):
+        fwd()
+    median, p90 = events_ms(fwd, iters)
+    with FlopCounterMode(display=False) as fc:
+        fwd()
+    busy, launches = trace_stats(fwd, iters=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd()
+    torch.cuda.synchronize()
+    row = {"input": list(x.shape), "ms": median, "p90_ms": p90,
+           "gmacs": fc.get_total_flops() / 2e9, "launches": launches,
+           "busy_ms": busy,
+           "peak_mb": torch.cuda.max_memory_allocated() / 2**20}
+    print(f"  [quality {name}] forward {tuple(x.shape)}: {median:.3f} ms "
+          f"median (p90 {p90:.3f}, n={iters}), {row['gmacs']:.3f} GMACs, "
+          f"{launches} kernel launches, busy {busy} ms, peak "
+          f"{row['peak_mb']:.1f} MB", flush=True)
+    return row
+
+
+def quality_backbones(weights):
+    """(a) of phase 16: each backbone at its published width on the card
+    against the port's CPU float64 run of the same module, on seeded
+    inputs: AlexNet's LPIPS taps on a 256^2 pair and their distance;
+    ``FIDInception`` on 16 images of 256^2 (up to 299) and 8 of 512^2
+    (down to 299) and the FID between the two sets; ``DRNSeg`` on
+    GauGAN's 512x256 output size, its logits and labels. Each backbone's
+    TF32 control then has to miss the limit (:func:`tf32_control`)."""
+    from sige_torch.metrics import (LPIPS, compute_fid, frechet_distance,
+                                    gaussian_stats)
+    from sige_torch.metrics.backbones import CityscapesSegmenter, FIDInception
+    from sige_torch.metrics.backbones.alexnet import LPIPS_SCALE, LPIPS_SHIFT
+    from sige_torch.metrics.backbones.common import nchw
+    from sige_torch.metrics.backbones.inception import resize_299
+    from sige_torch.metrics.lpips import lpips_from_features
+    from sige_torch.utils.convert import load_torch_state_dict
+
+    rng = np.random.default_rng(16)
+    out = {}
+
+    # AlexNet: the LPIPS taps and distance on a 256^2 pair (church256)
+    lp = LPIPS(weights["backbone_weights"], weights["lpips_weights"],
+               device="cuda")._impl
+    ref = on_cpu_float64(lp)
+    a = rng.random((256, 256, 3)).astype(np.float32) * 2 - 1
+    b = a.copy()
+    b[96:160, 80:176] = rng.random((64, 96, 3)) * 2 - 1
+    taps = {k: (m.features(a), m.features(b)) for k, m in (("card", lp),
+                                                           ("cpu", ref))}
+    errs = [_close_to(f"quality alexnet tap {i} ({t.shape[-1]} ch)",
+                      torch.from_numpy(t), torch.from_numpy(
+                          taps["cpu"][j][i]))["max_err"]
+            for j in range(2) for i, t in enumerate(taps["card"][j])]
+    d = {k: lpips_from_features(*v, lp.lins) for k, v in taps.items()}
+    x = nchw(((a - LPIPS_SHIFT) / LPIPS_SCALE)[None], lp.module)
+    out["alexnet"] = dict(
+        backbone_row("alexnet", lp.module, x), max_err=max(errs), lpips=d,
+        lpips_rel=_rel_err("LPIPS distance", d["card"], d["cpu"], 1e-5),
+        tf32_over_limit=tf32_control("alexnet", lp.module, x,
+                                     taps["cpu"][0]))
+
+    # InceptionV3: 16 images of 256^2 and 8 of 512^2 to 299, and their FID
+    fi = FIDInception(load_torch_state_dict(weights["inception_weights"]),
+                      device="cuda")
+    ref = on_cpu_float64(fi)
+    sets = [rng.random((16, 256, 256, 3)).astype(np.float32),
+            rng.random((8, 512, 512, 3)).astype(np.float32)]
+    feats = {k: [m(s) for s in sets] for k, m in (("card", fi),
+                                                  ("cpu", ref))}
+    errs = [_close_to(f"quality inception from {s.shape[1]}^2",
+                      torch.from_numpy(feats["card"][i]),
+                      torch.from_numpy(feats["cpu"][i]))["max_err"]
+            for i, s in enumerate(sets)]
+    fid = {k: frechet_distance(*gaussian_stats(f[0]), *gaussian_stats(f[1]))
+           for k, f in feats.items()}
+    if compute_fid(*sets, fi) != fid["card"]:
+        raise AssertionError("compute_fid differs from its own statistics")
+    x = resize_299(nchw(sets[1], fi.module)) * 2.0 - 1.0
+    out["inception"] = dict(
+        backbone_row("inception", fi.module, x), max_err=max(errs), fid=fid,
+        fid_rel=_rel_err("FID (16 x 256^2 against 8 x 512^2)", fid["card"],
+                         fid["cpu"], 1e-3),
+        tf32_over_limit=tf32_control("inception", fi.module, x,
+                                     [feats["cpu"][1]]))
+    del fi, ref, feats
+
+    # DRN-D-105: GauGAN's 512x256 output
+    seg = CityscapesSegmenter(load_torch_state_dict(weights["drn_weights"]),
+                              device="cuda")
+    ref = on_cpu_float64(seg)
+    img = rng.random((256, 512, 3)).astype(np.float32)
+    logits = {k: m.logits(img)[0].permute(1, 2, 0).cpu().numpy()
+              for k, m in (("card", seg), ("cpu", ref))}
+    err = _close_to("quality drn logits (256x512)",
+                    *map(torch.from_numpy, (logits["card"],
+                                            logits["cpu"])))["max_err"]
+    top2 = np.sort(logits["cpu"], axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 1e-3 * np.abs(logits["cpu"]).max()
+    labels = {k: v.argmax(-1) for k, v in logits.items()}
+    if not np.array_equal(seg(img), labels["card"]):
+        raise AssertionError("drn: the segmenter's labels are not its "
+                             "logits' argmax")
+    differ = int((labels["card"] != labels["cpu"])[clear].sum())
+    print(f"    drn labels: {differ} of {int(clear.sum())} clear pixels "
+          f"differ ({clear.size - int(clear.sum())} near-ties set aside)",
+          flush=True)
+    if differ:
+        raise AssertionError(f"drn: {differ} labels differ away from ties")
+    x = nchw(((img - seg.MEAN) / seg.STD)[None], seg.module)
+    out["drn"] = dict(backbone_row("drn", seg.module, x), max_err=err,
+                      clear_share=float(clear.mean()), labels_differ=differ,
+                      tf32_over_limit=tf32_control("drn", seg.module, x,
+                                                   [logits["cpu"]]))
+    del seg, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sdedit_dataset(root, R: int = 256, n: int = 2):
+    """The reference SDEdit layout: ``original/``, ``edited/`` and
+    ``gt/`` (the originals) with matching names, seeded random images
+    each edited in a square of ~1.2% of the canvas; raw Cityscapes label
+    maps in ``labels/``."""
+    import os
+
+    from sige_torch.data import save_image
+
+    rng = np.random.default_rng(17)
+    side = int(round((0.012 * R * R) ** 0.5))
+    for i in range(n):
+        original = rng.random((R, R, 3)).astype(np.float32)
+        edited = original.copy()
+        r, c = (1 + i) * R // 4, R // 3
+        edited[r:r + side, c:c + side] = rng.random((side, side, 3))
+        name = f"{i:03d}.png"
+        for sub, img in (("original", original), ("edited", edited),
+                         ("gt", original)):
+            save_image(os.path.join(root, sub, name), img)
+        os.makedirs(os.path.join(root, "labels"), exist_ok=True)
+        np.save(os.path.join(root, "labels", f"{i:03d}.npy"),
+                rng.integers(0, 34, (R, R)))
+
+
+def quality_golden(flash, tmp, weights):
+    """(c) of phase 16: ``cli.golden --family ddpm`` at church256 full
+    width: a reference-layout fused checkpoint served over a ``file://``
+    mirror (its md5 patched into the registry spec, downloads allowed for
+    the call), a 2-image SDEdit dataset, PSNR, LPIPS and FID with the
+    synthetic backbones; the md5-verified fetch, the generated files, the
+    scored list and the flash launches of the two generates."""
+    import hashlib
+    import os
+
+    from sige_torch.cli import golden
+    from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
+    from sige_torch.utils import registry
+
+    cfg = DDPMUNetConfig()
+    name = "church256-ddpm-fused_unet.pth"
+    mirror = os.path.join(tmp, "mirror", name)
+    os.makedirs(os.path.dirname(mirror))
+    with torch.device("meta"):
+        layout = reference_layout("ddpm", SIGEFusedUNet(cfg))
+    torch.save(reference_values(layout, 16), mirror)
+    with open(mirror, "rb") as f:
+        md5 = hashlib.md5(f.read()).hexdigest()
+    data_root = os.path.join(tmp, "church_outdoor_sdedit")
+    _sdedit_dataset(data_root, cfg.resolution)
+    save_dir, pretrained = (os.path.join(tmp, d)
+                            for d in ("results", "pretrained"))
+    spec = registry.REGISTRY[name]
+    registry.REGISTRY[name] = registry.CheckpointSpec(
+        name, md5, "file://" + mirror, spec.converter)
+    env = os.environ.get("SIGE_TPU_ALLOW_DOWNLOAD")
+    os.environ["SIGE_TPU_ALLOW_DOWNLOAD"] = "1"
+    try:
+        flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+        scored, out, secs = _run_cli(golden.main, [
+            "--family", "ddpm", "--data_root", data_root,
+            "--save_dir", save_dir, "--pretrained_root", pretrained,
+            "--mirror", "file://" + mirror, "--metrics", "psnr,lpips,fid",
+            "--backbone_weights", weights["backbone_weights"],
+            "--lpips_weights", weights["lpips_weights"],
+            "--inception_weights", weights["inception_weights"],
+            "--device", "cuda", "--",
+            "--hparams", f"sampling.sample_steps={STEPS}"])
+        counts = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+    finally:
+        registry.REGISTRY[name] = spec
+        if env is None:
+            del os.environ["SIGE_TPU_ALLOW_DOWNLOAD"]
+        else:
+            os.environ["SIGE_TPU_ALLOW_DOWNLOAD"] = env
+    with open(os.path.join(pretrained, name), "rb") as f:
+        fetched_md5 = hashlib.md5(f.read()).hexdigest()
+    files = sorted(os.listdir(save_dir))
+    want = tuple(2 * n for n in expected_launches(flash, cfg))
+    print(f"  [quality golden] {secs:.2f} s; fetched md5 {fetched_md5} "
+          f"(registry {md5}); wrote {files}; scored {scored}; flash "
+          f"launches {counts[0]} + {counts[1]} combine (expected {want[0]} "
+          f"+ {want[1]}: two generates)", flush=True)
+    if fetched_md5 != md5:
+        raise AssertionError("golden: the fetched checkpoint's md5 differs")
+    if files != ["000.png", "001.png", "index.html"]:
+        raise AssertionError(f"golden: wrote {files}")
+    _expect_lines("golden", out, r"^\[golden\] scored: \['psnr', 'lpips', "
+                  r"'fid'\]", r"^PSNR: [\d.]+ over 2 images$",
+                  r"^LPIPS: [\d.]+ over 2 images$", r"^FID: [\d.]+$")
+    if counts != want:
+        raise AssertionError(f"golden: flash launches {counts}, expected "
+                             f"{want}")
+    return {"s": secs, "scored": scored, "launches": counts[0],
+            "combine_launches": counts[1], "files": files,
+            "md5": fetched_md5}, save_dir, data_root
+
+
+def quality_get_metric(save_dir, data_root, weights):
+    """(b) of phase 16: ``cli.get_metric`` on the card over (c)'s DDPM
+    images against their originals (PSNR with ``--mask_root``, LPIPS,
+    FID, and mIoU through the DRN against raw label maps), each line and
+    its wall seconds, held to an in-process ``--device cpu`` run of the
+    same command: PSNR and mIoU lines equal, LPIPS within 1e-4 and FID
+    within 1e-3 relative."""
+    import os
+
+    from sige_torch.cli import get_metric
+    from sige_torch.core.masks import compute_difference_mask, dilate_mask
+    from sige_torch.data import load_image
+
+    masks = os.path.join(data_root, "masks")
+    os.makedirs(masks)
+    for name in sorted(os.listdir(os.path.join(data_root, "original"))):
+        a, b = (load_image(os.path.join(data_root, sub, name))
+                for sub in ("original", "edited"))
+        np.save(os.path.join(masks, name.replace(".png", ".npy")),
+                dilate_mask(compute_difference_mask(a, b, eps=0.01), 5))
+    base = ["--root", save_dir, "--gt_root", os.path.join(data_root, "gt")]
+    runs = {
+        "psnr": ["--metric", "psnr", *base, "--mask_root", masks],
+        "lpips": ["--metric", "lpips", *base, "--backbone_weights",
+                  weights["backbone_weights"], "--lpips_weights",
+                  weights["lpips_weights"]],
+        "fid": ["--metric", "fid", *base, "--inception_weights",
+                weights["inception_weights"]],
+        "miou": ["--metric", "miou", "--root", save_dir, "--gt_root",
+                 os.path.join(data_root, "labels"), "--drn_weights",
+                 weights["drn_weights"]],
+    }
+    out = {}
+    for metric, argv in runs.items():
+        res = {}
+        for device in ("cuda", "cpu"):
+            value, line, secs = _run_cli(get_metric.main,
+                                         argv + ["--device", device])
+            res[device] = {"value": value, "line": line.strip(), "s": secs}
+        print(f"  [quality get_metric] {metric}: card {res['cuda']['s']:.2f} "
+              f"s, CPU {res['cpu']['s']:.2f} s", flush=True)
+        card, cpu = res["cuda"]["value"], res["cpu"]["value"]
+        if metric in ("psnr", "miou"):
+            if res["cuda"]["line"] != res["cpu"]["line"]:
+                raise AssertionError(f"get_metric {metric}: card "
+                                     f"{res['cuda']['line']!r} != CPU "
+                                     f"{res['cpu']['line']!r}")
+        else:
+            res["rel"] = _rel_err(f"get_metric {metric}", card, cpu,
+                                  1e-4 if metric == "lpips" else 1e-3)
+        out[metric] = res
+    return out
+
+
+def phase_quality(flash):
+    """Phase 16: the quality path at the published widths on the card;
+    synthetic backbone checkpoints and the golden run's files in a
+    temporary directory. Returns its record."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sige-quality-") as tmp:
+        weights = metric_weights(tmp)
+        rec = {"backbones": quality_backbones(weights)}
+        rec["golden"], save_dir, data_root = quality_golden(flash, tmp,
+                                                            weights)
+        rec["get_metric"] = quality_get_metric(save_dir, data_root, weights)
+    rec["s"] = time.perf_counter() - t0
+    print(f"  [quality] phase 16 in {rec['s']:.1f} s", flush=True)
+    return rec
+
+
+def one_phase(flash, name: str) -> dict:
+    """The record of one phase run alone, as ``--phase`` selects it."""
+    import tempfile
+
+    if name == "checkpoints":
+        return phase_checkpoints(flash)
+    if name == "sd_text":
+        with tempfile.TemporaryDirectory(prefix="sige-sd-text-") as tmp:
+            ckpt = checkpoint_sd(flash, tmp, _Seconds())
+            result, rows = phase_sd_text(flash, tmp, set(), 25)
+        return {"checkpoint_sd": ckpt, "sd_text": result, "rows": rows}
+    if name == "engine_options":
+        result, rows = phase_engine_options(flash, set(), 27)
+        return {"options": result, "rows": rows}
+    return {"quality": phase_quality(flash)}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                "NVIDIA GPU (every phase, or one).")
+    p.add_argument("--phase", choices=("checkpoints", "sd_text",
+                                       "engine_options", "quality"))
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.phase:
+        from sige_torch.ops import flash
+
+        t0 = time.perf_counter()
+        print(f"card: {card_line()} | torch {torch.__version__} cuda "
+              f"{torch.version.cuda}", flush=True)
+        flash.LIBRARY.load()
+        result = one_phase(flash, args.phase)
+        print(f"elapsed: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps(result, default=str), flush=True)
+        return 0
     t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -3390,6 +3900,10 @@ def main() -> int:
         flash, {(r["B"], r["N"], r["M"], r["H"], r["D"], r["bias"])
                 for r in rows}, len(rows))
     rows += option_rows
+    print("quality path (LPIPS, FID and mIoU backbones at their published "
+          "widths, cli.get_metric, cli.golden --family ddpm at church256):",
+          flush=True)
+    quality = phase_quality(flash)
     if precision_flags() != defaults:
         raise AssertionError(f"precision flags {precision_flags()} after the "
                              f"run, {defaults} before it")
@@ -3415,6 +3929,7 @@ def main() -> int:
             cli_pd_generate=ckpt["pd"]["flash_counts"][0],
             cli_sd_sdedit=ckpt["sd"]["flash_counts"][0],
             cli_sd_prompt=sd_text["cli"]["prompt"]["launches"][0],
+            golden_ddpm=quality["golden"]["launches"],
             sd_unet_kv_sparse=sd_text["kv_cache"]["kv"]["sparse"][
                 "launches"],
             **{f"options_{n.replace(' ', '_')}_{k}": r[k]["launches"]
@@ -3448,7 +3963,7 @@ def main() -> int:
     print(json.dumps({"paths": paths, "retime": retime, "sd": sd, "pd": pd,
                       "gaugan": gaugan, "demo": demo, "checkpoints": ckpt,
                       "sd_text": sd_text, "options": options,
-                      "card": card}),
+                      "quality": quality, "card": card}),
           flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

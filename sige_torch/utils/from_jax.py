@@ -31,6 +31,14 @@ vision models (``FlaxCLIPTextModel`` / ``FlaxCLIPVisionModel`` trees:
 ``text_model.*`` / ``vision_model.*``, the layer lists keyed ``"0"``,
 ``"1"``, ..., the vision ``class_embedding`` a bare leaf), whose names
 are the port's CLIP modules' and the torch checkpoints'.
+
+The metric backbones keep their reference checkpoints' names in the port
+(torchvision's ``features.<i>`` and ``<block>.conv`` / ``<block>.bn``,
+the DRN's ``base.<i>`` children), which segment-wise renaming cannot
+reach: :func:`alexnet_state_from_flax`, :func:`inception_state_from_flax`
+and :func:`drn_state_from_flax` map those trees, and
+:func:`lpips_state_from_lins` writes LPIPS's per-layer channel weights in
+the lpips ``alex.pth`` layout.
 """
 
 from __future__ import annotations
@@ -91,3 +99,72 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, ())
     return out
+
+
+def _flat(params: Mapping, path: Tuple[str, ...] = ()):
+    for k, v in params.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v)
+
+
+def _renamed(params: Mapping, module_key) -> Dict[str, torch.Tensor]:
+    """{``module_key(flax module path, leaf)`` + torch leaf: tensor}."""
+    out = {}
+    for path, a in _flat(params):
+        name, a = _leaf(path[-1], a)
+        prefix, name = module_key(path[:-1], name)
+        out[f"{prefix}.{name}"] = torch.from_numpy(np.array(a, np.float32))
+    return out
+
+
+def alexnet_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``sige_tpu``'s ``AlexNetFeatures`` tree (``conv0`` .. ``conv4``) ->
+    the port's state dict (torchvision's ``features.{0,3,6,8,10}``)."""
+    idx = (0, 3, 6, 8, 10)
+    return _renamed(params, lambda mod, name: (
+        f"features.{idx[int(mod[0][4:])]}", name))
+
+
+def inception_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``sige_tpu``'s ``InceptionV3Features`` tree -> the port's state
+    dict: a BasicConv2d's ``conv/kernel`` stays ``conv.weight``, its
+    BatchNorm leaves (``scale``, ``bias``, ``running_*``) go under
+    ``bn``."""
+    def key(mod, name):
+        if mod[-1] == "conv":
+            return ".".join(mod), name
+        return ".".join(mod) + ".bn", name
+    return _renamed(params, key)
+
+
+def drn_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``sige_tpu``'s ``DRNSeg`` tree -> the port's state dict: ``seg``
+    stays; in ``base``, ``layer0_conv`` / ``layer0_bn`` are children 0 / 1
+    of ``base.0``, the plain layers ``layer{1,2,7,8}_<i>``'s ``conv`` /
+    ``bn`` children ``3i`` / ``3i + 1`` of ``base.<l>``, and the
+    bottlenecks ``layer{3..6}_<i>`` are ``base.<l>.<i>``, their
+    ``downsample_conv`` / ``downsample_bn`` ``downsample.0`` / ``.1``."""
+    def key(mod, name):
+        if mod[0] == "seg":
+            return "seg", name
+        layer, rest = mod[1], mod[2:]
+        if layer in ("layer0_conv", "layer0_bn"):
+            return f"base.0.{0 if layer.endswith('conv') else 1}", name
+        l, i = (int(n) for n in layer[len("layer"):].split("_"))
+        if l in (1, 2, 7, 8):
+            return f"base.{l}.{3 * i + (rest[0] == 'bn')}", name
+        sub = {"downsample_conv": "downsample.0",
+               "downsample_bn": "downsample.1"}.get(rest[0], rest[0])
+        return f"base.{l}.{i}.{sub}", name
+    return _renamed(params, key)
+
+
+def lpips_state_from_lins(lins: Sequence[np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Per-layer LPIPS channel weights [C] (``sige_tpu``'s
+    ``LPIPSAlex.lins``) -> the lpips ``alex.pth`` layout
+    (``lin<i>.model.1.weight``, [1, C, 1, 1])."""
+    return {f"lin{i}.model.1.weight": torch.from_numpy(
+                np.array(w, np.float32).reshape(1, -1, 1, 1))
+            for i, w in enumerate(lins)}

@@ -669,6 +669,101 @@ def test_sparse_update_card_matches_cpu(family):
         assert (card[-1] - card[0]).abs().max().item() <= 1e-4
 
 
+@pytest.fixture(scope="module")
+def metric_weights(tmp_path_factory):
+    """Synthetic metric checkpoints (``chip_smoke.metric_weights``),
+    written only where there is a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("the metric backbones run on the card here")
+    import chip_smoke
+
+    return chip_smoke.metric_weights(str(tmp_path_factory.mktemp("metric")))
+
+
+def _metric_wrapper(kind, w, device):
+    from sige_torch.metrics import LPIPS
+    from sige_torch.metrics.backbones import CityscapesSegmenter, FIDInception
+    from sige_torch.utils.convert import load_torch_state_dict
+
+    if kind == "alexnet":
+        return LPIPS(w["backbone_weights"], w["lpips_weights"],
+                     device=device)._impl
+    if kind == "inception":
+        return FIDInception(load_torch_state_dict(w["inception_weights"]),
+                            device=device)
+    return CityscapesSegmenter(load_torch_state_dict(w["drn_weights"]),
+                               device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["alexnet", "inception", "drn"])
+def test_metric_backbones_card_match_cpu_float64(kind, metric_weights):
+    """Each metric backbone on the card (fp32, under PyTorch's default
+    flags: the wrappers hold fp32 themselves) against the same module in
+    float64 on the CPU, within 1e-4 * max(1, max|ref|): AlexNet's taps at
+    64^2, InceptionV3's features from 2 images of 80x96 (resized to 299),
+    DRNSeg's logits at 64x96."""
+    import chip_smoke
+
+    card = _metric_wrapper(kind, metric_weights, "cuda")
+    ref = chip_smoke.on_cpu_float64(card)
+    rng = np.random.default_rng(3)
+    flags = precision_flags()
+    if kind == "alexnet":
+        x = rng.random((64, 64, 3)).astype(np.float32) * 2 - 1
+        pairs = list(zip(card.features(x), ref.features(x)))
+    elif kind == "inception":
+        x = rng.random((2, 80, 96, 3)).astype(np.float32)
+        pairs = [(card(x), ref(x))]
+    else:
+        x = rng.random((64, 96, 3)).astype(np.float32)
+        pairs = [(card.logits(x).cpu().numpy(), ref.logits(x).numpy())]
+    assert precision_flags() == flags
+    for got, want in pairs:
+        err = np.abs(np.asarray(got, np.float64) - want).max()
+        assert err <= 1e-4 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.gpu
+def test_get_metric_card_equals_cpu(tmp_path, metric_weights, capsys):
+    """``cli.get_metric`` on the card and with ``--device cpu`` over the
+    same small directories: PSNR and mIoU (through the DRN) lines equal,
+    LPIPS within 1e-4 and FID within 1e-3 relative."""
+    from sige_torch.cli import get_metric
+    from sige_torch.data import save_image
+
+    w = metric_weights
+    rng = np.random.default_rng(4)
+    for sub in ("a", "b", "labels"):
+        (tmp_path / sub).mkdir()
+    for i in range(3):
+        img = rng.random((48, 64, 3)).astype(np.float32)
+        save_image(str(tmp_path / "a" / f"{i}.png"), img)
+        save_image(str(tmp_path / "b" / f"{i}.png"),
+                   np.clip(img + 0.1 * rng.standard_normal(img.shape), 0, 1))
+        np.save(tmp_path / "labels" / f"{i}.npy", rng.integers(0, 34, (48, 64)))
+    base = ["--root", str(tmp_path / "a"), "--gt_root", str(tmp_path / "b")]
+    runs = {"psnr": base, "lpips": base + [
+                "--backbone_weights", w["backbone_weights"],
+                "--lpips_weights", w["lpips_weights"]],
+            "fid": base + ["--inception_weights", w["inception_weights"]],
+            "miou": ["--root", str(tmp_path / "a"), "--gt_root",
+                     str(tmp_path / "labels"), "--drn_weights",
+                     w["drn_weights"]]}
+    for metric, argv in runs.items():
+        got = {}
+        for device in ("cuda", "cpu"):
+            value = get_metric.main(["--metric", metric, *argv, "--device",
+                                     device])
+            got[device] = (value, capsys.readouterr().out)
+        (card, card_line), (cpu, cpu_line) = got["cuda"], got["cpu"]
+        if metric in ("psnr", "miou"):
+            assert card_line == cpu_line
+        else:
+            tol = 1e-4 if metric == "lpips" else 1e-3
+            assert abs(card - cpu) <= tol * abs(cpu)
+
+
 def test_png_codec_on_this_host():
     """The port's PNG decoder on this host (numpy and zlib as installed
     here) reads every color type, bit depth and interlacing as PIL does

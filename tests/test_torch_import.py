@@ -21,9 +21,6 @@ def _sources():
     return sorted((ROOT / "sige_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "trace_torch_step.py",
         ROOT / "scripts" / "retime_cost.py",
-        ROOT / "scripts" / "checkpoint_times.py",
-        ROOT / "scripts" / "sd_text_times.py",
-        ROOT / "scripts" / "engine_option_times.py",
         ROOT / "tests" / "torch_png_writer.py",
         ROOT / "tests" / "test_torch_gpu.py"]
 
@@ -82,6 +79,19 @@ def test_text_path_pulls_in_nothing_forbidden():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_quality_path_pulls_in_nothing_forbidden():
+    code = (
+        "import sys\n"
+        "import sige_torch.metrics, sige_torch.metrics.backbones, "
+        "sige_torch.cli.get_metric, sige_torch.cli.golden, "
+        "sige_torch.utils.registry\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax(path):
@@ -96,3 +106,19 @@ def test_sources_import_no_jax(path):
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, (
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name}")
+
+
+@pytest.mark.parametrize("phase", ["checkpoints", "sd_text",
+                                   "engine_options", "quality"])
+def test_chip_smoke_phase_exits_without_a_card(phase, monkeypatch, capsys):
+    """``chip_smoke.py --phase <phase>`` selects one phase, and like the
+    whole run exits non-zero, having run nothing, where there is no CUDA
+    device."""
+    import torch
+
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main(["--phase", phase]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
