@@ -1,18 +1,21 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase {checkpoints,sd_text,engine_options,quality}
+    python3 chip_smoke.py --phase {checkpoints,sd_text,engine_options,quality,twin}
 
-With ``--phase`` it builds the kernels and runs that phase alone (13, 14
-with phase 13's SD checkpoint, 15 or 16), printing the card first and
-the phase's record as one JSON line last.
+With ``--phase`` it builds the kernels and the native planner and runs
+that phase alone (13, 14 with phase 13's SD checkpoint, 15, 16 or 17),
+printing the card first and the phase's record as one JSON line last.
 
 Phases (any failure raises and the script exits non-zero):
 
 1. card   — the card's name and power limit (nvidia-smi); exits non-zero
             without a CUDA device;
 2. build  — compiles every CUDA kernel of the port from ``sige_torch/csrc``
-            with nvcc for sm_90a (into ``build/sige_torch/``), all at once;
+            with nvcc for sm_90a (into ``build/sige_torch/``), all at once,
+            and the native host planner (``sige_torch/native/planner.cpp``,
+            g++, into the same directory), which must be in use: prints
+            the compiler and the build time;
 3. kernels — holds each kernel against its plain PyTorch version at the
             main path's shapes and at synthetic SD shapes (a)-(e) (inside
             the engine's fp32 scope, so the plain versions are true fp32),
@@ -55,7 +58,8 @@ Phases (any failure raises and the script exits non-zero):
             (< 1e-4), again after a sparse pass on the edited image (a
             join that wrote into its cache would show there), and
             ``profile`` times dense and sparse forwards (median, p90,
-            GMACs, peak MB). ``generate`` runs with the launch counters
+            GMACs, peak MB beside the resident parameters, caches and
+            plan). ``generate`` runs with the launch counters
             (attention and combine kernels) set to 0 just before and read
             just after, each held to its exact expected count;
 7. sd     — the Stable Diffusion SDEdit path at full width through
@@ -222,13 +226,29 @@ Phases (any failure raises and the script exits non-zero):
             their originals (PSNR with masks, LPIPS, FID, mIoU through the
             DRN), each held to an in-process ``--device cpu`` run: PSNR
             and mIoU lines equal, LPIPS within 1e-4, FID within 1e-3
-            relative.
+            relative;
+17. twin  — ``TwinStepServer`` (``sige_torch.parallel``) on
+            ``DDPMUNetConfig()`` at church256, full width, random weights
+            from seed 0: B requests in one batch sharing one plan (the
+            DDPM paths' edit over the originals of seeds 0..B-1), B = 1,
+            2, 4, 8; per B one warm-up step, then 3 steps (each the full
+            pass on the originals and the sparse pass on the edits) on
+            CUDA events: ms per step and per request, the flash launches
+            over them held exactly, kernel launches, busy time and idle
+            share per step (a trace), the peak; each row of both outputs
+            against the single-request engine within 1e-4; the flash
+            kernel against its plain version at the new batched shapes.
 
-Phases 6, 7, 9 and 11 also time ``SIGEModel.set_masks`` (host planning
-and the plan's upload) per family on its edit, median of 10 on the host
-clock, beside the sparse forward's median.
+Phases 6, 7, 9 and 11 also time the planning of each family's edit
+(DDPM window and tiles, the SD U-Net and decoder, PD, GauGAN), median of
+10 on the host clock, each call synchronised, beside the sparse
+forward's median: the host planner alone (``SIGEModel.plan_masks``), the
+plan's one copy to the card alone (``upload_plan``) and
+``SIGEModel.set_masks``, the planner and ``set_masks`` each with the
+native library and with the numpy paths (``SIGE_TPU_NO_NATIVE=1``);
+the native and numpy plans must be equal key by key, bit for bit.
 
-The paths (phases 4-7, 9 and 11-16) run under PyTorch's default precision flags,
+The paths (phases 4-7, 9 and 11-17) run under PyTorch's default precision flags,
 which run cuDNN convs in TF32: the engine holds fp32 and benchmark mode
 for its own forwards, and the script checks that the flags are the
 defaults again at its end. The kernel phases enter the same scope.
@@ -237,8 +257,10 @@ The line before the last is the ``kernels`` JSON; the last line is the
 device JSON.
 """
 
+import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -248,6 +270,7 @@ import torch
 
 from sige_torch.nn.engine import (fp32_scope, precision_flags,
                                   set_precision_flags)
+from sige_torch.runners.common import storage_mb
 
 # H100 SXM published peaks: fp32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -448,11 +471,11 @@ def phase_forced_splits(flash):
     return forced, combine
 
 
-def edit_pair(R: int, frac: float = 0.012, at=None):
+def edit_pair(R: int, frac: float = 0.012, at=None, seed: int = 0):
     """The ``__graft_entry__._build`` edit: a square of ``frac`` (~1.2%) of
     the canvas at ``at`` (default (R/4, R/4)) over a random image, both
-    from default_rng(0)."""
-    rng = np.random.default_rng(0)
+    from default_rng(seed)."""
+    rng = np.random.default_rng(seed)
     original = rng.random((R, R, 3)).astype(np.float32)
     edited = original.copy()
     side = max(4, int(round((frac * R * R) ** 0.5)))
@@ -661,26 +684,83 @@ def phase_retime(flash, rc):
             float(gain_ms)}
 
 
-def expected_launches(flash, cfg, forwards: int = 1 + 2 * STEPS):
+def expected_launches(flash, cfg, forwards: int = 1 + 2 * STEPS,
+                      batch: int = 1):
     """Attention and combine launches of ``forwards`` full-width DDPM
-    forwards: 5 attention calls at 16 px + 1 at 8 px per forward. The
-    default counts one ``generate``: one forward in preprocess plus two
-    per step (DDIM and DPM-Solver alike)."""
+    forwards at ``batch``: 5 attention calls at 16 px + 1 at 8 px per
+    forward. The default counts one ``generate``: one forward in
+    preprocess plus two per step (DDIM and DPM-Solver alike)."""
     calls = {256: 5, 64: 1}  # sequence length -> calls; one head
     D = cfg.ch * cfg.ch_mult[-1]  # 512 at both levels
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     combines = forwards * sum(
         n for seq, n in calls.items()
-        if flash._num_splits(1, seq, seq, D, sms) > 1)
+        if flash._num_splits(batch, seq, seq, D, sms) > 1)
     return forwards * sum(calls.values()), combines
 
 
+@contextlib.contextmanager
+def numpy_planner():
+    """The host planner's numpy paths inside (``SIGE_TPU_NO_NATIVE=1``,
+    the switch the tests use), the native library after."""
+    os.environ["SIGE_TPU_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["SIGE_TPU_NO_NATIVE"]
+
+
+def plan_leaves(plan, path=()):
+    """[(path, numpy array)] of a host plan, depth first."""
+    out = []
+    for k, v in plan.items():
+        if isinstance(v, dict):
+            out += plan_leaves(v, path + (k,))
+        else:
+            out.append((path + (k,), np.asarray(v)))
+    return out
+
+
+def assert_same_plan(name, got, want):
+    """Two host plans hold the same keys and, at each, the same dtype,
+    shape and bytes."""
+    a, b = dict(plan_leaves(got)), dict(plan_leaves(want))
+    if a.keys() != b.keys():
+        raise AssertionError(f"{name}: native and numpy plans differ in "
+                             f"keys: {sorted(a.keys() ^ b.keys())[:5]}")
+    for k, x in a.items():
+        y = b[k]
+        if (x.dtype, x.shape) != (y.dtype, y.shape) or \
+                x.tobytes() != y.tobytes():
+            raise AssertionError(f"{name}: native and numpy plans differ at "
+                                 f"{'/'.join(k)}")
+    return len(a)
+
+
+def host_ms(fn):
+    """(result, host ms) of ``fn()``, synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def planning_ms(name, model, plan, sparse_ms, n: int = 10):
-    """Host ms of ``model.set_masks`` on the mask pyramids that ``plan()``
-    hands to it (the host planner and the plan's one copy to the card,
-    synchronised): median of ``n`` calls, printed beside the sparse
-    forward's median ``sparse_ms``; the plan it sets is the one ``plan()``
-    set."""
+    """Host ms of planning an edit on the mask pyramids that ``plan()``
+    hands to ``model.set_masks``, split: the host planner alone
+    (``SIGEModel.plan_masks``: ``build_plan``), the plan's one copy to
+    the card alone (``upload_plan``), and ``set_masks`` (both), the
+    planner and ``set_masks`` each with the native library and with the
+    numpy paths, in turns; medians of ``n`` on the host clock, each call
+    synchronised, printed beside the sparse forward's median
+    ``sparse_ms``. The native and numpy plans must be equal key by key,
+    bit for bit. The plan it leaves set is the one ``plan()`` set."""
+    from sige_torch import native
+    from sige_torch.nn.engine import upload_plan
+
+    if not native.available():
+        raise AssertionError(f"{name}: the native planner is not in use")
     seen = []
 
     def record(masks, *a, **kw):
@@ -692,20 +772,39 @@ def planning_ms(name, model, plan, sparse_ms, n: int = 10):
         plan()
     finally:
         del model.set_masks
-    times = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.set_masks(seen[-1])
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    res = {"set_masks_ms": float(np.median(times)),
-           "set_masks_ms_min_max": [min(times), max(times)],
+    masks = seen[-1]
+    times = {k: [] for k in ("build_plan", "build_plan_numpy", "upload",
+                             "set_masks_numpy", "set_masks")}
+    for i in range(n):
+        (built, layout), ms = host_ms(lambda: model.plan_masks(masks))
+        times["build_plan"].append(ms)
+        with numpy_planner():
+            (built_np, _), ms = host_ms(lambda: model.plan_masks(masks))
+            times["build_plan_numpy"].append(ms)
+        if i == 0:
+            leaves = assert_same_plan(name, built, built_np)
+        times["upload"].append(host_ms(
+            lambda: upload_plan(built, model.device))[1])
+        with numpy_planner():
+            times["set_masks_numpy"].append(host_ms(
+                lambda: model.set_masks(masks))[1])
+        times["set_masks"].append(host_ms(lambda: model.set_masks(masks))[1])
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    elements = sum(a.size for _, a in plan_leaves(built))
+    res = {**{f"{k}_ms": v for k, v in med.items()},
+           "min_max_ms": {k: [min(v), max(v)] for k, v in times.items()},
+           "plan_leaves": leaves, "plan_elements": elements,
+           "upload_mb": elements * 8 / 2**20, "plans_equal": True,
            "sparse_ms": sparse_ms, "layout": model.state.active_layout}
-    print(f"  [{name}] planning: set_masks {res['set_masks_ms']:.3f} ms "
-          f"median of {n} (host clock, {min(times):.3f}-{max(times):.3f}; "
-          f"{res['layout']}) beside the sparse forward's "
-          f"{sparse_ms:.3f} ms median", flush=True)
+    print(f"  [{name}] planning ({res['layout']}; host ms, median of {n}, "
+          f"synchronised): build_plan native {med['build_plan']:.3f} / "
+          f"numpy {med['build_plan_numpy']:.3f} "
+          f"({med['build_plan_numpy'] / med['build_plan']:.2f}x), upload "
+          f"{med['upload']:.3f} ({leaves} leaves, {elements} elements, "
+          f"{res['upload_mb']:.3f} MB), set_masks native "
+          f"{med['set_masks']:.3f} / numpy {med['set_masks_numpy']:.3f}; "
+          f"native plan = numpy plan bit for bit; the sparse forward's "
+          f"median {sparse_ms:.3f} ms", flush=True)
     return res
 
 
@@ -781,8 +880,10 @@ def phase_path(flash, name, layout, want_layout, rc, profile_iters):
         p = prof[mode]
         print(f"  [{name}] profile {mode}: {p['latency_ms']:.3f} ms median "
               f"(p90 {p['latency_p90_ms']:.3f}, n={p['iters']}), "
-              f"{p['macs_g']:.2f} GMACs, peak {p['peak_mb']:.1f} MB",
-              flush=True)
+              f"{p['macs_g']:.2f} GMACs, peak {p['peak_mb']:.1f} MB ("
+              + ", ".join(f"{k[:-3]} {p[k]:.3f}" for k in
+                          ("params_mb", "cache_mb", "plan_mb") if k in p)
+              + " MB resident)", flush=True)
     planning = (planning_ms(name, runner.model,
                             lambda: runner.preprocess(original, edited),
                             prof["sparse"]["latency_ms"])
@@ -1481,17 +1582,6 @@ DEMO_BUCKET_MIN = 8  # the demo server's at full width
 DEMO_CPU_SLOT_MIB = 674.5  # cache MiB per slot of DDPMUNetConfig(), CPU count
 
 
-def _storage_mb(tensors) -> float:
-    """MB of the storages under ``tensors``, each counted once."""
-    seen, total = set(), 0
-    for t in tensors:
-        key = t.untyped_storage().data_ptr()
-        if key not in seen:
-            seen.add(key)
-            total += t.untyped_storage().nbytes()
-    return total / 2**20
-
-
 def quantized(image):
     """``image`` as the demo's PNGs carry it (the server's uint8
     conversion), so direct calls and HTTP requests see the same input."""
@@ -1582,8 +1672,8 @@ def demo_single(flash, cfg, sampler, images):
         flash, "reset_base_image", lambda: runner.reset_base_image(base),
         want)
     state = runner.model.state
-    slot_mb = [_storage_mb(state.tensors(k)) for k in range(3)]
-    all_mb = _storage_mb(state.tensors())
+    slot_mb = [storage_mb(state.tensors(k)) for k in range(3)]
+    all_mb = storage_mb(state.tensors())
     print(f"    caches: {all_mb:.1f} MB in {runner.model.cache_slots} slots, "
           f"slot 0/1/2 {slot_mb[0]:.1f}/{slot_mb[1]:.1f}/{slot_mb[2]:.1f} MB "
           f"(CPU count {DEMO_CPU_SLOT_MIB} MiB per slot), "
@@ -1736,7 +1826,7 @@ def demo_sessions(flash, cfg, counts):
             errs.append(_max_err(multi.reset_base_image(i, pairs[i][0],
                                                         seed=i), refs[i][0]))
         resident = torch.cuda.memory_allocated() / 2**20
-        per_session = [_storage_mb(s.state.tensors()) for s in multi.sessions]
+        per_session = [storage_mb(s.state.tensors()) for s in multi.sessions]
         for i in range(S):
             out, rec = counted(flash, f"S={S} session {i} generate",
                                lambda: multi.generate(i, pairs[i][1]),
@@ -2986,8 +3076,8 @@ def options_cache_dtype(flash):
             model.init(0)
         for k, t in enumerate(ts):
             model.full(x0, t, cache_id=k)
-        slot = _storage_mb(model.state.tensors(0))
-        session = _storage_mb(model.state.tensors())
+        slot = storage_mb(model.state.tensors(0))
+        session = storage_mb(model.state.tensors())
         rec[name] = {"slot_mib": slot, "session_mib": session}
         print(f"  [cache_dtype {name}] {slot:.1f} MiB per slot, "
               f"{session:.1f} MiB a session of {OPTIONS_SLOTS} slots",
@@ -3782,6 +3872,132 @@ def phase_quality(flash):
     return rec
 
 
+# --- phase 17: batched twin steps (TwinStepServer) --------------------------
+
+TWIN_BATCHES = (1, 2, 4, 8)  # requests per step
+TWIN_STEPS = 3  # timed steps per batch size, after one warm-up step
+TWIN_T = 500.0  # every request's timestep (the DDPM paths' noise level)
+
+
+def twin_reference(module, x0, x1, t, masks):
+    """Seed 0's random weights into ``module``, then the single-request
+    engine on each request (batch 1): its plan (planned on request 0,
+    shared by all), layout, and every request's full output on its
+    original and sparse output on its edit."""
+    from sige_torch.nn import SIGEModel
+
+    ref = SIGEModel(module, layout="auto", device="cuda")
+    ref.init(0)
+    ref.full(x0[:1], t[:1])
+    plan = ref.set_masks(masks)
+    y0, y1 = [], []
+    for b in range(x0.shape[0]):
+        y0.append(ref.full(x0[b:b + 1], t[:1]))
+        y1.append(ref.sparse(x1[b:b + 1], t[:1]))
+    return plan, ref.active_layout, torch.cat(y0), torch.cat(y1)
+
+
+def phase_twin(flash, seen, first_row):
+    """Phase 17: ``TwinStepServer`` on ``DDPMUNetConfig()`` at church256,
+    full width, random weights from seed 0; B requests (the
+    ``__graft_entry__._build`` edit over the originals of seeds 0..B-1,
+    one shared plan) for B in :data:`TWIN_BATCHES`. Per B: prime, one
+    warm-up step (recording new flash shapes), :data:`TWIN_STEPS` steps
+    on CUDA events with the flash counters set to 0 just before and read
+    just after (held exactly), the peak, a trace's busy time and kernel
+    launches per step; each row of y0 and y1 against the single-request
+    engine within 1e-4. Returns (record, kernel rows at the new shapes)."""
+    from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
+    from sige_torch.parallel import TwinStepServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    cfg = DDPMUNetConfig()
+    R, n = cfg.resolution, max(TWIN_BATCHES)
+    reqs = [ddpm_edit(cfg, edit_pair(R, seed=i)) for i in range(n)]
+    x0 = torch.cat([r[0] for r in reqs])
+    x1 = torch.cat([r[1] for r in reqs])
+    t = torch.full((n,), TWIN_T, device="cuda")
+    module = SIGEFusedUNet(cfg)
+    plan, layout, want0, want1 = twin_reference(module, x0, x1, t,
+                                                reqs[0][2])
+    print(f"  [twin] single-request references for {n} requests: "
+          f"{time.perf_counter() - t_start:.2f} s, layout {layout}, "
+          f"{sum(p.numel() for p in module.parameters()) / 1e6:.1f} M "
+          f"parameters", flush=True)
+    rec, recorded = {"layout": layout, "batches": {}}, {}
+    for B in TWIN_BATCHES:
+        server = TwinStepServer(module, None, plan, device="cuda")
+        args = (x0[:B], x1[:B], t[:B])
+        server.prime(x0[:B], t[:B])
+        _, new = record_calls(lambda: server.step(*args), seen,
+                              f"twin B={B}")
+        recorded.update(new)
+        want = expected_launches(flash, cfg, forwards=2 * TWIN_STEPS,
+                                 batch=B)
+        flash.flash_mha.launches = 0
+        flash.flash_mha.combine_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(TWIN_STEPS)]
+        for start, end in events:
+            start.record()
+            y0, y1 = server.step(*args)
+            end.record()
+        torch.cuda.synchronize()
+        got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+        if got != want:
+            raise AssertionError(f"twin B={B}: flash launches {got} over "
+                                 f"{TWIN_STEPS} steps, expected {want}")
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        step_ms = sorted(a.elapsed_time(b) for a, b in events)
+        busy, kernels = trace_stats(lambda: server.step(*args),
+                                    iters=TWIN_STEPS)
+        errs = [float((y - w[:B]).abs().max().item())
+                for y, w in ((y0, want0), (y1, want1))]
+        med = float(np.median(step_ms))
+        row = {"step_ms": step_ms, "step_ms_median": med,
+               "ms_per_request": med / B, "launches": got[0],
+               "combine_launches": got[1], "kernel_launches": kernels,
+               "busy_ms": busy, "idle_share": (None if busy is None else
+                                               max(0.0, 1.0 - busy / med)),
+               "peak_mb": peak, "max_err_full": errs[0],
+               "max_err_sparse": errs[1]}
+        rec["batches"][B] = row
+        print(f"  [twin] B={B}: step {med:.3f} ms median of {TWIN_STEPS} "
+              f"(CUDA events; {', '.join(f'{x:.3f}' for x in step_ms)}), "
+              f"{med / B:.3f} ms per request; flash launches {got[0]} + "
+              f"{got[1]} combine over {TWIN_STEPS} steps (expected "
+              f"{want[0]} + {want[1]}); per step "
+              + ("busy, launches not measured" if busy is None else
+                 f"busy {busy:.3f} ms, {kernels:.0f} kernel launches, idle "
+                 f"share {row['idle_share']:.3f}")
+              + f"; peak {peak:.0f} MB; rows vs single requests: full "
+              f"{errs[0]:.3e}, sparse {errs[1]:.3e}", flush=True)
+        if not all(e <= TOL for e in errs):
+            raise AssertionError(f"twin B={B}: rows differ from the single-"
+                                 f"request engine by {errs}")
+        if not (torch.isfinite(y0).all() and torch.isfinite(y1).all()):
+            raise AssertionError(f"twin B={B}: non-finite output")
+        del server, y0, y1
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = []
+    with fp32_scope():
+        for key, (where, bias) in recorded.items():
+            B, N, M, H, D, masked = key
+            label = (f"{row_label(first_row + len(rows))}: {where} DDPM "
+                     f"{'16 px' if N == 256 else '8 px mid'} attention "
+                     f"(B {B}, N {N}, M {M}, H {H}, D {D})")
+            rows.append(kernel_row(flash, label, B, N, M, H, D, bias))
+    rec["s"] = time.perf_counter() - t_start
+    print(f"  [twin] phase 17 in {rec['s']:.1f} s, {len(rows)} new flash "
+          f"shapes", flush=True)
+    return rec, rows
+
+
 def one_phase(flash, name: str) -> dict:
     """The record of one phase run alone, as ``--phase`` selects it."""
     import tempfile
@@ -3796,7 +4012,28 @@ def one_phase(flash, name: str) -> dict:
     if name == "engine_options":
         result, rows = phase_engine_options(flash, set(), 27)
         return {"options": result, "rows": rows}
+    if name == "twin":
+        result, rows = phase_twin(flash, set(), 0)
+        return {"twin": result, "rows": rows}
     return {"quality": phase_quality(flash)}
+
+
+def build_native() -> dict:
+    """Build (or find built) and load the native host planner; it must be
+    in use on the card's host. Prints the compiler and the build time."""
+    from sige_torch import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native host planner is not in use")
+    p = native.PLANNER
+    rec = {"compiler": p.compiler_version(), "build_s": p.build_s,
+           "load_s": time.perf_counter() - t0, "path": str(p.path)}
+    print(f"build: sige_torch/native/planner.cpp with {rec['compiler']}: "
+          + ("found built" if p.build_s is None else
+             f"compiled in {p.build_s:.2f} s")
+          + f", loaded in {rec['load_s']:.2f} s -> {p.path}", flush=True)
+    return rec
 
 
 def main(argv=None) -> int:
@@ -3805,7 +4042,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the port on one "
                                 "NVIDIA GPU (every phase, or one).")
     p.add_argument("--phase", choices=("checkpoints", "sd_text",
-                                       "engine_options", "quality"))
+                                       "engine_options", "quality", "twin"))
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3817,6 +4054,7 @@ def main(argv=None) -> int:
         print(f"card: {card_line()} | torch {torch.__version__} cuda "
               f"{torch.version.cuda}", flush=True)
         flash.LIBRARY.load()
+        build_native()
         result = one_phase(flash, args.phase)
         print(f"elapsed: {time.perf_counter() - t0:.1f} s", flush=True)
         print(json.dumps(result, default=str), flush=True)
@@ -3839,6 +4077,7 @@ def main(argv=None) -> int:
     print(f"build: {FLASH_SOURCE} in {time.perf_counter() - t0:.2f} s "
           f"-> {flash.LIBRARY.path}", flush=True)
     print(flash.LIBRARY.build_log.strip(), flush=True)
+    native_rec = build_native()
 
     print("kernels:", flush=True)
     with fp32_scope():
@@ -3904,6 +4143,13 @@ def main(argv=None) -> int:
           "widths, cli.get_metric, cli.golden --family ddpm at church256):",
           flush=True)
     quality = phase_quality(flash)
+    print("twin (TwinStepServer: the church256 DDPM at full width, B "
+          "requests sharing one plan, B in "
+          f"{', '.join(map(str, TWIN_BATCHES))}):", flush=True)
+    twin, twin_rows = phase_twin(
+        flash, {(r["B"], r["N"], r["M"], r["H"], r["D"], r["bias"])
+                for r in rows}, len(rows))
+    rows += twin_rows
     if precision_flags() != defaults:
         raise AssertionError(f"precision flags {precision_flags()} after the "
                              f"run, {defaults} before it")
@@ -3934,7 +4180,9 @@ def main(argv=None) -> int:
                 "launches"],
             **{f"options_{n.replace(' ', '_')}_{k}": r[k]["launches"]
                for n, r in options["slots"].items()
-               for k in ("update", "second")}),
+               for k in ("update", "second")},
+            **{f"twin_B{B}_{TWIN_STEPS}_steps": r["launches"]
+               for B, r in twin["batches"].items()}),
         "combine_launches_by_path": dict(
             {n: p["combine_launches"] for n, p in paths.items()},
             sd_sdedit=sd["combine_launches"],
@@ -3942,7 +4190,9 @@ def main(argv=None) -> int:
             gaugan_generate=gaugan["combine_launches"],
             **{f"demo_{s}_{r}": demo[s]["requests"][r]["combine_launches"]
                for s in ("ddim", "dpm_solver")
-               for r in demo[s]["requests"]}),
+               for r in demo[s]["requests"]},
+            **{f"twin_B{B}_{TWIN_STEPS}_steps": r["combine_launches"]
+               for B, r in twin["batches"].items()}),
         "splits": main_row["splits"],
         "max_abs_err": max([r["max_err"] for r in rows]
                            + [f["max_err"] for f in forced.values()]
@@ -3963,7 +4213,8 @@ def main(argv=None) -> int:
     print(json.dumps({"paths": paths, "retime": retime, "sd": sd, "pd": pd,
                       "gaugan": gaugan, "demo": demo, "checkpoints": ckpt,
                       "sd_text": sd_text, "options": options,
-                      "quality": quality, "card": card}),
+                      "quality": quality, "twin": twin, "native": native_rec,
+                      "card": card}),
           flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -20,7 +20,10 @@ def add_device_flag(p) -> None:
 def profile(runner, original, edited, warmup: int, iters: int,
             mode: str = "sparse"):
     """``runner.profile`` on the GPU; on the CPU the same statistics from
-    the host clock around each forward (no peak memory)."""
+    the host clock around each forward, with the resident parameters,
+    caches and plan (no peak memory)."""
+    from ..runners.common import memory_entry
+
     if runner.device.type == "cuda":
         return runner.profile(original, edited, warmup=warmup, iters=iters,
                               mode=mode)
@@ -38,6 +41,7 @@ def profile(runner, original, edited, warmup: int, iters: int,
             "latency_p90_ms": float(np.percentile(times, 90)),
             "iters": iters, "macs_g": runner.count_macs(x1, mode) / 1e9,
             "edit_ratio": float(np.mean(mask)), "peak_mb": None,
+            **memory_entry(runner.model, mode),
             "active_layout": runner.active_layout}
 
 

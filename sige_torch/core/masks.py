@@ -14,8 +14,9 @@ bottom/right, max-pooled with window ``block_size`` / stride
 ``cell * block_stride - offset`` in (possibly negative) padded input
 coordinates.
 
-A numpy-only copy of ``sige_tpu.core.masks`` (the ctypes host planner is
-not used here), so the port plans without importing the JAX package.
+The port's copy of ``sige_tpu.core.masks``: 2-D dilation and the tile
+reduction run in the native host planner (:mod:`sige_torch.native`) when
+it is in use, and else in numpy, with the same arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 
+from .. import native
 from .geometry import BlockGeometry
 
 IntPair = Tuple[int, int]
@@ -65,11 +67,14 @@ def dilate_mask(mask, dilation: Union[int, IntPair]) -> np.ndarray:
     vertical shifts (up to ``dh``) and horizontal shifts (up to ``dw``),
     both taken from the ORIGINAL mask — NOT a separable box dilation. This
     matches the reference exactly (reference: sige/utils.py:40-71, where
-    the second axis loop reads ``mask``, not ``ret``)."""
+    the second axis loop reads ``mask``, not ``ret``). Uses the native
+    planner for a 2-D mask when it is in use."""
     dh, dw = _pair(dilation)
     mask = np.asarray(mask).astype(bool)
     if dh <= 0 and dw <= 0:
         return mask
+    if mask.ndim == 2 and native.available():
+        return native.dilate_mask(mask, (dh, dw))
     out = mask.copy()
     for i in range(1, dh + 1):
         out[:-i] |= mask[i:]
@@ -206,15 +211,23 @@ def reduce_mask_padded(
 
     ``capacity`` pins K explicitly; otherwise K = next bucket above the live
     count, capped at the canvas's total tile positions. Raises if the live
-    count exceeds an explicit capacity.
+    count exceeds an explicit capacity. Counts and reduces in the native
+    planner when it is in use.
     """
-    total = grid_tiles(np.asarray(mask).shape, geom)
-    indices = reduce_mask(mask, geom)
-    n = indices.shape[0]
+    mask = np.asarray(mask).astype(bool)
+    use_native = native.available()
+    if use_native:
+        n = native.count_tiles(mask, geom)
+    else:
+        indices = reduce_mask(mask, geom)
+        n = indices.shape[0]
     if capacity is None:
-        capacity = min(round_to_bucket(n, bucket_min), total)
+        capacity = min(round_to_bucket(n, bucket_min),
+                       grid_tiles(mask.shape, geom))
     if n > capacity:
         raise ValueError(f"active tiles {n} exceed capacity {capacity}")
+    if use_native:
+        return native.reduce_mask_padded(mask, geom, capacity, SENTINEL)
     out = np.full((capacity, 2), SENTINEL, dtype=np.int32)
     out[:n] = indices
     return out, n

@@ -13,8 +13,9 @@ deterministic, fully-parallel gather "read your pixel from its source
 tile pixel, else from the cache". The source maps serve plain scatter,
 the fused scatter-gather, and residual calibration.
 
-A numpy-only copy of ``sige_tpu.core.scatter_map`` (the ctypes host
-planner is not used here).
+The port's copy of ``sige_tpu.core.scatter_map``: the source maps are
+built by the native host planner (:mod:`sige_torch.native`) when it is in
+use, and else in numpy, with the same arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from .geometry import BlockGeometry
 
 
@@ -76,7 +78,11 @@ def build_src_map(
 ) -> np.ndarray:
     """Per-pixel flat *tile-pixel* source index, the device-ready form of
     the ownership map: ``src[h, w] = (owner * R + ih) * S + iw`` for
-    covered pixels, -1 otherwise."""
+    covered pixels, -1 otherwise. Built by the native planner when it is
+    in use."""
+    if native.available():
+        n = np.asarray(indices).shape[0] if count is None else int(count)
+        return native.build_src_map(indices, n, geom, out_hw)
     H, W = out_hw
     owner = build_owner_map(indices, count, geom, out_hw)
     R, S = geom.out_tile_size
@@ -107,7 +113,12 @@ def build_sg_sources(
       * ``sg_src``: flat tile-pixel source index, or -1 to read the cache,
         or -2 for out-of-bounds/dead (exact zero);
       * ``sg_flat``: flat cache pixel index (clamped).
+
+    Built by the native planner when it is in use.
     """
+    if native.available():
+        n = np.asarray(indices).shape[0] if count is None else int(count)
+        return native.build_sg_sources(indices, n, geom, out_hw)
     H, W = out_hw
     src_map = build_src_map(indices, count, geom, out_hw)
     bh, bw = geom.block_size

@@ -6,12 +6,13 @@ which method you call, plus ``set_masks`` / ``clear_cache``
 ``sige_tpu.nn.engine.SIGEModel``: :meth:`full` and :meth:`sparse` run the
 module eagerly under ``torch.inference_mode``, on cache slot
 ``cache_id`` (``sparse_update`` commits an edit into its slot);
-:meth:`set_masks` plans on the host and moves the plan's leaves to the
-device in one copy; :meth:`SIGEModel.pin_capacities` freezes the current
-plan's tile-layout shapes for later edits. An :class:`EngineState` holds
-one session's caches, plan and pins; :meth:`SIGEModel.use` switches
-sessions by reference. ``cache_dtype`` narrows the storage of the
-scatter caches (see :class:`~.module.SIGECtx`).
+:meth:`set_masks` plans on the host (:meth:`plan_masks`) and moves the
+plan's leaves to the device in one copy (:meth:`set_plan`);
+:meth:`SIGEModel.pin_capacities` freezes the current plan's tile-layout
+shapes for later edits. An :class:`EngineState` holds one session's
+caches, plan and pins; :meth:`SIGEModel.use` switches sessions by
+reference. ``cache_dtype`` narrows the storage of the scatter caches
+(see :class:`~.module.SIGECtx`).
 
 Every forward runs inside :func:`fp32_scope`: PyTorch's defaults run
 cuDNN convolutions in TF32 and let cuDNN pick its algorithms by
@@ -333,12 +334,11 @@ class SIGEModel:
             self.meta = self._gathers_meta()
         return y
 
-    def set_masks(self, masks: Mapping, capacities: Optional[Dict] = None):
-        """Host-side planning: mask pyramid -> indices/source maps or
-        windows, moved to the device and handed to every Gather.
-        ``capacities`` pins buffer and box shapes (see
-        :func:`~.planner.plan_pins` and :func:`~.planner.merge_pins`);
-        without it, the session's own pins (:meth:`pin_capacities`)."""
+    def plan_masks(self, masks: Mapping, capacities: Optional[Dict] = None
+                   ) -> Tuple[Dict, str]:
+        """Host planning alone: (the host plan that :meth:`set_masks`
+        would install for ``masks``, its layout). Nothing is uploaded and
+        the state is left as it was."""
         if self.meta is None:
             raise RuntimeError("run a full() pass before set_masks()")
         layout = self.layout
@@ -347,10 +347,26 @@ class SIGEModel:
         plan = build_plan(self.meta, masks, self.bucket_min,
                           capacities or self.state.pins, layout=layout,
                           chain_nesting=self.chain_nesting)
+        return plan, layout
+
+    def set_plan(self, plan: Mapping, layout: str) -> None:
+        """Install a host plan (built in ``layout``) in the current state:
+        its leaves go to the device in one copy and every Gather gets its
+        entry."""
         state = self.state
         state.active_layout = layout
         state.plan_host, state.plan = plan, upload_plan(plan, self.device)
         self.use(state)
+
+    def set_masks(self, masks: Mapping, capacities: Optional[Dict] = None):
+        """Host-side planning: mask pyramid -> indices/source maps or
+        windows (:meth:`plan_masks`), moved to the device and handed to
+        every Gather (:meth:`set_plan`). ``capacities`` pins buffer and
+        box shapes (see :func:`~.planner.plan_pins` and
+        :func:`~.planner.merge_pins`); without it, the session's own pins
+        (:meth:`pin_capacities`). Returns the host plan."""
+        plan, layout = self.plan_masks(masks, capacities)
+        self.set_plan(plan, layout)
         return plan
 
     def pin_capacities(self) -> Dict:

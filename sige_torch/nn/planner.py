@@ -473,6 +473,16 @@ def _window_entry(entry, node, geom: BlockGeometry, in_res, indices, count,
         entry[f"wsg_cov_{gres[0]}x{gres[1]}"] = cov
 
 
+def plan_layout(plan: Mapping) -> str:
+    """The layout a plan runs: ``"window"`` when any Gather's entry holds
+    window products (a window plan, hybrid ones too), else ``"tiles"``."""
+    for node in plan.values():
+        if isinstance(node, Mapping) and ("win_in" in node
+                                          or plan_layout(node) == "window"):
+            return "window"
+    return "tiles"
+
+
 def plan_pins(plan: Mapping, _path: Tuple = ()) -> Dict[Tuple, object]:
     """Shape pins of a built (host) plan: {gather path: tile capacity}
     plus {path + (box leaf name,): (BH, BW)} for every bbox-cropped

@@ -1,7 +1,8 @@
-"""Serving: S editing sessions on one GPU, each with its own plan (the
-port of ``sige_tpu.parallel.serving.SessionServer``; the mesh modules
-come with a later slice)."""
+"""Serving on one GPU: ``TwinStepServer`` (B requests sharing one plan,
+batched twin steps) and ``SessionServer`` (S editing sessions, each with
+its own plan): ports of ``sige_tpu.parallel.serving``'s classes; the
+mesh modules are multi-card and not ported."""
 
-from .serving import SessionServer
+from .serving import SessionServer, TwinStepServer
 
-__all__ = ["SessionServer"]
+__all__ = ["SessionServer", "TwinStepServer"]

@@ -24,6 +24,7 @@ from ..nn.engine import SIGEModel, fp32_scope, resolve_device
 from ..nn.module import SIGECtx
 from ..samplers import (DDIMSampler, DDPMSampler, DiffusionSchedule,
                         DPMSolverSampler, get_sampling_sequence)
+from .common import memory_entry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,8 +182,9 @@ class DiffusionRunner:
         90th percentile of ``iters`` forwards, each between two CUDA
         events, after ``warmup``), its analytic MACs and the peak device
         memory it allocates (the reference times the sparse forward alone;
-        reference: diffusion/runner.py:214-246), and the layout it ran
-        (``active_layout``). GPU only."""
+        reference: diffusion/runner.py:214-246) beside the resident
+        parameters, caches and plan (:func:`~.common.memory_entry`), and
+        the layout it ran (``active_layout``). GPU only."""
         if self.device.type != "cuda":
             raise RuntimeError("profile measures the GPU; this runner is on "
                                f"{self.device}")
@@ -212,5 +214,6 @@ class DiffusionRunner:
             "macs_g": self.count_macs(x1, mode) / 1e9,
             "edit_ratio": float(np.mean(mask)),
             "peak_mb": peak_mb,
+            **memory_entry(self.model, mode),
             "active_layout": self.active_layout,
         }

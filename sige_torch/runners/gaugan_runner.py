@@ -21,6 +21,7 @@ from ..core.masks import compute_difference_mask, dilate_mask, downsample_mask
 from ..models.gaugan import SIGEFusedSPADEGenerator, SPADEGenConfig
 from ..nn.engine import SIGEModel, fp32_scope, resolve_device
 from ..nn.module import SIGECtx
+from .common import memory_entry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,7 +138,9 @@ class GauGANRunner:
         """Latency of one forward on the edited semantics (median and 90th
         percentile of ``iters`` forwards, each between two CUDA events,
         after ``warmup``), its analytic MACs, the peak device memory it
-        allocates and the layout it ran. GPU only."""
+        allocates beside the resident parameters, caches and plan
+        (:func:`~.common.memory_entry`), and the layout it ran. GPU
+        only."""
         if self.device.type != "cuda":
             raise RuntimeError("profile measures the GPU; this runner is on "
                                f"{self.device}")
@@ -165,5 +168,6 @@ class GauGANRunner:
             "macs_g": self.count_macs(x1, mode) / 1e9,
             "edit_ratio": float(np.mean(mask)),
             "peak_mb": torch.cuda.max_memory_allocated(self.device) / 2**20,
+            **memory_entry(self.model, mode),
             "active_layout": self.active_layout,
         }

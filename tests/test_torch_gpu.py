@@ -789,3 +789,81 @@ def test_png_codec_on_this_host():
     assert np.array_equal(small, resize_bicubic(img, (6, 10)))
     with pytest.raises(ValueError, match="JPEG"):
         decode_png(b"\xff\xd8\xff\xe0" + bytes(16))
+
+
+def test_native_planner_on_this_host(monkeypatch):
+    """The native host planner builds and is in use on this host (the
+    card's host has g++), and the core functions give the same arrays
+    with it and with the numpy paths, bit for bit; no card needed."""
+    from sige_torch import native
+    from sige_torch.core import masks as m
+    from sige_torch.core import scatter_map as sm
+    from sige_torch.core.geometry import BlockGeometry
+
+    def products(geom, mask):
+        idx, n = m.reduce_mask_padded(mask, geom)
+        hw = mask.shape
+        return [m.dilate_mask(mask, 2), m.dilate_mask(mask, (1, 3)), idx,
+                np.int64(n), sm.build_src_map(idx, n, geom, hw),
+                *sm.build_sg_sources(idx, n, geom, hw)]
+
+    assert native.available()
+    rng = np.random.default_rng(0)
+    cases = [(BlockGeometry.create(*g), rng.random((37, 41)) < p)
+             for g in ((6, 3, 1, 1), (4, 1, 1, 0), (6, 3, 2, 1))
+             for p in (0.0, 0.07, 1.0)]
+    got = [products(*c) for c in cases]
+    monkeypatch.setenv("SIGE_TPU_NO_NATIVE", "1")
+    assert not native.available()
+    for case, want in zip(got, (products(*c) for c in cases)):
+        for a, b in zip(case, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tiles", "window"])
+def test_tiny_twin_server_card_matches_cpu(layout):
+    """TwinStepServer on a tiny DDPM U-Net: B = 3 distinct requests under
+    one plan give the same y0 and y1 on the card as on the CPU, and each
+    step launches the flash kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
+    from sige_torch.nn import SIGEModel
+    from sige_torch.parallel import TwinStepServer
+
+    cfg = DDPMUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                         attn_resolutions=(8,), resolution=32,
+                         sparse_resolution_threshold=32)
+    rng = np.random.default_rng(5)
+    x0 = torch.from_numpy(rng.standard_normal((3, 32, 32, 3)).astype(
+        np.float32))
+    mask = np.zeros((32, 32), bool)
+    mask[8:16, 10:20] = True
+    x1 = x0 + torch.from_numpy(rng.standard_normal((3, 32, 32, 3)).astype(
+        np.float32) * mask[None, :, :, None])
+    t = torch.zeros((3,))
+    masks = downsample_mask(dilate_mask(mask, 2), min_res=4)
+    params = None
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = SIGEModel(SIGEFusedUNet(cfg), bucket_min=1, layout=layout,
+                          device=dev)
+        if params is None:
+            model.init(0)
+            params = {k: v.clone() for k, v in
+                      model.module.state_dict().items()}
+        else:
+            model.module.load_state_dict(params)
+        model.full(x0[:1].to(dev), t[:1].to(dev))
+        plan = model.set_masks(masks)
+        server = TwinStepServer(SIGEFusedUNet(cfg), params, plan, device=dev)
+        server.prime(x0.to(dev), t.to(dev))
+        before = flash.flash_mha.launches
+        outs[dev] = [y.cpu() for y in server.step(x0.to(dev), x1.to(dev),
+                                                  t.to(dev))]
+        if dev == "cuda":
+            assert flash.flash_mha.launches > before
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert (got - want).abs().max().item() <= 1e-4

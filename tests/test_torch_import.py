@@ -92,6 +92,20 @@ def test_quality_path_pulls_in_nothing_forbidden():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_native_planner_twin_server_and_colorize_pull_in_nothing_forbidden():
+    code = (
+        "import sys\n"
+        "import sige_torch.native, sige_torch.parallel, "
+        "sige_torch.runners.common, sige_torch.utils.colorize\n"
+        "from sige_torch.parallel import TwinStepServer\n"
+        "sige_torch.native.available()\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax(path):
@@ -109,7 +123,7 @@ def test_sources_import_no_jax(path):
 
 
 @pytest.mark.parametrize("phase", ["checkpoints", "sd_text",
-                                   "engine_options", "quality"])
+                                   "engine_options", "quality", "twin"])
 def test_chip_smoke_phase_exits_without_a_card(phase, monkeypatch, capsys):
     """``chip_smoke.py --phase <phase>`` selects one phase, and like the
     whole run exits non-zero, having run nothing, where there is no CUDA
