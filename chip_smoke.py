@@ -1,18 +1,22 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase {checkpoints,sd_text,engine_options,quality,twin}
+    python3 chip_smoke.py --phase {checkpoints,sd_text,engine_options,quality,
+                                   twin,sessions}
 
 With ``--phase`` it builds the kernels and the native planner and runs
-that phase alone (13, 14 with phase 13's SD checkpoint, 15, 16 or 17),
+that phase alone (13, 14 with phase 13's SD checkpoint, 15, 16, 17 or
+18),
 printing the card first and the phase's record as one JSON line last.
 
 Phases (any failure raises and the script exits non-zero):
 
 1. card   — the card's name and power limit (nvidia-smi); exits non-zero
             without a CUDA device;
-2. build  — compiles every CUDA kernel of the port from ``sige_torch/csrc``
-            with nvcc for sm_90a (into ``build/sige_torch/``), all at once,
+2. build  — compiles every CUDA source of the port from ``sige_torch/csrc``
+            (the flash kernels, the session crop/paste kernels) with nvcc
+            for sm_90a (into ``build/sige_torch/``), one nvcc per source,
+            all started together,
             and the native host planner (``sige_torch/native/planner.cpp``,
             g++, into the same directory), which must be in use: prints
             the compiler and the build time;
@@ -120,8 +124,9 @@ Phases (any failure raises and the script exits non-zero):
             ``MultiSessionDemoRunner`` at S = 2 and 4 (each session equals
             an independent runner; session 0's apply leaves session 1's
             tensors as they were) and ``SessionServer`` (window layout,
-            S = 4: the step on the originals equals the dense forward,
-            ``sparse_update`` equals the step);
+            S = 4, one stacked forward a step: 6 + 6 flash launches, the
+            session kernels launched; the step on the originals equals
+            the dense forward, ``sparse_update`` equals the step);
 13. checkpoints and command lines — reference-layout state dicts at full
             width (keys and shapes from :func:`reference_layout`, which
             names the port's keys as the reference does; values from
@@ -237,7 +242,30 @@ Phases (any failure raises and the script exits non-zero):
             over them held exactly, kernel launches, busy time and idle
             share per step (a trace), the peak; each row of both outputs
             against the single-request engine within 1e-4; the flash
-            kernel against its plain version at the new batched shapes.
+            kernel against its plain version at the new batched shapes;
+18. sessions — ``SessionServer`` (``sige_torch.parallel``) on
+            ``DDPMUNetConfig()`` at church256, full width, random weights
+            from seed 0: S sessions, each with its own edit, as ONE
+            stacked sparse forward a step (``PlanStack``'s plans on
+            shared pins, per-session origins as device data), S = 1, 2,
+            4, 8, in the window layout (compact edits at S places, the
+            second at the border: the 4-form metas) and the tile layout
+            (spread edits: the re-pin). Per S and layout: prime (one full
+            pass at batch S), plan, a warm-up step (recording every call
+            of the session kernels, each distinct call held against its
+            plain version on the path's own inputs: crop and paste
+            exact, the fused epilogue within 1e-6), SESSION_STEPS steps
+            on CUDA events with every launch counter set to 0 just before
+            and read just after (flash held exactly to 6 + 6 a step), a
+            trace's busy time, idle share and kernel launches a step, the
+            same with the plain versions forced (what the kernels save),
+            the peak; the commit and a second 6% edit per session (the
+            stack re-pins); each session's rows against the
+            single-session engine planned under the server's pins
+            within 1e-4. Beside them the earlier per-session loop
+            at S = 4 (a measurement helper here), and every call shape
+            of the session kernels at every S timed: kernel and plain ms
+            on CUDA events, device ms, the bytes bound.
 
 Phases 6, 7, 9 and 11 also time the planning of each family's edit
 (DDPM window and tiles, the SD U-Net and decoder, PD, GauGAN), median of
@@ -258,6 +286,7 @@ device JSON.
 """
 
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -268,9 +297,9 @@ import time
 import numpy as np
 import torch
 
-from sige_torch.nn.engine import (fp32_scope, precision_flags,
+from sige_torch.nn.engine import (fp32_scope, plan_leaves, precision_flags,
                                   set_precision_flags)
-from sige_torch.runners.common import storage_mb
+from sige_torch.runners.common import storage_mb, tree_leaves
 
 # H100 SXM published peaks: fp32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -708,17 +737,6 @@ def numpy_planner():
         yield
     finally:
         del os.environ["SIGE_TPU_NO_NATIVE"]
-
-
-def plan_leaves(plan, path=()):
-    """[(path, numpy array)] of a host plan, depth first."""
-    out = []
-    for k, v in plan.items():
-        if isinstance(v, dict):
-            out += plan_leaves(v, path + (k,))
-        else:
-            out.append((path + (k,), np.asarray(v)))
-    return out
 
 
 def assert_same_plan(name, got, want):
@@ -1855,9 +1873,11 @@ def demo_sessions(flash, cfg, counts):
 def demo_session_server(flash, cfg, S=4, iters=5):
     """``SessionServer`` in the window layout at S sessions: prime,
     per-session masks, a step on the originals (= the dense forward per
-    session), steps on the edits, ``sparse_update``."""
+    session), steps on the edits (one stacked forward a step),
+    ``sparse_update``."""
     from sige_torch.core.masks import dilate_mask, downsample_mask
     from sige_torch.models.ddpm import SIGEFusedUNet
+    from sige_torch.ops import sessions as ss
     from sige_torch.parallel import SessionServer
 
     R = cfg.resolution
@@ -1875,13 +1895,20 @@ def demo_session_server(flash, cfg, S=4, iters=5):
         m = dilate_mask(np.abs(e - b).max(-1) > 1e-2, 5)
         server.set_masks(i, downsample_mask(
             m, min_res=R // 2 ** (len(cfg.ch_mult) - 1)))
-    layouts = {st.active_layout for st in server.states}
     y0 = server.step(x0, t)
+    layouts = {server.model.active_layout}
     dense = torch.stack([server.model.dense(x0[i], t[i]) for i in range(S)])
     _check("SessionServer step on the originals = dense",
            (y0 - dense).abs().max().item())
-    want = expected_launches(flash, cfg, S)  # one forward per session
+    # one stacked forward a step, at batch S
+    want = expected_launches(flash, cfg, forwards=1, batch=S)
+    ss.crop_sessions.launches = ss.paste_sessions.launches = 0
     y1, rec = counted(flash, f"step, S={S}", lambda: server.step(x1, t), want)
+    kernel_launches = {"crop_sessions_f32": ss.crop_sessions.launches,
+                       "paste_sessions_f32": ss.paste_sessions.launches}
+    if not all(kernel_launches.values()):
+        raise AssertionError(f"SessionServer step: a session kernel was not "
+                             f"launched: {kernel_launches}")
     times = []
     for _ in range(iters):
         torch.cuda.synchronize()
@@ -1899,7 +1926,9 @@ def demo_session_server(flash, cfg, S=4, iters=5):
     del server
     torch.cuda.empty_cache()
     return {"step_ms": times, "ms_per_session": ms / S,
-            "layouts": sorted(layouts)}
+            "layouts": sorted(layouts), "launches": rec["launches"],
+            "combine_launches": rec["combine_launches"],
+            "kernel_launches": kernel_launches}
 
 
 def phase_demo(flash):
@@ -3535,8 +3564,6 @@ def _rel_err(name, got, ref, tol):
 def on_cpu_float64(wrapper):
     """A shallow copy of a metric wrapper whose module is a float64 copy
     on the CPU (the wrappers read their device and dtype from it)."""
-    import copy
-
     ref = copy.copy(wrapper)
     ref.module = copy.deepcopy(wrapper.module).to("cpu", torch.float64)
     return ref
@@ -3998,6 +4025,611 @@ def phase_twin(flash, seen, first_row):
     return rec, rows
 
 
+# --- phase 18: the batched SessionServer -----------------------------------
+
+SESSION_COUNTS = (1, 2, 4, 8)  # sessions per stacked step
+SESSION_STEPS = 5  # timed steps per S and layout, after one warm-up step
+SESSION_TRACE = 3  # traced steps per S and layout
+SESSION_T = 500.0  # every session's timestep (the DDPM paths' noise level)
+SESSION_LOOP_S = 4  # sessions of the per-session loop timed beside them
+SESSIONS_SOURCE = "sige_torch/csrc/window_sessions.cu"
+# no Pallas kernel computes these; sige_tpu does it in XLA under vmap
+CROP_REPLACES = "sige_tpu/ops/window.py:47"   # _extract_window (dynamic_slice)
+PASTE_REPLACES = "sige_tpu/ops/window.py:176"  # window_scatter (update_slice)
+SESSION_EPILOGUE_TOL = 1e-6  # the crop's fused epilogue against PyTorch's
+
+
+def session_pairs(R: int, S: int, layout: str):
+    """S distinct (original, edited) image pairs, each from its own seed.
+    Window layout: compact squares of 1.2-2% at S places, the second at
+    the top border (its windows poke out: the 4-form metas). Tiles: two
+    squares far apart per session, of other sizes per session (their tile
+    capacities differ: the stack re-pins)."""
+    places = [(R // 4, R // 4), (0, 5 * R // 8), (5 * R // 8, R // 8),
+              (R // 8, 5 * R // 8), (3 * R // 4, 3 * R // 4),
+              (R // 3, R // 2), (5 * R // 8, 3 * R // 8),
+              (R // 2, 13 * R // 16)]
+    pairs = []
+    for i in range(S):
+        rng = np.random.default_rng(200 + i)
+        original = rng.random((R, R, 3)).astype(np.float32)
+        edited = original.copy()
+        if layout == "window":
+            squares = [(places[i], 0.012 + 0.002 * (i % 4))]
+        else:
+            squares = [((R // 8 + 4 * i, R // 8), 0.004 * (1 + i % 3)),
+                       ((5 * R // 8, 5 * R // 8 - 6 * i), 0.006)]
+        for (r, c), frac in squares:
+            side = max(4, int(round((frac * R * R) ** 0.5)))
+            edited[r:r + side, c:c + side] = rng.random((side, side, 3))
+        pairs.append((original, edited))
+    return pairs
+
+
+def session_inputs(cfg, S: int, layout: str):
+    """(x0, x1, x2 [S, 1, R, R, 3] on the card, first and second mask
+    pyramids per session): the first edits of :func:`session_pairs`, then
+    a 6% second edit per session over the first (bigger windows and more
+    tiles than any first edit's: the stack re-pins), planned against the
+    committed first edit."""
+    R = cfg.resolution
+    x0, x1, x2, m1, m2 = [], [], [], [], []
+    for i, pair in enumerate(session_pairs(R, S, layout)):
+        a, b, masks = ddpm_edit(cfg, pair)
+        second = edit_pair(R, frac=0.06, at=(R // 2, (R // 8) * (i % 4)),
+                           seed=300 + i)
+        _, c, masks2 = ddpm_edit(cfg, (pair[1], over(pair[1], second)))
+        x0.append(a)
+        x1.append(b)
+        x2.append(c)
+        m1.append(masks)
+        m2.append(masks2)
+    return (torch.stack(x0), torch.stack(x1), torch.stack(x2), m1, m2)
+
+
+class SessionLoop:
+    """The per-session loop that ``SessionServer`` ran before its stacked
+    forward, kept here as a measurement helper only: one ``EngineState``
+    per session on one model, each with its own unpinned plan; a step
+    switches to each state and runs that session's sparse forward (S
+    forwards a step)."""
+
+    def __init__(self, module, layout):
+        from sige_torch.nn import SIGEModel
+
+        self.model = SIGEModel(module, layout=layout, device="cuda")
+        self.states = []
+
+    def prime(self, x, t):
+        for s in range(x.shape[0]):
+            self.model.use(self.model.new_state())
+            self.model.full(x[s], t[s])
+            self.states.append(self.model.state)
+
+    def set_masks(self, i, masks):
+        self.model.use(self.states[i])
+        self.model.set_masks(masks)
+
+    def step(self, x, t):
+        ys = []
+        for s, state in enumerate(self.states):
+            self.model.use(state)
+            ys.append(self.model.sparse(x[s], t[s]))
+        return torch.stack(ys)
+
+
+@contextlib.contextmanager
+def session_ops_recorded(seen, calls):
+    """The session kernels' launches recorded: each call's key (op,
+    dtypes, shapes, origin form, masks, epilogue) counted in ``calls``,
+    and at a key not in ``seen`` the kernel's output held against the
+    plain version on the same inputs (exact; 1e-6 after an epilogue),
+    the inputs' description kept for the timing rows."""
+    from sige_torch.ops import sessions as ss
+
+    real_crop, real_paste = ss._crop_cuda, ss._paste_cuda
+
+    def shape(t):
+        return None if t is None else tuple(t.shape)
+
+    def crop(x, org, EH, EW, edge, scale, shift, act, af, clamp):
+        out = real_crop(x, org, EH, EW, edge, scale, shift, act, af, clamp)
+        key = ("crop", str(x.dtype).split(".")[-1], tuple(x.shape), EH, EW,
+               shape(org) if ss.is_sessions(org) else "host", shape(edge),
+               shape(scale), shape(shift), act, af, clamp)
+        calls[key] = calls.get(key, 0) + 1
+        if key not in seen:
+            want = ss.crop_sessions_plain(x, org, EH, EW, edge, scale, shift,
+                                          act, af, clamp)
+            err = (out.float() - want.float()).abs().max().item()
+            epi = scale is not None or shift is not None or act != "identity"
+            if out.dtype != want.dtype or not err <= (
+                    SESSION_EPILOGUE_TOL if epi else 0.0):
+                raise AssertionError(f"crop_sessions_f32 at {key}: max err "
+                                     f"{err:.3e} against the plain version")
+            seen[key] = {"err": err, "org": org.clone() if ss.is_sessions(
+                org) else tuple(org), "edge": None if edge is None
+                else edge.clone()}
+        return out
+
+    def paste(base, win, org, cov, clamp):
+        out = real_paste(base, win, org, cov, clamp)
+        key = ("paste", str(base.dtype).split(".")[-1],
+               str(win.dtype).split(".")[-1], tuple(base.shape),
+               tuple(win.shape), shape(org) if ss.is_sessions(org)
+               else "host", shape(cov), clamp)
+        calls[key] = calls.get(key, 0) + 1
+        if key not in seen:
+            want = ss.paste_sessions_plain(base, win, org, cov, clamp)
+            if out.dtype != want.dtype or not torch.equal(out, want):
+                err = (out.float() - want.float()).abs().max().item()
+                raise AssertionError(f"paste_sessions_f32 at {key}: max err "
+                                     f"{err:.3e} against the plain version")
+            seen[key] = {"err": 0.0, "org": org.clone() if ss.is_sessions(
+                org) else tuple(org), "cov": None if cov is None
+                else cov.clone()}
+        return out
+
+    ss._crop_cuda, ss._paste_cuda = crop, paste
+    try:
+        yield
+    finally:
+        ss._crop_cuda, ss._paste_cuda = real_crop, real_paste
+
+
+@contextlib.contextmanager
+def session_ops_plain():
+    """The plain versions in place of the session kernels on CUDA tensors
+    (measurement only: what the kernels save in launches and time)."""
+    from sige_torch.ops import sessions as ss
+
+    real = ss._crop_cuda, ss._paste_cuda
+    ss._crop_cuda = ss.crop_sessions_plain
+    ss._paste_cuda = ss.paste_sessions_plain
+    try:
+        yield
+    finally:
+        ss._crop_cuda, ss._paste_cuda = real
+
+
+_ELEM = {"float32": 4, "bfloat16": 2}
+
+
+def window_in_image(org, S: int, H: int, W: int, EH: int, EW: int,
+                    clamp: bool) -> torch.Tensor:
+    """[S, EH, EW] bool on the CPU: the pixels of each session's window
+    (at origins ``org``, as the session kernels read them) inside the
+    H x W image."""
+    from sige_torch.ops import sessions as ss
+
+    if ss.is_sessions(org):
+        v = ss.virtual_origin(org.cpu().to(torch.int64))
+        r, c = v[:, 0], v[:, 1]
+    else:
+        r, c = (torch.full((S,), int(o)) for o in org[:2])
+    if clamp:
+        r = r.clamp(max=H - EH).clamp(min=0)
+        c = c.clamp(max=W - EW).clamp(min=0)
+    rows = r[:, None] + torch.arange(EH)
+    cols = c[:, None] + torch.arange(EW)
+    return (((rows >= 0) & (rows < H))[:, :, None]
+            & ((cols >= 0) & (cols < W))[:, None, :])
+
+
+def session_kernel_bytes(key, rec) -> int:
+    """Bytes one call must move, from the shapes in ``key`` and the
+    origins and masks in ``rec``: the output written once; for a crop, x
+    read at the window pixels inside the image where ``edge`` is set (the
+    rest of the window is zero or the epilogue of zero); for a paste, one
+    read per output pixel: the window where it covers the pixel inside
+    the image and ``cov`` is set, ``base`` elsewhere; the masks, epilogue
+    params and origins read once."""
+    from sige_torch.ops import sessions as ss
+
+    org = rec["org"]
+    n = 0 if key[5] == "host" else 8 * int(np.prod(key[5]))
+    if key[0] == "crop":
+        _, dt, (N, H, W, C), EH, EW, _, edge, scale, shift = key[:9]
+        S = ss._count(org, rec["edge"])
+        need = window_in_image(org, S, H, W, EH, EW, key[11])
+        if rec["edge"] is not None:
+            need &= ss._per_session(rec["edge"].cpu(), S)
+            n += int(np.prod(edge))
+        n += N * EH * EW * C * _ELEM[dt]
+        n += (N // S) * C * _ELEM[dt] * int(need.sum())
+        n += sum(4 * int(np.prod(p)) for p in (scale, shift) if p)
+    else:
+        _, db, dw, (N, H, W, C), (_, WH, WW, _), _, cov = key[:7]
+        S = ss._count(org, rec["cov"])
+        take = window_in_image(org, S, H, W, WH, WW, key[7])
+        if rec["cov"] is not None:
+            take &= ss._per_session(rec["cov"].cpu(), S)
+            n += int(np.prod(cov))
+        k = int(take.sum())
+        n += N * H * W * C * _ELEM[dw]
+        n += (N // S) * C * (k * _ELEM[dw] + (S * H * W - k) * _ELEM[db])
+    return n
+
+
+def session_kernel_row(key, rec, calls_per_step):
+    """A row of the session kernels' table: the key's max error against
+    the plain version (on the path's own inputs), its launches per step,
+    its bound, the kernel's and the plain version's CUDA-event ms and the
+    kernel's device ms on inputs of the key's shapes (random values, the
+    path's origins and masks)."""
+    from sige_torch.ops import sessions as ss
+
+    bound = session_kernel_bytes(key, rec) / PEAK_BYTES_PER_S * 1e3
+    row = {"kernel": f"{key[0]}_sessions_f32", "key": [str(k) for k in key],
+           "max_err": rec["err"], "launches_per_step": calls_per_step,
+           "bound_ms": bound, "bound_by": "bytes", "ms": None,
+           "plain_ms": None, "device_ms": None, "library_ms": None}
+    gen = torch.Generator(device="cuda").manual_seed(len(key))
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if key[0] == "crop":
+        _, d, xs, EH, EW, _, _, scale, shift, act, af, clamp = key
+        x = torch.randn(xs, generator=gen, device="cuda").to(dt[d])
+        sc, sh = (None if p is None else torch.randn(
+            p, generator=gen, device="cuda") for p in (scale, shift))
+        args = (x, rec["org"], EH, EW, rec["edge"], sc, sh, act, af, clamp)
+        kernel, plain = ss._crop_cuda, ss.crop_sessions_plain
+    else:
+        _, db, dw, bs, ws, _, _, clamp = key
+        base = torch.randn(bs, generator=gen, device="cuda").to(dt[db])
+        win = torch.randn(ws, generator=gen, device="cuda").to(dt[dw])
+        args = (base, win, rec["org"], rec["cov"], clamp)
+        kernel, plain = ss._paste_cuda, ss.paste_sessions_plain
+    row["ms"] = time_ms(lambda: kernel(*args), warmup=2, iters=10)
+    row["plain_ms"] = time_ms(lambda: plain(*args), warmup=2, iters=10)
+    row["device_ms"] = device_ms(lambda: kernel(*args), iters=5, tries=1,
+                                 required=False)[0]
+    return row
+
+
+def upload_reuse_ms(server, masks, n: int = 10):
+    """What ``upload_reuse`` saves when session 0 moves its edit by 8 px
+    (its mask pyramid rolled): host ms (median of ``n``, synchronised) of
+    the stacked plan's whole upload (``upload_plan``) and of the upload
+    that reuses the unchanged leaves, the leaves kept. Then what the plan
+    holds on the card over a run of six moved edits (sessions in turn,
+    moves of 8, 2, 12, 2, 4 and 2 px), each uploaded over the last as
+    the server's ``_install`` does: the most packed buffers and device
+    bytes it held against its own leaves' bytes. All on a copy of the
+    server's ``PlanStack``: the server's plan and pins stay as they
+    were."""
+    from sige_torch.nn.engine import upload_plan
+    from sige_torch.parallel import upload_reuse
+
+    stack, dev = copy.deepcopy(server._stack), server.model.device
+    R = max(masks[0])[0]
+
+    def moved(i, px):
+        return {res: np.roll(m, (px * res[0] // R, px * res[1] // R),
+                             axis=(0, 1)) for res, m in masks[i].items()}
+
+    host1 = stack.stacked()
+    dev1 = upload_plan(host1, dev)
+    stack.set(0, moved(0, 8))
+    host2 = stack.stacked()
+    a, b = dict(plan_leaves(host1)), dict(plan_leaves(host2))
+    kept = sum(1 for k, v in b.items() if k in a and a[k].shape == v.shape
+               and a[k].dtype == v.dtype and np.array_equal(a[k], v))
+    whole = float(np.median([host_ms(lambda: upload_plan(host2, dev))[1]
+                             for _ in range(n)]))
+    reuse = float(np.median([host_ms(lambda: upload_reuse(
+        dev, host1, dev1, host2))[1] for _ in range(n)]))
+    host, plan = host1, dev1
+    buffers, ratio = 0, 0.0
+    for j, px in enumerate((8, 2, 12, 2, 4, 2)):
+        stack.set(j % len(masks), moved(j % len(masks), px))
+        host2 = stack.stacked()
+        host, plan = host2, upload_reuse(dev, host, plan, host2)
+        leaves = list(tree_leaves(plan))
+        held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in leaves}
+        buffers = max(buffers, len(held))
+        ratio = max(ratio, sum(held.values())
+                    / sum(t.nbytes for t in leaves))
+    return {"leaves": len(b), "kept": kept, "upload_plan_ms": whole,
+            "upload_reuse_ms": reuse, "edits": 6, "max_buffers": buffers,
+            "max_held_over_leaf_bytes": ratio}
+
+
+def session_references(module_state, cfg, layout, x0, x1, x2, t, m1, m2,
+                       caps1, caps2):
+    """Each session alone through the single-session engine planned under
+    the server's merged pins (``_stack._caps()``): its step, its commit
+    and its second edit over the commit, [S, 1, ...] each."""
+    from sige_torch.models.ddpm import SIGEFusedUNet
+    from sige_torch.nn import SIGEModel
+
+    ref = SIGEModel(SIGEFusedUNet(cfg), layout=layout, device="cuda")
+    ref.module.load_state_dict(module_state)
+    ys, yus, y2s = [], [], []
+    for i in range(x0.shape[0]):
+        ref.full(x0[i], t[i])
+        ref.set_masks(m1[i], capacities=caps1)
+        ys.append(ref.sparse(x1[i], t[i]))
+        yus.append(ref.sparse(x1[i], t[i], sparse_update=True))
+        ref.set_masks(m2[i], capacities=caps2)
+        y2s.append(ref.sparse(x2[i], t[i]))
+    return torch.stack(ys), torch.stack(yus), torch.stack(y2s)
+
+
+def session_run(flash, module, cfg, layout, S, seen, rows_timed):
+    """One S in one layout: prime, plan, a warm-up step (recording the
+    session kernels' calls and new flash shapes), SESSION_STEPS steps on
+    CUDA events with every launch counter set to 0 just before and read
+    just after (flash held exactly to 6 + 6 a step), a trace of
+    SESSION_TRACE steps, the same with the plain versions forced, the
+    commit, a second edit per session (the re-pin), each session's rows
+    against the single-session engine under the server's pins."""
+    from sige_torch.ops import sessions as ss
+    from sige_torch.parallel import SessionServer
+
+    x0, x1, x2, m1, m2 = session_inputs(cfg, S, layout)
+    t = torch.full((S, 1), SESSION_T, device="cuda")
+    server = SessionServer(module, layout=layout, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.prime(x0, t)
+    torch.cuda.synchronize()
+    prime_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for i in range(S):
+        server.set_masks(i, m1[i])
+    server._stack.stacked()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    caps1 = server._stack._caps()
+    calls, flash_new = {}, {}
+    with session_ops_recorded(seen, calls):
+        _, flash_new = record_calls(lambda: server.step(x1, t), set(),
+                                    f"sessions {layout} S={S}")
+    want = expected_launches(flash, cfg, forwards=SESSION_STEPS, batch=S)
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    ss.crop_sessions.launches = ss.paste_sessions.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(SESSION_STEPS)]
+    for start, end in events:
+        start.record()
+        y = server.step(x1, t)
+        end.record()
+    torch.cuda.synchronize()
+    got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+    kernels = {"crop_sessions_f32": ss.crop_sessions.launches,
+               "paste_sessions_f32": ss.paste_sessions.launches}
+    if got != want:
+        raise AssertionError(f"sessions {layout} S={S}: flash launches {got} "
+                             f"over {SESSION_STEPS} steps, expected {want}")
+    if not all(kernels.values()):
+        raise AssertionError(f"sessions {layout} S={S}: a session kernel "
+                             f"was not launched: {kernels}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    step_ms = sorted(a.elapsed_time(b) for a, b in events)
+    med = float(np.median(step_ms))
+    busy, launches = trace_stats(lambda: server.step(x1, t),
+                                 iters=SESSION_TRACE)
+    with session_ops_plain():
+        plain_ms = events_ms(lambda: server.step(x1, t), SESSION_TRACE)[0]
+        plain_busy, plain_launches = trace_stats(
+            lambda: server.step(x1, t), iters=SESSION_TRACE)
+    reuse = (upload_reuse_ms(server, m1) if S == SESSION_LOOP_S
+             else None)
+    y_upd = server.step(x1, t, sparse_update=True)
+    pins1 = dict(server._stack.pins)
+    wins1 = server._stack.win_pins
+    for i in range(S):
+        server.set_masks(i, m2[i])
+    y2 = server.step(x2, t)
+    caps2 = server._stack._caps()
+    repinned = (server._stack.pins != pins1 or server._stack.win_pins != wins1)
+    meta_fast = server._stack.meta_fast
+    win_pins = server._stack.win_pins
+    state = {k: v.clone() for k, v in server.model.module.state_dict().items()}
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs = session_references(state, cfg, layout, x0, x1, x2, t, m1, m2,
+                              caps1, caps2)
+    errs = [float((a - b).abs().max().item())
+            for a, b in zip((y, y_upd, y2), refs)]
+    for name, out in (("step", y), ("commit", y_upd), ("second", y2)):
+        if out.shape != (S, 1, cfg.resolution, cfg.resolution, cfg.out_ch) \
+                or not torch.isfinite(out).all():
+            raise AssertionError(f"sessions {layout} S={S} {name}: shape "
+                                 f"{tuple(out.shape)} or non-finite values")
+    row = {"S": S, "layout": layout, "prime_ms": prime_ms,
+           "plan_ms": plan_ms, "step_ms": step_ms, "step_ms_median": med,
+           "ms_per_session": med / S, "flash_launches": got[0],
+           "combine_launches": got[1], "kernel_launches": kernels,
+           "launches_per_step": launches, "busy_ms": busy,
+           "idle_share": None if busy is None else max(0.0, 1 - busy / med),
+           "plain_forced": {"step_ms": plain_ms, "busy_ms": plain_busy,
+                            "launches_per_step": plain_launches},
+           "peak_mb": peak, "max_err": dict(zip(
+               ("step", "commit", "second"), errs)),
+           "meta_fast": meta_fast, "repinned_on_second_edit": repinned,
+           "upload": reuse,
+           "windowed_resolutions": None if win_pins is None
+           else len(win_pins)}
+    times = ", ".join(f"{v:.3f}" for v in step_ms)
+    print(f"  [sessions] {layout} S={S}: step {med:.3f} ms median of "
+          f"{SESSION_STEPS} (CUDA events; {times}), "
+          f"{med / S:.3f} ms per session; flash {got[0]} + {got[1]} combine "
+          f"over {SESSION_STEPS} steps (expected {want[0]} + {want[1]}); "
+          f"crop {kernels['crop_sessions_f32']}, paste "
+          f"{kernels['paste_sessions_f32']} launches; per step "
+          + ("busy, launches not measured" if busy is None else
+             f"busy {busy:.3f} ms, {launches:.0f} kernel launches, idle share "
+             f"{row['idle_share']:.3f}")
+          + f"; plain versions forced: {plain_ms:.3f} ms, "
+          + ("not measured" if plain_busy is None else
+             f"{plain_launches:.0f} launches, busy {plain_busy:.3f} ms")
+          + f"; peak {peak:.0f} MB; prime {prime_ms:.1f} ms, plan "
+          f"{plan_ms:.1f} ms; meta_fast {meta_fast}, windowed resolutions "
+          f"{row['windowed_resolutions']}, re-pinned on the second edit "
+          f"{repinned}; rows vs the single-session engine under the pins: "
+          f"step {errs[0]:.3e}, commit {errs[1]:.3e}, second {errs[2]:.3e}"
+          + ("" if reuse is None else
+             f"; session 0's edit moved by 8 px: {reuse['kept']} of "
+             f"{reuse['leaves']} leaves unchanged, upload_plan "
+             f"{reuse['upload_plan_ms']:.3f} ms, upload_reuse "
+             f"{reuse['upload_reuse_ms']:.3f} ms (host, median of 10); "
+             f"over {reuse['edits']} moved edits the plan held at most "
+             f"{reuse['max_buffers']} buffers, "
+             f"{reuse['max_held_over_leaf_bytes']:.3f}x its leaves' bytes"),
+          flush=True)
+    if not all(e <= TOL for e in errs):
+        raise AssertionError(f"sessions {layout} S={S}: rows differ from the "
+                             f"single-session engine by {errs}")
+    if layout == "window" and S > 1 and meta_fast:
+        raise AssertionError(f"sessions window S={S}: the border edit did "
+                             f"not flip the stack to the 4-form metas")
+    if S > 1 and not repinned:
+        raise AssertionError(f"sessions {layout} S={S}: the second edits did "
+                             f"not re-pin the stack")
+    for key, n in calls.items():
+        krow = session_kernel_row(key, seen[key], n)
+        krow.update(S=S, layout=layout)
+        rows_timed.append(krow)
+    return row, flash_new
+
+
+def session_loop(flash, module, cfg):
+    """The earlier per-session loop at SESSION_LOOP_S sessions (window
+    layout, the same edits): SESSION_STEPS steps on CUDA events, flash
+    launches held to 6 + 6 per session, a trace's busy time and
+    launches."""
+    S = SESSION_LOOP_S
+    x0, x1, _, m1, _ = session_inputs(cfg, S, "window")
+    t = torch.full((S, 1), SESSION_T, device="cuda")
+    loop = SessionLoop(module, "window")
+    loop.prime(x0, t)
+    for i in range(S):
+        loop.set_masks(i, m1[i])
+    loop.step(x1, t)
+    want = expected_launches(flash, cfg, forwards=S * SESSION_STEPS)
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    med, p90 = events_ms(lambda: loop.step(x1, t), SESSION_STEPS)
+    got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+    if got != want:
+        raise AssertionError(f"loop S={S}: flash launches {got}, expected "
+                             f"{want}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    busy, launches = trace_stats(lambda: loop.step(x1, t),
+                                 iters=SESSION_TRACE)
+    rec = {"S": S, "step_ms_median": med, "step_ms_p90": p90,
+           "ms_per_session": med / S, "flash_launches": got[0],
+           "combine_launches": got[1], "launches_per_step": launches,
+           "busy_ms": busy, "idle_share": None if busy is None
+           else max(0.0, 1 - busy / med), "peak_mb": peak}
+    print(f"  [sessions] the per-session loop (the earlier SessionServer), "
+          f"window, S={S}: step {med:.3f} ms median of {SESSION_STEPS} "
+          f"(p90 {p90:.3f}), {med / S:.3f} ms per session; flash {got[0]} + "
+          f"{got[1]} combine (expected {want[0]} + {want[1]}); per step "
+          + ("busy, launches not measured" if busy is None else
+             f"busy {busy:.3f} ms, {launches:.0f} kernel launches, idle share "
+             f"{rec['idle_share']:.3f}") + f"; peak {peak:.0f} MB", flush=True)
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_sessions(flash, seen_flash, first_row):
+    """Phase 18: ``SessionServer`` on ``DDPMUNetConfig()`` at church256,
+    full width, random weights from seed 0: S sessions with their own
+    edits as one stacked sparse forward, S in :data:`SESSION_COUNTS`, in
+    the window layout (compact edits, one at the border: the 4-form) and
+    the tile layout (spread edits: the re-pin); the earlier per-session
+    loop at :data:`SESSION_LOOP_S` beside them; the session kernels held
+    against their plain versions at every call shape of the path.
+    Returns (record, flash kernel rows at new shapes)."""
+    from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
+    from sige_torch.nn import SIGEModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    cfg = DDPMUNetConfig()
+    init = SIGEModel(SIGEFusedUNet(cfg), device="cuda")
+    init.init(0)
+    module = init.module
+    del init
+    rec = {"runs": [], "kernel_rows": []}
+    seen, recorded = {}, {}
+    for layout in ("window", "tiles"):
+        for S in SESSION_COUNTS:
+            rows = []
+            row, new = session_run(flash, module, cfg, layout, S, seen, rows)
+            rec["runs"].append(row)
+            rec["kernel_rows"] += rows
+            recorded.update({k: v for k, v in new.items()
+                             if k not in seen_flash})
+            seen_flash.update(new)
+    rec["loop"] = session_loop(flash, module, cfg)
+    errs = [r["max_err"] for r in rec["kernel_rows"]]
+    timed = [r for r in rec["kernel_rows"] if r["S"] == SESSION_LOOP_S]
+    print(f"  [sessions] session kernels: {len(seen)} distinct call shapes, "
+          f"each held against its plain version on the path's inputs (max "
+          f"err {max(errs):.3e}), each timed (the JSON record has every "
+          f"S); at S={SESSION_LOOP_S}:", flush=True)
+    for r in timed:
+        print(f"    {r['layout']} {r['kernel']} {r['key'][1:]}: "
+              f"x{r['launches_per_step']} "
+              f"a step; ms {r['ms']:.4f}, plain {r['plain_ms']:.4f}, device "
+              + ("not measured" if r["device_ms"] is None
+                 else f"{r['device_ms']:.4f}")
+              + f", bound {r['bound_ms']:.5f} (bytes)", flush=True)
+    rows = []
+    with fp32_scope():
+        for key, (where, bias) in recorded.items():
+            B, N, M, H, D, masked = key
+            label = (f"{row_label(first_row + len(rows))}: {where} DDPM "
+                     f"{'16 px' if N == 256 else '8 px mid'} attention "
+                     f"(B {B}, N {N}, M {M}, H {H}, D {D})")
+            rows.append(kernel_row(flash, label, B, N, M, H, D, bias))
+    rec["s"] = time.perf_counter() - t_start
+    print(f"  [sessions] phase 18 in {rec['s']:.1f} s, {len(rows)} new flash "
+          f"shapes", flush=True)
+    return rec, rows
+
+
+def session_kernel_entries(sessions, demo_server=None):
+    """The session kernels' entries of the ``kernels`` line: launches by
+    path (each timed run of phase 18, the demo's SessionServer step), the
+    max error over every call shape, and the numbers of the most launched
+    timed shape at S = SESSION_LOOP_S in the window layout."""
+    out = []
+    for name, source_line in (("crop_sessions_f32", CROP_REPLACES),
+                              ("paste_sessions_f32", PASTE_REPLACES)):
+        rows = [r for r in sessions["kernel_rows"] if r["kernel"] == name]
+        timed = [r for r in rows if r["S"] == SESSION_LOOP_S
+                 and r["layout"] == "window"]
+        main = max(timed, key=lambda r: (r["launches_per_step"],
+                                         r["bound_ms"]))
+        by_path = {f"sessions_{r['layout']}_S{r['S']}_{SESSION_STEPS}_steps":
+                   r["kernel_launches"][name] for r in sessions["runs"]}
+        if demo_server is not None:
+            by_path["demo_session_server_step"] = demo_server[
+                "kernel_launches"][name]
+        out.append({
+            "name": name, "route": "cuda", "source": SESSIONS_SOURCE,
+            "replaces": source_line,
+            "tpu_kernel": None,  # XLA dynamic_slice / update_slice, no Pallas
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["max_err"] for r in rows),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "device_ms": main["device_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "shape": main["key"], "shapes": len(rows)})
+    return out
+
+
 def one_phase(flash, name: str) -> dict:
     """The record of one phase run alone, as ``--phase`` selects it."""
     import tempfile
@@ -4015,7 +4647,48 @@ def one_phase(flash, name: str) -> dict:
     if name == "twin":
         result, rows = phase_twin(flash, set(), 0)
         return {"twin": result, "rows": rows}
+    if name == "sessions":
+        result, rows = phase_sessions(flash, set(), 0)
+        return {"sessions": result, "rows": rows,
+                "kernels": session_kernel_entries(result)}
     return {"quality": phase_quality(flash)}
+
+
+def build_kernels():
+    """Compile every CUDA source of the port at once (one nvcc each, in
+    threads: the builds run in parallel) and load them; prints each
+    source's build time and nvcc's report."""
+    import threading
+
+    from sige_torch.ops import flash, sessions
+
+    libs = {FLASH_SOURCE: flash.LIBRARY, SESSIONS_SOURCE: sessions.LIBRARY}
+    secs, errors = {}, {}
+
+    def build(name, lib):
+        t0 = time.perf_counter()
+        try:
+            lib.load()
+        except Exception as e:  # re-raised below, in the main thread
+            errors[name] = e
+        secs[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=build, args=item)
+               for item in libs.items()]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for name, lib in libs.items():
+        if name in errors:
+            raise errors[name]
+        print(f"build: {name} in {secs[name]:.2f} s -> {lib.path}",
+              flush=True)
+        print(lib.build_log.strip(), flush=True)
+    print(f"build: every kernel source in {time.perf_counter() - t0:.2f} s "
+          f"(in parallel)", flush=True)
+    return secs
 
 
 def build_native() -> dict:
@@ -4042,7 +4715,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the port on one "
                                 "NVIDIA GPU (every phase, or one).")
     p.add_argument("--phase", choices=("checkpoints", "sd_text",
-                                       "engine_options", "quality", "twin"))
+                                       "engine_options", "quality", "twin",
+                                       "sessions"))
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4053,7 +4727,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         print(f"card: {card_line()} | torch {torch.__version__} cuda "
               f"{torch.version.cuda}", flush=True)
-        flash.LIBRARY.load()
+        build_kernels()
         build_native()
         result = one_phase(flash, args.phase)
         print(f"elapsed: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4072,11 +4746,7 @@ def main(argv=None) -> int:
 
     from sige_torch.ops import flash
 
-    t0 = time.perf_counter()
-    flash.LIBRARY.load()
-    print(f"build: {FLASH_SOURCE} in {time.perf_counter() - t0:.2f} s "
-          f"-> {flash.LIBRARY.path}", flush=True)
-    print(flash.LIBRARY.build_log.strip(), flush=True)
+    build_secs = build_kernels()
     native_rec = build_native()
 
     print("kernels:", flush=True)
@@ -4150,6 +4820,14 @@ def main(argv=None) -> int:
         flash, {(r["B"], r["N"], r["M"], r["H"], r["D"], r["bias"])
                 for r in rows}, len(rows))
     rows += twin_rows
+    print("sessions (SessionServer: the church256 DDPM at full width, S "
+          "sessions with their own edits in one stacked forward, S in "
+          f"{', '.join(map(str, SESSION_COUNTS))}, window and tiles; the "
+          "per-session loop beside it):", flush=True)
+    sessions, session_rows = phase_sessions(
+        flash, {(r["B"], r["N"], r["M"], r["H"], r["D"], r["bias"])
+                for r in rows}, len(rows))
+    rows += session_rows
     if precision_flags() != defaults:
         raise AssertionError(f"precision flags {precision_flags()} after the "
                              f"run, {defaults} before it")
@@ -4182,7 +4860,10 @@ def main(argv=None) -> int:
                for n, r in options["slots"].items()
                for k in ("update", "second")},
             **{f"twin_B{B}_{TWIN_STEPS}_steps": r["launches"]
-               for B, r in twin["batches"].items()}),
+               for B, r in twin["batches"].items()},
+            demo_session_server_step=demo["session_server"]["launches"],
+            **{f"sessions_{r['layout']}_S{r['S']}_{SESSION_STEPS}_steps":
+               r["flash_launches"] for r in sessions["runs"]}),
         "combine_launches_by_path": dict(
             {n: p["combine_launches"] for n, p in paths.items()},
             sd_sdedit=sd["combine_launches"],
@@ -4192,7 +4873,11 @@ def main(argv=None) -> int:
                for s in ("ddim", "dpm_solver")
                for r in demo[s]["requests"]},
             **{f"twin_B{B}_{TWIN_STEPS}_steps": r["combine_launches"]
-               for B, r in twin["batches"].items()}),
+               for B, r in twin["batches"].items()},
+            demo_session_server_step=demo["session_server"][
+                "combine_launches"],
+            **{f"sessions_{r['layout']}_S{r['S']}_{SESSION_STEPS}_steps":
+               r["combine_launches"] for r in sessions["runs"]}),
         "splits": main_row["splits"],
         "max_abs_err": max([r["max_err"] for r in rows]
                            + [f["max_err"] for f in forced.values()]
@@ -4209,11 +4894,13 @@ def main(argv=None) -> int:
         "shapes": rows,
         "forced_splits_a": {str(s): f for s, f in forced.items()},
         "combine_a": combine,
-    }]
+        "build_s": build_secs[FLASH_SOURCE],
+    }] + session_kernel_entries(sessions, demo["session_server"])
     print(json.dumps({"paths": paths, "retime": retime, "sd": sd, "pd": pd,
                       "gaugan": gaugan, "demo": demo, "checkpoints": ckpt,
                       "sd_text": sd_text, "options": options,
-                      "quality": quality, "twin": twin, "native": native_rec,
+                      "quality": quality, "twin": twin,
+                      "sessions": sessions, "native": native_rec,
                       "card": card}),
           flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)

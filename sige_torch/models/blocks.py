@@ -21,8 +21,11 @@ from ..nn.module import (Gather, Scatter, ScatterGather,
                          ScatterWithBlockResidual, SIGECtx, SIGEConv2d,
                          SIGEModule, TileState, WindowState, chain_rel)
 from ..nn.norm import group_norm_with_affine
-from ..ops.window import (window_chain_extend, window_chain_extend_up2,
-                          window_epilogue, window_gather, window_slice)
+from ..ops.sessions import cov_where
+from ..ops.window import (is_fast_meta, scale_origin, sub_origin,
+                          window_chain_extend, window_chain_extend_up2,
+                          window_epilogue, window_extent, window_gather,
+                          window_slice)
 
 RESAMPLES = (None, "down", "up")
 
@@ -290,7 +293,7 @@ class ResBlock(SIGEModule):
             # then doubled: the planner's nesting makes it cover the
             # extraction window (no cache read)
             st = parts[0]
-            org2 = (2 * st.org[0], 2 * st.org[1])
+            org2 = scale_origin(st.org, 2)
             ext = window_chain_extend_up2(up2(swish(affine(st.win, s1, b1))),
                                           org2, meta, edge)
         elif self.resample == "down":
@@ -302,13 +305,14 @@ class ResBlock(SIGEModule):
             meta2, edge2 = g.read_prepool()
             ext2 = self._extend_part(parts[0], meta2, edge2)
             ext = avg_pool2(window_epilogue(
-                ext2, None if len(meta2) == 2 else edge2, s1, b1, "swish"))
+                ext2, None if is_fast_meta(meta2) else edge2, s1, b1,
+                "swish"))
         else:
             rel = chain_rel(g)
             ext = [self._extend_part(p, meta, edge, rel) for p in parts]
             ext = ext[0] if len(ext) == 1 else torch.cat(ext, dim=-1)
-            ext = window_epilogue(ext, None if len(meta) == 2 else edge, s1,
-                                  b1, "swish")
+            ext = window_epilogue(ext, None if is_fast_meta(meta) else edge,
+                                  s1, b1, "swish")
         h = self.conv1(ext, ctx)
         _, s2, b2 = self.norm2(h, ctx)  # cached affine includes temb shift
         h = self.sg(h, ctx, scale=s2, shift=b2)
@@ -317,12 +321,11 @@ class ResBlock(SIGEModule):
         cache = self.join.cache["original"]
         res = cache.shape[1:3]
         _, cov = g.read_wsc(res)
-        WH, WW = cov.shape
+        WH, WW = window_extent(cov)
         if self.resample == "up":
             # the shortcut is the nearest-2x of the input: the doubled
             # carried window at the output window's origin
-            xs = window_slice(up2(st.win),
-                              (org[0] - org2[0], org[1] - org2[1]), (WH, WW))
+            xs = window_slice(up2(st.win), sub_origin(org, org2), (WH, WW))
         elif self.resample == "down":
             # the shortcut is the avg-pool of the input: the doubled window
             # starts at 2 * (org - 1), so the output window's pre-pool
@@ -332,7 +335,6 @@ class ResBlock(SIGEModule):
             xs = [self._part_window(p, org, (WH, WW)) for p in parts]
             xs = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
         y0w = window_slice(cache, org, (WH, WW))
-        m = cov[None, :, :, None]
         if self.in_channels != self.out_channels:
             xs = self._shortcut(xs, ctx)
             if self.shortcut_sparse:
@@ -341,12 +343,11 @@ class ResBlock(SIGEModule):
                 # out = where(m, main + y1, y0) + where(s, short - y1, 0)
                 _, cov_s = self.shortcut_gather.read_wsc(res)
                 y1w = window_slice(self.join.cache["residual"], org, (WH, WW))
-                s = cov_s[None, :, :, None]
                 zero = torch.zeros((), dtype=h.dtype, device=h.device)
-                out = (torch.where(m, h + y1w, y0w)
-                       + torch.where(s, xs - y1w, zero))
+                out = (cov_where(cov, h + y1w, y0w)
+                       + cov_where(cov_s, xs - y1w, zero))
                 return WindowState(out, cache, org)
-        return WindowState(torch.where(m, h + xs, y0w), cache, org)
+        return WindowState(cov_where(cov, h + xs, y0w), cache, org)
 
 
 class SIGEDownsample(SIGEModule):
@@ -388,9 +389,8 @@ class SIGEDownsample(SIGEModule):
             h = conv(ext, ctx)
             cache = self.s.cache["original"]
             org, cov = self.g.read_wsc(cache.shape[1:3])
-            y0w = window_slice(cache, org, cov.shape)
-            return WindowState(torch.where(cov[None, :, :, None], h, y0w),
-                               cache, org)
+            y0w = window_slice(cache, org, window_extent(cov))
+            return WindowState(cov_where(cov, h, y0w), cache, org)
         x = to_map(x)
         if self.sparse_ok:
             x = self.g(x, ctx)
@@ -422,14 +422,13 @@ class SIGEUpsample(SIGEModule):
             # window covers the extraction window
             meta, edge = self.g.read_window()
             ext = window_chain_extend_up2(
-                up2(x.win), (2 * x.org[0], 2 * x.org[1]), meta, edge)
+                up2(x.win), scale_origin(x.org, 2), meta, edge)
             h = self.conv(ext, ctx)
             cache = self.s.cache["original"]
             org = self.g.window_origin()
             _, cov = self.g.read_wsc(cache.shape[1:3])
-            y0w = window_slice(cache, org, cov.shape)
-            return WindowState(torch.where(cov[None, :, :, None], h, y0w),
-                               cache, org)
+            y0w = window_slice(cache, org, window_extent(cov))
+            return WindowState(cov_where(cov, h, y0w), cache, org)
         x = up2(to_map(x))
         if self.sparse_ok:
             x = self.g(x, ctx)
@@ -484,9 +483,8 @@ class SIGEUNetEnds(SIGEModule):
                     and self.in_gather.planned_window()):
                 cache = self.in_scatter.cache["original"]
                 org, cov = self.in_gather.read_wsc(cache.shape[1:3])
-                y0w = window_slice(cache, org, cov.shape)
-                return WindowState(torch.where(cov[None, :, :, None], hwin,
-                                               y0w), cache, org)
+                y0w = window_slice(cache, org, window_extent(cov))
+                return WindowState(cov_where(cov, hwin, y0w), cache, org)
             return self.in_scatter(hwin, ctx)
         if self._head_sparse and ctx.mode == "full":
             self.in_gather(x, ctx)  # records meta

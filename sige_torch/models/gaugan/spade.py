@@ -45,7 +45,9 @@ from ...nn.module import (Gather, Scatter, ScatterGather,
                           ScatterWithBlockResidual, SIGECtx, SIGEConv2d,
                           SIGEModule, WindowState, chain_rel, share)
 from ...nn.norm import batch_norm_affine
-from ...ops.window import (window_chain_extend, window_chain_extend_up2,
+from ...ops.sessions import cov_where
+from ...ops.window import (scale_origin, sub_origin, window_extent,
+                           window_chain_extend, window_chain_extend_up2,
                            window_gather, window_slice)
 from ..blocks import up2
 
@@ -113,7 +115,7 @@ class _Up2State:
 def _chain_up2(x):
     """Chain-aware nearest-2x upsample between SPADE blocks."""
     if isinstance(x, WindowState):
-        return _Up2State(up2(x.win), (2 * x.org[0], 2 * x.org[1]), x)
+        return _Up2State(up2(x.win), scale_origin(x.org, 2), x)
     return up2(x)
 
 
@@ -267,8 +269,7 @@ class SIGEFusedSPADEResnetBlock(SIGEModule):
         """Canonical window of the block INPUT (the residual)."""
         if isinstance(x, _Up2State):
             # the nesting makes the doubled carried window cover it
-            return window_slice(x.win2, (org[0] - x.org2[0],
-                                         org[1] - x.org2[1]), shape)
+            return window_slice(x.win2, sub_origin(org, x.org2), shape)
         if isinstance(x, WindowState):
             return x.win  # the same canonical window at the same resolution
         return window_slice(x, org, shape)
@@ -281,7 +282,7 @@ class SIGEFusedSPADEResnetBlock(SIGEModule):
         cache = self.join.cache["original"]
         res = tuple(cache.shape[1:3])
         _, cov = g.read_wsc(res)
-        shape = tuple(cov.shape)
+        shape = window_extent(cov)
 
         # the seg branch, window-resident: the seg window straight off the
         # full-res seg map (strided), the ring off the cached actv map
@@ -296,17 +297,16 @@ class SIGEFusedSPADEResnetBlock(SIGEModule):
 
         # shortcut path + window-resident residual join
         y0w = window_slice(cache, org, shape)
-        m = cov[None, :, :, None]
         if self.learned_shortcut:
             x_s = self._extend(x, self.shortcut_gather, *self.norm_s.affine())
             x_s = self.conv_s(self.norm_s(x_s, actv[2], ctx), ctx)
             _, cov_s = self.shortcut_gather.read_wsc(res)
             y1w = window_slice(self.join.cache["residual"], org, shape)
             zero = torch.zeros((), dtype=dx.dtype, device=dx.device)
-            out = (torch.where(m, dx + y1w, y0w)
-                   + torch.where(cov_s[None, :, :, None], x_s - y1w, zero))
+            out = (cov_where(cov, dx + y1w, y0w)
+                   + cov_where(cov_s, x_s - y1w, zero))
         else:
-            out = torch.where(m, dx + self._input_window(x, org, shape), y0w)
+            out = cov_where(cov, dx + self._input_window(x, org, shape), y0w)
         return WindowState(out, cache, org)
 
     def forward(self, x, seg, ctx: SIGECtx):

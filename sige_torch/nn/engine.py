@@ -129,30 +129,62 @@ def _get_path(tree: Mapping, path: Tuple[str, ...]):
     return tree
 
 
-def upload_plan(plan: Mapping, device: torch.device) -> Dict:
-    """The plan tree with every leaf a tensor on ``device``, moved in ONE
-    copy: the leaves are packed into one int64 buffer and split into views
-    on the device; bool leaves (window coverage and edge masks) are cast
-    back to bool there."""
-    leaves = []
+def plan_leaves(plan: Mapping, _path: Tuple[str, ...] = ()
+                ) -> List[Tuple[Tuple[str, ...], np.ndarray]]:
+    """(path, array) of every leaf of a host plan tree, in tree order."""
+    out = []
+    for k, v in plan.items():
+        if isinstance(v, Mapping):
+            out += plan_leaves(v, _path + (k,))
+        else:
+            out.append((_path + (k,), np.asarray(v)))
+    return out
 
-    def walk(node, path):
+
+def plan_sessions(plan: Mapping) -> Optional[int]:
+    """S of a plan stacked over S sessions (its ``indices`` leaves lead
+    with S), else None."""
+    def indices(node):
         for k, v in node.items():
             if isinstance(v, Mapping):
-                walk(v, path + (k,))
-            else:
-                leaves.append((path + (k,), np.asarray(v)))
+                yield from indices(v)
+            elif k == "indices":
+                yield v
 
-    walk(plan, ())
-    flat = np.concatenate([a.reshape(-1).astype(np.int64) for _, a in leaves]
-                          or [np.zeros(0, np.int64)])
-    buf = torch.from_numpy(flat).to(device)
+    a = next(indices(plan), None)
+    return int(np.shape(a)[0]) if np.ndim(a) == 3 else None
+
+
+def upload_leaves(arrays: List[np.ndarray], device: torch.device
+                  ) -> List[torch.Tensor]:
+    """The arrays as tensors on ``device``, moved in ONE copy: packed into
+    one byte buffer (int arrays as int64, bool arrays, the window coverage
+    and edge masks, as one byte an element; each at an 8-byte offset) and
+    split into views of it on the device."""
+    parts, pos = [], 0
+    for a in arrays:
+        b = (a.astype(np.bool_) if a.dtype == np.bool_
+             else a.astype(np.int64)).reshape(-1).view(np.uint8)
+        parts += [b, np.zeros(-b.size % 8, np.uint8)]
+    buf = torch.from_numpy(np.concatenate(parts or [np.zeros(0, np.uint8)])
+                           ).to(device)
+    out = []
+    for a, b in zip(arrays, parts[::2]):
+        t = buf[pos:pos + b.size]
+        out.append(t.view(torch.bool if a.dtype == np.bool_ else torch.int64
+                          ).view(a.shape))
+        pos += b.size + (-b.size % 8)
+    return out
+
+
+def upload_plan(plan: Mapping, device: torch.device) -> Dict:
+    """The plan tree with every leaf a tensor on ``device``, moved in ONE
+    copy (:func:`upload_leaves`)."""
+    leaves = plan_leaves(plan)
     out: Dict = {}
-    pos = 0
-    for path, a in leaves:
-        t = buf[pos:pos + a.size].view(a.shape)
-        _set_path(out, path, t.bool() if a.dtype == np.bool_ else t)
-        pos += a.size
+    for (path, _), t in zip(leaves, upload_leaves([a for _, a in leaves],
+                                                  device)):
+        _set_path(out, path, t)
     return out
 
 
@@ -349,13 +381,20 @@ class SIGEModel:
                           chain_nesting=self.chain_nesting)
         return plan, layout
 
-    def set_plan(self, plan: Mapping, layout: str) -> None:
+    def set_plan(self, plan: Mapping, layout: str,
+                 device_plan: Optional[Mapping] = None) -> None:
         """Install a host plan (built in ``layout``) in the current state:
-        its leaves go to the device in one copy and every Gather gets its
-        entry."""
+        its leaves go to the device in one copy (or ``device_plan``, the
+        plan already there) and every Gather gets its entry. A plan
+        stacked over S sessions (every leaf leads with S,
+        :class:`~sige_torch.parallel.PlanStack`) makes the forwards run S
+        sessions of B samples as one batch of S*B, sample s*B + b under
+        session s's plan."""
         state = self.state
         state.active_layout = layout
-        state.plan_host, state.plan = plan, upload_plan(plan, self.device)
+        state.plan_host = plan
+        state.plan = (upload_plan(plan, self.device) if device_plan is None
+                      else device_plan)
         self.use(state)
 
     def set_masks(self, masks: Mapping, capacities: Optional[Dict] = None):
@@ -393,6 +432,10 @@ class SIGEModel:
         aside for it, since a chain never forms the scattered maps)."""
         if not self.plan:
             raise RuntimeError("call set_masks() before sparse()")
+        S = plan_sessions(self.plan_host)
+        if S and args[0].shape[0] % S:
+            raise ValueError(f"batch {args[0].shape[0]} is not a multiple of "
+                             f"the plan's {S} sessions")
         return self._run(args, kwargs, SIGECtx(
             mode="sparse", cache_id=cache_id, sparse_update=sparse_update,
             cache_dtype=self.cache_dtype))

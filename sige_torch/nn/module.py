@@ -126,7 +126,8 @@ class SIGEModule(nn.Module):
 class WindowState:
     """Carried state of a window-resident chain: the canonical window of
     the current layer's output, the cache that supplies the rest of the
-    map, and the window's origin as host integers. The triple is the
+    map, and the window's origin as host integers (per session: a [S, 2]
+    device tensor). The triple is the
     exact full map (inside the window the carried values, outside the
     cache — they agree on the uncovered interior), so consumers rebuild
     any extraction window from a window-sized cache slice plus one
@@ -183,7 +184,12 @@ class Gather(SIGEModule):
     Also the anchor for planning products: the engine sets ``plan`` (the
     device tensors of this Gather's plan entry) and ``plan_host`` (the
     numpy entry; bbox origins, window metas and window origins are read
-    from it as host integers).
+    from it as host integers). Under a plan stacked over S sessions
+    (every leaf leads with S; ``sige_torch.parallel.PlanStack``) the
+    accessors return origins and metas as the int64 device tensors
+    ``[S, k]`` uploaded with the plan, beside the stacked masks and maps
+    ``[S, ...]``; their shapes (the pinned extents and the meta form) are
+    the same for every session.
 
     ``prepool_chain`` asks the planner for the pre-pool chain products
     (``wdnp_in`` / ``wdnp_edge``): the extraction window doubled to 2x the
@@ -230,6 +236,17 @@ class Gather(SIGEModule):
         raise ValueError(f"unknown mode {ctx.mode}")
 
     # --- services for paired scatters --------------------------------------
+    def stacked(self) -> bool:
+        """Whether the plan entry is stacked over sessions."""
+        return np.ndim(self.plan_host.get("indices", ())) == 3
+
+    def _ints(self, key: str):
+        """A plan origin or window meta: host integers, or under a stacked
+        plan its [S, k] device tensor."""
+        if self.stacked():
+            return self.plan[key]
+        return _host_ints(self.plan_host[key])
+
     def _request(self, key: str, res) -> None:
         self.meta[key] = self.meta.get(key, ()) + (
             np.array(tuple(res), np.int32),)
@@ -245,9 +262,11 @@ class Gather(SIGEModule):
 
     def read_src_map(self, res):
         """(box, origin): the bbox-cropped source map on the device and its
-        origin as host integers (see planner)."""
-        key = f"{res[0]}x{res[1]}"
-        return self.plan[f"srcbox_{key}"], self.plan_host[f"srcorg_{key}"]
+        origin as host integers (see planner; stacked: [S, 2] on the
+        device)."""
+        key = f"srcorg_{res[0]}x{res[1]}"
+        return (self.plan[f"srcbox_{res[0]}x{res[1]}"],
+                self.plan[key] if self.stacked() else self.plan_host[key])
 
     def read_sg(self, res):
         key = f"{res[0]}x{res[1]}"
@@ -256,9 +275,10 @@ class Gather(SIGEModule):
     def read_pixsrc(self, res):
         """(box, origin): the bbox-cropped pixel -> gather-position map of a
         tile-resident chain on the device and its origin as host integers
-        (see planner)."""
-        key = f"{res[0]}x{res[1]}"
-        return self.plan[f"pixbox_{key}"], self.plan_host[f"pixorg_{key}"]
+        (see planner; stacked: [S, 2] on the device)."""
+        key = f"pixorg_{res[0]}x{res[1]}"
+        return (self.plan[f"pixbox_{res[0]}x{res[1]}"],
+                self.plan[key] if self.stacked() else self.plan_host[key])
 
     # --- window layout (ops/window.py; planner layout="window") ----------
     def planned_window(self) -> bool:
@@ -267,27 +287,26 @@ class Gather(SIGEModule):
     def read_window(self):
         """(meta as host ints, edge mask on the device) of the conv input
         window."""
-        return _host_ints(self.plan_host["win_in"]), self.plan["win_edge"]
+        return self._ints("win_in"), self.plan["win_edge"]
 
     def read_prepool(self):
         """(meta as host ints, edge mask on the device) of the extraction
         window doubled to 2x the input resolution (``prepool_chain``)."""
-        return _host_ints(self.plan_host["wdnp_in"]), self.plan["wdnp_edge"]
+        return self._ints("wdnp_in"), self.plan["wdnp_edge"]
 
-    def window_origin(self) -> Tuple[int, int]:
-        return _host_ints(self.plan_host["win_org"])
+    def window_origin(self):
+        return self._ints("win_org")
 
     def read_wsc(self, res):
         """(origin as host ints, coverage mask on the device) of the
         canonical window at output resolution ``res``."""
         key = f"{res[0]}x{res[1]}"
-        return (_host_ints(self.plan_host[f"wsc_org_{key}"]),
-                self.plan[f"wsc_cov_{key}"])
+        return self._ints(f"wsc_org_{key}"), self.plan[f"wsc_cov_{key}"]
 
     def read_wsg(self, res):
         key = f"{res[0]}x{res[1]}"
-        return (_host_ints(self.plan_host[f"wsg_in_{key}"]),
-                self.plan[f"wsg_edge_{key}"], self.plan[f"wsg_cov_{key}"])
+        return (self._ints(f"wsg_in_{key}"), self.plan[f"wsg_edge_{key}"],
+                self.plan[f"wsg_cov_{key}"])
 
 
 class Scatter(SIGEModule):

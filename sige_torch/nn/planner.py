@@ -225,6 +225,7 @@ def build_plan(
     capacities: Optional[Dict[Tuple, int]] = None,
     layout: str = "tiles",
     chain_nesting: bool = True,
+    out_windows: Optional[Dict] = None,
     _path: Tuple = (),
     _memo: Optional[Dict] = None,
 ) -> Dict:
@@ -243,6 +244,9 @@ def build_plan(
       layout: ``"tiles"`` or ``"window"``.
       chain_nesting: grow canonical windows so window chains nest across
         resolutions (False when the model runs no chains).
+      out_windows: optional dict the planner fills with the canonical
+        windows it used, {res: (r0, c0, WH, WW)}: callers derive extent
+        pins from it (``sige_torch.parallel.PlanStack``).
 
     Returns a nested dict mirroring the module tree with, at each Gather:
       ``indices`` [K, 2] int32, ``count`` int32 scalar, and either the
@@ -268,6 +272,8 @@ def build_plan(
         cap_fast = (capacities or {}).get(("__metafast__",))
         _memo["static_fast"] = (ext_pins is None if cap_fast is None
                                 else bool(cap_fast))
+    if out_windows is not None and "windows" in _memo:
+        out_windows.update(_memo["windows"])
     plan: Dict = {}
     for name, node in meta.items():
         if _is_gather_record(node):
@@ -350,7 +356,7 @@ def build_plan(
             plan[name] = entry
         elif isinstance(node, Mapping):
             sub = build_plan(node, masks, bucket_min, capacities, layout,
-                             chain_nesting, _path + (name,), _memo)
+                             chain_nesting, None, _path + (name,), _memo)
             if sub:
                 plan[name] = sub
     return plan

@@ -47,7 +47,13 @@ def stale_fresh_biases(cov: torch.Tensor, org, res):
     origin ``org`` with coverage ``cov`` (bool [WH, WW]) on a map of
     ``res``: fresh window tokens live where covered, stale map tokens live
     everywhere else, so exactly one copy of every position is live.
-    Returns (bias_s [H*W], bias_f [WH*WW]), float32 on ``cov``'s device."""
+    Returns (bias_s [H*W], bias_f [WH*WW]), float32 on ``cov``'s device.
+    One bias serves every sample of the call, so a plan stacked over
+    sessions (origins as a device tensor) is refused."""
+    if isinstance(org, torch.Tensor):
+        raise ValueError("the masked stale/fresh attention takes one key "
+                         "bias per call: plans stacked over sessions "
+                         "(SessionServer) are not supported here")
     WH, WW = cov.shape
     zero = torch.zeros((), dtype=torch.float32, device=cov.device)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=cov.device)

@@ -18,7 +18,7 @@ source.
 
 The shared library is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/sige_torch/`` (beside the package) on first use and loaded with
-ctypes. ``flash_mha`` on CPU tensors runs :func:`flash_mha_plain`; on
+ctypes (:class:`~sige_torch.ops.cuda_lib.CudaLibrary`). ``flash_mha`` on CPU tensors runs :func:`flash_mha_plain`; on
 CUDA tensors it launches the kernels or raises. ``flash_mha.launches``
 counts launches of the attention kernel (one per call),
 ``flash_mha.combine_launches`` those of the combine kernel (one per call
@@ -28,74 +28,20 @@ whose key range is split).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from functools import lru_cache
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attn.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sige_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from .cuda_lib import CSRC, CudaLibrary
+
+SOURCE = CSRC / "flash_attn.cu"
 MAX_HEAD_DIM = 512
 BLOCK_K = 32  # keys per tile: must match kBK in the CUDA source
 
-
-class _Library:
-    """The compiled kernel library, built and loaded on first use."""
-
-    def __init__(self):
-        self.fn = None
-        self.path: Optional[Path] = None
-        self.build_log = ""
-
-    def _nvcc(self) -> str:
-        for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-            if cand and os.access(os.path.join(cand, "bin", "nvcc"), os.X_OK):
-                return os.path.join(cand, "bin", "nvcc")
-        found = shutil.which("nvcc")
-        if found is None:
-            raise RuntimeError("nvcc not found: the flash kernel builds with "
-                               "the CUDA toolkit (CUDA_HOME or /usr/local/cuda)")
-        return found
-
-    def build(self) -> Path:
-        """Compile the source (skipped when a library built from the same
-        source bytes exists) and return the library's path."""
-        src = SOURCE.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = BUILD_DIR / f"libsige_flash_{digest[:12]}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [self._nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{self.build_log}")
-            os.replace(tmp, out)
-        return out
-
-    def load(self):
-        """Build if needed; returns the C entry."""
-        if self.fn is None:
-            self.path = self.build()
-            fn = ctypes.CDLL(str(self.path)).sige_flash_attn_f32
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                           + [ctypes.c_float] + [ctypes.c_int64] * 12
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self.fn = fn
-        return self.fn
-
-
-LIBRARY = _Library()
+LIBRARY = CudaLibrary(SOURCE, "sige_flash", {"sige_flash_attn_f32": (
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    + [ctypes.c_int64] * 12 + [ctypes.c_void_p], ctypes.c_int)})
 
 
 def flash_mha_plain(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
@@ -233,7 +179,7 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     elif not 1 <= splits <= tiles:
         raise ValueError(f"splits must be in [1, {tiles}] for M = {M}, "
                          f"got {splits}")
-    fn = LIBRARY.fn or LIBRARY.load()
+    fn = LIBRARY.load().sige_flash_attn_f32
     q, k, v = _kernel_ready(qh), _kernel_ready(kh), _kernel_ready(vh)
     b = None if bias is None else bias.contiguous()
     # one allocation: out [B, N, H, D], then with splits > 1 the partials

@@ -13,7 +13,10 @@ Semantics (matching the reference kernel and ``sige_tpu.ops.gather``):
   * padded index-buffer slots (>= ``count``) produce all-zero tiles.
 
 Implementation: one flat ``index_select`` at clamped coordinates, the
-epilogue, and a validity select.
+epilogue, and a validity select. Under a stacked plan (S sessions of B
+samples as one batch, ``sige_torch.parallel.SessionServer``) the indices
+are ``[S, K, 2]`` and the counts ``[S]``, and each session's samples
+gather at its own positions (one ``torch.gather``).
 """
 
 from __future__ import annotations
@@ -106,8 +109,10 @@ def gather_tiles(
 
     Args:
       x: [B, H, W, C] feature map.
-      indices: [K, 2] integer padded tile top-lefts (input coordinates).
-      count: number of live tiles (int or scalar tensor).
+      indices: [K, 2] integer padded tile top-lefts (input coordinates),
+        or [S, K, 2] per session (B = S * samples per session).
+      count: number of live tiles (int or scalar tensor; [S] per
+        session).
       geom: block geometry.
       scale / shift: folded-norm epilogue params, [C], [B, C] or NHWC
         broadcastable. Spatially-varying params are gathered alongside x.
@@ -116,6 +121,9 @@ def gather_tiles(
     Returns:
       [B * K, bh, bw, C] tile batch; dead pixels/tiles are exactly zero.
     """
+    if indices.ndim == 3:
+        return _gather_tiles_sessions(x, indices, count, geom, scale, shift,
+                                      activation, activation_first)
     B, H, W, C = x.shape
     K = indices.shape[0]
     bh, bw = geom.block_size
@@ -137,3 +145,57 @@ def gather_tiles(
     tiles = torch.where(valid[None, :, :, :, None], tiles,
                         torch.zeros((), dtype=tiles.dtype, device=tiles.device))
     return tiles.reshape(B * K, bh, bw, C)
+
+
+def session_pixel_index(indices: torch.Tensor, count, geom: BlockGeometry,
+                        H: int, W: int):
+    """Per-session :func:`tile_pixel_index`: indices [S, K, 2] and counts
+    [S] -> flat [S, K*bh*bw] and valid [S, K, bh, bw]."""
+    S, K = indices.shape[:2]
+    bh, bw = geom.block_size
+    idx = indices.to(torch.int64)
+    dev = idx.device
+    rows = (idx[:, :, 0:1] + torch.arange(bh, device=dev))[:, :, :, None]
+    cols = (idx[:, :, 1:2] + torch.arange(bw, device=dev))[:, :, None, :]
+    live = torch.arange(K, device=dev)[None, :] < torch.as_tensor(
+        count, device=dev).reshape(S, 1)
+    valid = ((rows >= 0) & (rows < H) & (cols >= 0) & (cols < W)
+             & live[:, :, None, None])
+    flat = (rows.clamp(0, H - 1) * W + cols.clamp(0, W - 1)).reshape(S, -1)
+    return flat, valid
+
+
+def take_sessions(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``t[n, index[s]]`` over the middle axis of [S*B, P, C] for every
+    sample n = s*B + b: [S*B, M, C] (index [S, M], clamped at 0)."""
+    S, M = index.shape
+    N, _, C = t.shape
+    src = index.clamp_min(0)[:, None, :, None].expand(S, N // S, M, C)
+    return torch.gather(t.unflatten(0, (S, -1)), 2, src).flatten(0, 1)
+
+
+def _gather_tiles_sessions(x, indices, count, geom, scale, shift,
+                           activation, activation_first):
+    N, H, W, C = x.shape
+    S, K = indices.shape[:2]
+    bh, bw = geom.block_size
+    flat, valid = session_pixel_index(indices, count, geom, H, W)
+
+    def take(p):
+        return take_sessions(p.reshape(p.shape[0], -1, p.shape[3]), flat
+                             ).reshape(p.shape[0], K, bh, bw, p.shape[3])
+
+    def gather_param(p):
+        p = broadcast_param(p)
+        if p is None:
+            return None
+        if p.shape[1] == 1 and p.shape[2] == 1:
+            return p[:, None]
+        return take(p)
+
+    tiles = apply_epilogue(take(x), gather_param(scale), gather_param(shift),
+                           activation, activation_first)
+    tiles = torch.where(valid[:, None, :, :, :, None],
+                        tiles.unflatten(0, (S, -1)),
+                        torch.zeros((), dtype=tiles.dtype, device=x.device))
+    return tiles.reshape(N * K, bh, bw, C)

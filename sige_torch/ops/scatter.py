@@ -15,6 +15,15 @@ The box forms take the bbox origin as host integers and clamp it so the
 box fits inside the map, exactly as ``jax.lax.dynamic_slice`` and
 ``dynamic_update_slice`` clamp their start indices.
 
+Under a stacked plan (S sessions of B samples as one batch,
+``sige_torch.parallel.SessionServer``) the lookups lead with S
+(``[S, BH, BW]`` boxes, ``[S, N]`` re-gather sources) and the bbox
+origins are an int64 device tensor ``[S, 2]``; each session's samples
+read their own lookups, and the boxes are read and written at their
+per-session origins through
+:func:`~sige_torch.ops.sessions.crop_sessions` and
+:func:`~sige_torch.ops.sessions.paste_sessions`.
+
 A cache may be stored in a narrower dtype than the tiles
 (``SIGEModel(cache_dtype=)``): every op computes in the tiles' dtype, its
 copy of the cache made in that dtype (the cast rides in the copy) and its
@@ -46,7 +55,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.geometry import BlockGeometry
-from .gather import apply_epilogue, broadcast_param
+from .gather import apply_epilogue, broadcast_param, take_sessions
+from .sessions import crop_sessions, is_sessions, paste_sessions
 
 
 def _long(t, device) -> torch.Tensor:
@@ -59,11 +69,31 @@ def _take(t: torch.Tensor, src, device) -> torch.Tensor:
 
 
 def clamp_origin(origin, box_hw: Tuple[int, int],
-                 map_hw: Tuple[int, int]) -> Tuple[int, int]:
+                 map_hw: Tuple[int, int]):
     """Host ints (r0, c0), clamped like ``jax.lax.dynamic_slice`` so that a
-    box of ``box_hw`` fits inside a map of ``map_hw``."""
+    box of ``box_hw`` fits inside a map of ``map_hw``; for a [S, 2]
+    tensor of per-session origins, the [S, 2] tensor clamped so."""
+    if is_sessions(origin):
+        return torch.stack([origin[:, a].clamp(max=m - b).clamp(min=0)
+                            for a, (b, m) in enumerate(zip(box_hw, map_hw))],
+                           dim=1)
     return tuple(max(0, min(int(o), m - b))
                  for o, b, m in zip(origin, box_hw, map_hw))
+
+
+def _box_sessions(tiles, cache, box, origin, residual=None):
+    """Per-session box join: ``tiles`` [S*B * K, ..., C] read through the
+    [S, BH, BW] box, over a copy of ``cache`` at the [S, 2] origins."""
+    N, H, W, C = cache.shape
+    S, BH, BW = box.shape
+    fresh = take_sessions(tiles.reshape(N, -1, C), box.reshape(S, -1)
+                          ).reshape(N, BH, BW, C)
+    if residual is not None:
+        r = broadcast_param(residual)
+        if r.shape[1] == H and r.shape[2] == W:
+            r = crop_sessions(r, origin, BH, BW, clamp=True)
+        fresh = fresh + r
+    return paste_sessions(cache, fresh, origin, box >= 0, clamp=True)
 
 
 def _zero(t: torch.Tensor) -> torch.Tensor:
@@ -111,7 +141,11 @@ def scatter_tiles_box(
     """Bounding-box form of :func:`scatter_tiles`: the planner crops the
     source map to the bbox of the covered pixels (``src_box`` [BH, BW],
     ``origin`` (r0, c0) host ints), so the join costs the edit's bbox plus
-    one copy of the cache, not a gather over the whole canvas."""
+    one copy of the cache, not a gather over the whole canvas. Per
+    session: ``src_box`` [S, BH, BW], ``origin`` a [S, 2] tensor."""
+    if is_sessions(origin):
+        return _box_sessions(tiles, cache, _long(src_box, cache.device),
+                             origin, residual)
     B, H, W, C = cache.shape
     R, S = geom.out_tile_size
     K = tiles.shape[0] // B
@@ -151,6 +185,11 @@ def scatter_with_block_residual_box(
     pixels get fresh-main + cached-shortcut; shortcut-covered pixels are
     then corrected by (fresh-shortcut - cached-shortcut).
     """
+    if is_sessions(main_origin):
+        return _block_residual_sessions(
+            main_tiles, cache_out, shortcut_tiles, cache_residual,
+            _long(main_src_box, cache_out.device), main_origin,
+            _long(shortcut_src_box, cache_out.device), shortcut_origin)
     B, H, W, C = cache_out.shape
     dev = cache_out.device
     Rm, Sm = main_geom.out_tile_size
@@ -180,6 +219,26 @@ def scatter_with_block_residual_box(
                         _zero(base))
     out[:, r0:r0 + SH, c0:c0 + SW] = base + delta
     return out
+
+
+def _block_residual_sessions(main_tiles, cache_out, shortcut_tiles,
+                             cache_residual, mbox, morg, sbox, sorg):
+    N, H, W, C = cache_out.shape
+    S, MH, MW = mbox.shape
+    fresh_m = take_sessions(main_tiles.reshape(N, -1, C), mbox.reshape(S, -1)
+                            ).reshape(N, MH, MW, C)
+    y1_m = crop_sessions(cache_residual, morg, MH, MW, clamp=True)
+    out = paste_sessions(cache_out, fresh_m + y1_m, morg, mbox >= 0,
+                         clamp=True)
+    _, SH, SW = sbox.shape
+    fresh_s = take_sessions(shortcut_tiles.reshape(N, -1, C),
+                            sbox.reshape(S, -1)).reshape(N, SH, SW, C)
+    y1_s = crop_sessions(cache_residual, sorg, SH, SW, clamp=True)
+    base = crop_sessions(out, sorg, SH, SW, clamp=True)
+    delta = torch.where(sbox[:, None, :, :, None] >= 0,
+                        (fresh_s - y1_s).unflatten(0, (S, -1)),
+                        _zero(base)).flatten(0, 1)
+    return paste_sessions(out, base + delta, sorg, clamp=True)
 
 
 def calibrate_residual(
@@ -230,6 +289,9 @@ def scatter_gather_tiles(
 
     Returns: [B * K, bh, bw, C] tile batch feeding conv2.
     """
+    if _long(sg_src, cache.device).ndim == 2:
+        return _sg_sessions(tiles, cache, None, sg_src, sg_flat, geom, scale,
+                            shift, activation, activation_first, True)
     B, H, W, C = cache.shape
     R, S = geom.out_tile_size
     bh, bw = geom.block_size
@@ -254,6 +316,45 @@ def scatter_gather_tiles(
                        activation, activation_first)
     z = torch.where((src >= -1)[None, :, None], z, _zero(z))
     return z.reshape(B * K, bh, bw, C)
+
+
+def _sg_sessions(tiles, cache, res_tiles, sg_src, sg_flat, geom, scale,
+                 shift, activation, activation_first, spatial_params):
+    """Per-session form of :func:`scatter_gather_tiles` (``res_tiles``
+    None) and :func:`scatter_gather_residual_tiles`: [S, M] lookups."""
+    N, H, W, C = cache.shape
+    bh, bw = geom.block_size
+    dev = cache.device
+    src = _long(sg_src, dev)
+    flat = _long(sg_flat, dev)
+    S, M = src.shape
+    fresh = take_sessions(tiles.reshape(N, -1, C), src)          # [N, M, C]
+    if res_tiles is not None:
+        fresh = fresh + res_tiles.reshape(N, M, C)
+    cached = take_sessions(cache.reshape(N, H * W, C), flat)
+
+    def split(t):
+        return t.unflatten(0, (S, -1))
+
+    z = torch.where(src[:, None, :, None] >= 0, split(fresh), split(cached))
+
+    def gather_param(p):
+        p = broadcast_param(p)
+        if p is None:
+            return None
+        if p.shape[1] == 1 and p.shape[2] == 1:
+            if p.shape[0] == 1:  # one row for every sample
+                return p.reshape(1, 1, 1, p.shape[3])
+            return split(p.reshape(p.shape[0], 1, p.shape[3]))
+        if not spatial_params:
+            raise ValueError("per-channel epilogue params expected")
+        return split(take_sessions(p.reshape(p.shape[0], -1, p.shape[3]),
+                                   flat))
+
+    z = apply_epilogue(z, gather_param(scale), gather_param(shift),
+                       activation, activation_first)
+    z = torch.where(src[:, None, :, None] >= -1, z, _zero(z))
+    return z.reshape(N * (M // (bh * bw)), bh, bw, C)
 
 
 def materialize_tiles(
@@ -283,8 +384,11 @@ def materialize_tiles_box(
 ) -> torch.Tensor:
     """Bounding-box form of :func:`materialize_tiles`: ``pix_box`` [BH, BW]
     is the pixel -> gather-position map cropped to its covered bbox at
-    ``origin`` (host ints), so the cost is the bbox plus one copy of the
-    cache."""
+    ``origin`` (host ints; per session a [S, 2] tensor with [S, BH, BW]
+    boxes), so the cost is the bbox plus one copy of the cache."""
+    if is_sessions(origin):
+        return _box_sessions(tile_state, cache, _long(pix_box, cache.device),
+                             origin)
     B, H, W, C = cache.shape
     bh, bw = geom.block_size
     K = tile_state.shape[0] // B
@@ -331,6 +435,10 @@ def scatter_gather_residual_tiles(
     Returns: [B * K, bh, bw, C], the block's output at the gather
     positions.
     """
+    if _long(sg_src, cache.device).ndim == 2:
+        return _sg_sessions(tiles, cache, res_tiles, sg_src, sg_flat, geom,
+                            scale, shift, activation, activation_first,
+                            False)
     B, H, W, C = cache.shape
     R, S = geom.out_tile_size
     bh, bw = geom.block_size

@@ -1,33 +1,37 @@
 """Serving on one GPU: batched twin steps for B requests that share one
 plan (``TwinStepServer``), and S concurrent editing sessions, each with
-its OWN mask and plan (``SessionServer``) — the ports of
-``sige_tpu.parallel.serving``'s classes of those names, without a mesh.
+its OWN mask and plan, run as one batch (``SessionServer``, over the
+per-session plans that ``PlanStack`` stacks on shared shape pins) — the
+ports of ``sige_tpu.parallel.serving``'s classes of those names, without
+a mesh.
 
 ``TwinStepServer`` is the identical-mask batching regime (inpainting
 with a fixed template, per-mask request queues): one step runs the full
 pass on the B originals, refreshing their caches, then the sparse pass
 on the B edits, each one batched forward over the shared plan.
 
-``sige_tpu`` makes sessions a batch axis: per-session plans stack on a
-leading axis with shared shape pins (``PlanStack``, ``upload_reuse``) so
-ONE vmapped program runs every session, dp-sharded over a mesh. Here the
-sessions are a loop: each holds an
-:class:`~sige_torch.nn.engine.EngineState` (its caches and its own
-plan), and a step switches the engine to each state by reference and
-runs its sparse forward. Plans need no common shapes, so nothing is
-pinned; one batched forward over the sessions comes with a later slice
-(ROADMAP Queue 2).
+``SessionServer`` is the multi-user regime. ``sige_tpu`` makes the
+sessions a ``vmap`` axis; here they are the batch axis: S sessions of B
+samples run as one forward at batch S*B, sample ``s*B + b`` under
+session s's plan. The per-session plans stack on a leading session axis
+because their leaf shapes are pinned to be equal (``PlanStack``); the
+window origins, box origins and masks that differ between sessions are
+device data that the ops read per sample (``sige_torch/ops/sessions.py``
+and the per-session forms of ``ops/window.py``, ``ops/gather.py`` and
+``ops/scatter.py``). The stacked plan moves to the card through
+``upload_reuse``, which keeps the device tensors of unchanged leaves.
 """
 
 from __future__ import annotations
 
-from typing import List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..nn.engine import EngineState, SIGEModel
-from ..nn.planner import plan_layout
+from ..nn.engine import SIGEModel, _get_path, plan_leaves, upload_leaves
+from ..nn.planner import build_plan, merge_pins, plan_layout, plan_pins
 
 
 class TwinStepServer:
@@ -72,50 +76,293 @@ class TwinStepServer:
         return y0, self.model.sparse(x_edit, *args)
 
 
+def _stack_trees(trees: List[Mapping]) -> Dict:
+    """``np.stack`` over the leaves of plan trees of one structure, as
+    ``jax.tree.map(lambda *ls: np.stack(ls), *trees)``: ValueError when
+    the structures or a leaf's shapes differ."""
+    first = trees[0]
+    if any(not isinstance(t, Mapping) or set(t) != set(first)
+           for t in trees[1:]):
+        raise ValueError("plan trees differ in structure")
+    out = {}
+    for k in sorted(first):
+        vals = [t[k] for t in trees]
+        if isinstance(vals[0], Mapping):
+            out[k] = _stack_trees(vals)
+        elif any(isinstance(v, Mapping) for v in vals):
+            raise ValueError(f"plan trees differ in structure at {k!r}")
+        else:
+            out[k] = np.stack([np.asarray(v) for v in vals])
+    return out
+
+
+class PlanStack:
+    """Per-session host plans with shared shape pins, stacked on a
+    leading session axis (the port of ``sige_tpu.parallel.PlanStack``).
+
+    Pinned tile capacities AND pinned box/window shapes
+    (:func:`~sige_torch.nn.planner.plan_pins` + ``__winext__`` extent
+    pins) keep every plan leaf's shape identical across sessions, so S
+    independent edit plans stack into one tree that one batched sparse
+    forward consumes. A session whose edit outgrows the pins triggers a
+    re-pin to the merged maximum and one rebuild of the plans that no
+    longer conform.
+
+    ``layout="window"`` stacks window-layout plans: window ORIGINS are
+    per-session data, only the bucketed EXTENTS are shared shapes —
+    pinned to the across-session maximum per resolution, and the windowed
+    resolution set to the across-session intersection (a session whose
+    edit is too spread for a window at some resolution forces everyone to
+    tiles there; the hybrid fallback keeps chains breaking cleanly at the
+    seam). ``win_pins`` is that set with its extents once merged; ``{}``
+    means tiles everywhere.
+
+    Window metas start in the fast 2-form (every session's windows in
+    image, the common case); the first cross-session form mismatch (a
+    border edit meets an interior one) flips ``meta_fast`` off and
+    rebuilds every plan in the 4-form.
+
+    ``stacked()`` returns the SAME object until a ``set()`` invalidates
+    it, so callers can key device uploads on identity."""
+
+    def __init__(self, meta_host, num_sessions: int, bucket_min: int = 2,
+                 layout: str = "tiles", chain_nesting: bool = True):
+        self.meta = meta_host
+        self.bucket_min = bucket_min
+        self.layout = layout
+        self.chain_nesting = chain_nesting if layout == "window" else False
+        self.masks = [None] * num_sessions
+        self.plans = [None] * num_sessions
+        # {res: (r0, c0, WH, WW)} per session
+        self.windows = [None] * num_sessions
+        self.pins = {}
+        self.win_pins = None  # {res: (WH, WW)} once first merged
+        self.meta_fast = True
+        self._stacked = None
+
+    def _caps(self):
+        caps = dict(self.pins)
+        if self.win_pins is not None:  # {} is meaningful: tiles everywhere
+            caps[("__winext__",)] = dict(self.win_pins)
+        caps[("__metafast__",)] = self.meta_fast
+        return caps
+
+    def _build(self, masks, i=None):
+        wins = {}
+        plan = build_plan(self.meta, masks, self.bucket_min, self._caps(),
+                          layout=self.layout,
+                          chain_nesting=self.chain_nesting,
+                          out_windows=wins)
+        if i is not None:
+            self.windows[i] = wins
+        return plan
+
+    def _repin(self) -> None:
+        """Merge pins across all sessions' built plans and re-enforce.
+        Only sessions whose plan does NOT already conform to the merged
+        pins are rebuilt."""
+        self.pins = merge_pins(*(plan_pins(p) for p in self.plans))
+        if self.layout == "window":
+            live = [w for w in self.windows if w is not None]
+            common = set(live[0])
+            for w in live[1:]:
+                common &= set(w)
+            self.win_pins = {
+                res: (max(w[res][2] for w in live),
+                      max(w[res][3] for w in live))
+                for res in common}
+        for i, m in enumerate(self.masks):
+            if not self._conforms(i):
+                self.plans[i] = self._build(m, i)
+
+    def _conforms(self, i: int) -> bool:
+        """True when session ``i``'s built plan already has exactly the
+        merged pins' leaf shapes (and the pinned windowed-resolution set),
+        so rebuilding it could not change any shape."""
+        if plan_pins(self.plans[i]) != self.pins:
+            return False
+        if self.layout == "window" and self.win_pins is not None:
+            w = self.windows[i]
+            if set(w) != set(self.win_pins):
+                return False
+            return all((w[r][2], w[r][3]) == tuple(self.win_pins[r])
+                       for r in w)
+        return True
+
+    def set(self, i: int, masks) -> None:
+        self.masks[i] = masks
+        self.plans[i] = self._build(masks, i)
+        self._stacked = None
+
+    def set_if_changed(self, i: int, masks) -> bool:
+        """set(), skipped (returning False) when session ``i``'s mask
+        pyramid is unchanged: planning and the restack are pure functions
+        of the masks."""
+        old = self.masks[i]
+        if (old is not None and set(old) == set(masks)
+                and all(np.array_equal(old[k], masks[k]) for k in masks)):
+            return False
+        self.set(i, masks)
+        return True
+
+    def stacked(self):
+        if self._stacked is not None:
+            return self._stacked
+        missing = [i for i, p in enumerate(self.plans) if p is None]
+        if missing:
+            raise RuntimeError(f"set_masks() missing for sessions {missing}")
+        # pin -> rebuild iterates: enforcing a merged window extent can
+        # re-grow a NESTED coarser window past ITS pin (border clamping
+        # differs per session), re-drifting shapes. Extents only grow and
+        # are canvas-capped, so this terminates — 2 rounds in practice.
+        for _ in range(16):
+            try:
+                self._stacked = _stack_trees(self.plans)
+                return self._stacked
+            except ValueError:
+                if self.meta_fast and self._meta_form_mismatch():
+                    # a border edit met interior ones: the uniform 4-form
+                    # for every session (re-pinning cannot fix a form)
+                    self.meta_fast = False
+                    self.plans = [self._build(m, i)
+                                  for i, m in enumerate(self.masks)]
+                else:
+                    self._repin()
+        raise RuntimeError("plan stacking failed to converge on shared "
+                           "shape pins (window nesting did not settle)")
+
+    def _meta_form_mismatch(self) -> bool:
+        """True when any window-meta leaf ships in the fast 2-form in one
+        session and the 4-form in another (ops/window.py _fast) — the one
+        leaf-shape drift a capacity/extent re-pin cannot reconcile."""
+        forms = {}
+
+        def walk(node, path):
+            for k, v in node.items():
+                if isinstance(v, Mapping):
+                    walk(v, path + (k,))
+                elif (k in ("win_in", "wdnp_in")
+                      or k.startswith("wsg_in_")):
+                    forms.setdefault(path + (k,), set()).add(
+                        np.asarray(v).shape)
+
+        for p in self.plans:
+            walk(p, ())
+        return any(len(s) > 1 for s in forms.values())
+
+
+def upload_reuse(device, prev_host: Optional[Mapping],
+                 prev_dev: Optional[Mapping], host: Mapping) -> Dict:
+    """Device upload of a host plan tree that reuses the device tensors of
+    leaves whose host array is unchanged since the previous upload (same
+    shape, dtype and values) as the same objects; the changed leaves move
+    in ONE packed copy (:func:`~sige_torch.nn.engine.upload_leaves`, as
+    ``upload_plan`` moves a whole plan). A moved edit of one session
+    changes few leaves of a stacked plan.
+
+    A kept leaf is a view into an earlier packed buffer and holds all of
+    it. So the kept leaves come from ONE earlier buffer, the one they keep
+    most bytes of, and the others move again: over any run of edits the
+    plan holds at most two packed buffers."""
+    leaves = plan_leaves(host)
+    reuse = [None] * len(leaves)
+    if prev_host is not None and prev_dev is not None:
+        prev = plan_leaves(prev_host)
+        if [p for p, _ in prev] == [p for p, _ in leaves]:
+            reuse = [_get_path(prev_dev, path)
+                     if (a.shape == b.shape and a.dtype == b.dtype
+                         and np.array_equal(a, b)) else None
+                     for (path, a), (_, b) in zip(leaves, prev)]
+    kept: Dict[int, int] = {}
+    for r in reuse:
+        if r is not None:
+            buf = r.untyped_storage().data_ptr()
+            kept[buf] = kept.get(buf, 0) + r.nbytes
+    main = max(kept, key=kept.get, default=None)
+    reuse = [r if r is not None and r.untyped_storage().data_ptr() == main
+             else None for r in reuse]
+    fresh = iter(upload_leaves(
+        [a for (_, a), r in zip(leaves, reuse) if r is None],
+        torch.device(device)))
+    out: Dict = {}
+    for (path, _), r in zip(leaves, reuse):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = r if r is not None else next(fresh)
+    return out
+
+
+def _flat(t):
+    """[S, B, ...] -> [S*B, ...]: the sessions side by side in one batch."""
+    return t.flatten(0, 1)
+
+
 class SessionServer:
-    """S editing sessions on one model. ``layout="window"`` (the default,
-    as in ``sige_tpu``) rides the window-resident chains per session;
-    pass ``layout="tiles"`` for scattered multi-region edits. ``params``
-    is a state dict for ``module`` (None keeps its weights)."""
+    """S editing sessions on one model, each with its OWN mask — the
+    multi-user regime. Sessions are a batch axis: :meth:`prime` runs ONE
+    full pass over the S sessions' originals, the per-session plans stack
+    on shared shape pins (:class:`PlanStack`), and :meth:`step` runs ONE
+    sparse forward over every session's caches and plan.
+
+    ``layout="window"`` (the default, as in ``sige_tpu``) rides the
+    window-resident chains per session, extents pinned to the
+    across-session maximum; pass ``layout="tiles"`` for scattered
+    multi-region edits. ``params`` is a state dict for ``module`` (None
+    keeps its weights). The device is the GPU unless ``device="cpu"``.
+
+    The DDPM and PD U-Nets and the GauGAN generators run stacked in both
+    layouts. The SD models' masked stale/fresh attention (window layout)
+    takes one key bias per call and refuses a stacked plan."""
 
     def __init__(self, module: nn.Module,
                  params: Optional[Mapping[str, torch.Tensor]] = None,
                  bucket_min: int = 2, layout: str = "window", device=None):
+        if layout not in ("tiles", "window"):
+            raise ValueError(f"unknown layout {layout!r}")
         if params is not None:
             module.load_state_dict(params)
         self.model = SIGEModel(module, bucket_min=bucket_min, layout=layout,
                                device=device)
-        self.states: List[EngineState] = []
-
-    @property
-    def num_sessions(self) -> int:
-        return len(self.states)
+        self.bucket_min = bucket_min
+        self.layout = layout
+        self.num_sessions: Optional[int] = None
+        self._stack: Optional[PlanStack] = None
 
     def prime(self, x_sessions, *args) -> None:
-        """One full pass per session on its original input ([S, B, ...];
-        extra model args lead with S too): fills each session's caches
+        """One full pass over every session's original input ([S, B, ...];
+        extra model args lead with S too) at batch S*B: fills the caches
         and records the planning metadata."""
-        model = self.model
-        self.states = []
-        for s in range(x_sessions.shape[0]):
-            model.use(model.new_state())
-            model.full(x_sessions[s], *(a[s] for a in args))
-            self.states.append(model.state)
+        S = int(x_sessions.shape[0])
+        self.num_sessions = S
+        self.model.full(_flat(x_sessions), *(_flat(a) for a in args))
+        self._stack = PlanStack(self.model.meta, S, self.bucket_min,
+                                layout=self.layout,
+                                chain_nesting=self.model.chain_nesting)
 
     def set_masks(self, i: int, masks) -> None:
         """Host planning for session ``i``'s edit mask pyramid."""
-        if not self.states:
+        if self._stack is None:
             raise RuntimeError("prime() before set_masks()")
-        self.model.use(self.states[i])
-        self.model.set_masks(masks)
+        self._stack.set(i, masks)
+
+    def _install(self) -> None:
+        """The stacked plan on the card and in the model, moved again only
+        when ``PlanStack.stacked()`` returns a new tree (unchanged leaves
+        keep their device tensors)."""
+        host, state = self._stack.stacked(), self.model.state
+        if host is state.plan_host and state.plan:
+            return
+        self.model.set_plan(host, plan_layout(host), device_plan=upload_reuse(
+            self.model.device, state.plan_host, state.plan, host))
 
     def step(self, x_edit, *args, sparse_update: bool = False):
-        """One sparse step for every session ([S, B, ...] in and out).
-        ``sparse_update=True`` commits the edits into the caches (the
-        demo's "apply")."""
-        model, ys = self.model, []
-        for s, state in enumerate(self.states):
-            model.use(state)
-            ys.append(model.sparse(x_edit[s], *(a[s] for a in args),
-                                   sparse_update=sparse_update))
-        return torch.stack(ys)
+        """One sparse forward over every session ([S, B, ...] in and out).
+        ``sparse_update=True`` commits every session's edit into the
+        caches (the demo's "apply")."""
+        if self._stack is None:
+            raise RuntimeError("prime() before step()")
+        self._install()
+        y = self.model.sparse(_flat(x_edit), *(_flat(a) for a in args),
+                              sparse_update=sparse_update)
+        return y.unflatten(0, (self.num_sessions, -1))

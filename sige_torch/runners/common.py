@@ -22,10 +22,11 @@ def storage_mb(tensors: Iterable[torch.Tensor]) -> float:
     return total / 2**20
 
 
-def _leaves(tree: Mapping):
+def tree_leaves(tree: Mapping):
+    """Every leaf of a nested dict (a device plan), in tree order."""
     for v in tree.values():
         if isinstance(v, Mapping):
-            yield from _leaves(v)
+            yield from tree_leaves(v)
         else:
             yield v
 
@@ -40,5 +41,5 @@ def memory_entry(model, mode: str) -> Dict[str, float]:
     out = {"params_mb": storage_mb(model.module.state_dict().values())}
     if mode != "dense":
         out["cache_mb"] = storage_mb(model.state.tensors())
-        out["plan_mb"] = storage_mb(_leaves(model.plan))
+        out["plan_mb"] = storage_mb(tree_leaves(model.plan))
     return out

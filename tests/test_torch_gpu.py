@@ -867,3 +867,194 @@ def test_tiny_twin_server_card_matches_cpu(layout):
             assert flash.flash_mha.launches > before
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert (got - want).abs().max().item() <= 1e-4
+
+
+def _session_inputs(S, B, H, W, C, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(S * B, H, W, C, generator=gen).to(dtype)
+    return x.cuda(), gen
+
+
+# (S, B, H, W, C, EH, EW, origin rows): in image, at the border, negative
+# virtual origins, an extent wider than the canvas, and the DDPM path's
+# widths (64 px at 128 channels)
+CROP_CASES = [
+    (2, 1, 12, 14, 5, 6, 7, [[3, 4], [0, 7]]),
+    (3, 2, 12, 14, 8, 6, 7, [[-1, 9], [6, -2], [11, 13]]),
+    (2, 2, 10, 12, 4, 14, 16, [[-1, -1], [-3, -2]]),
+    (4, 1, 64, 64, 128, 34, 34, [[5, 7], [30, 30], [-1, 20], [0, 0]]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CROP_CASES)
+@pytest.mark.parametrize("epilogue", [None, "swish", "swish_first",
+                                      "leaky", "tanh"])
+@pytest.mark.parametrize("form", ["2", "4", "clamp"])
+def test_crop_sessions_kernel_matches_plain_on_card(case, epilogue, form):
+    """crop_sessions_f32 against its plain version on the same CUDA
+    tensors: exact without an epilogue, within 1e-6 with one; origins as
+    [S, 2] rows, as 4-form metas (clamped, roll) and clamped."""
+    if not torch.cuda.is_available():
+        pytest.skip("the session kernels run only on a CUDA device")
+    from sige_torch.ops import sessions as ss
+
+    S, B, H, W, C, EH, EW, rows = case
+    x, gen = _session_inputs(S, B, H, W, C, torch.float32, S + EH)
+    org = torch.tensor(rows, dtype=torch.int64)
+    if form == "4":  # clamped origin and roll whose difference is the row
+        cl = org.clamp(min=0)
+        org = torch.cat([cl, cl - org], dim=1)
+    org = org.cuda()
+    edge = (torch.rand(S, EH, EW, generator=gen) < 0.8).cuda()
+    kw = {}
+    if epilogue is not None:
+        kw = dict(scale=torch.randn(S * B, C, generator=gen).cuda(),
+                  shift=torch.randn(C, generator=gen).cuda(),
+                  activation=epilogue.split("_")[0],
+                  activation_first=epilogue.endswith("first"))
+    clamp = form == "clamp"
+    before = ss.crop_sessions.launches
+    got = ss.crop_sessions(x, org, EH, EW, edge, clamp=clamp, **kw)
+    torch.cuda.synchronize()
+    assert ss.crop_sessions.launches == before + 1
+    want = ss.crop_sessions_plain(x, org, EH, EW, edge, clamp=clamp, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = (got - want).abs().max().item()
+    assert err <= (0.0 if epilogue is None else 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CROP_CASES[:3])
+def test_crop_sessions_kernel_bf16_on_card(case):
+    """The bf16 cache form: a crop of a bf16 map equals the plain version
+    bit for bit; with an epilogue (which the kernel leaves to PyTorch for
+    bf16 input, promoting to fp32 as the plain version does) too."""
+    if not torch.cuda.is_available():
+        pytest.skip("the session kernels run only on a CUDA device")
+    from sige_torch.ops import sessions as ss
+
+    S, B, H, W, C, EH, EW, rows = case
+    x, gen = _session_inputs(S, B, H, W, C, torch.bfloat16, 1)
+    org = torch.tensor(rows, dtype=torch.int64).cuda()
+    got = ss.crop_sessions(x, org, EH, EW)
+    want = ss.crop_sessions_plain(x, org, EH, EW)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    edge = (torch.rand(S, EH, EW, generator=gen) < 0.8).cuda()
+    scale = torch.randn(S * B, C, generator=gen).cuda()
+    got = ss.crop_sessions(x, org, EH, EW, edge, scale, None, "swish")
+    want = ss.crop_sessions_plain(x, org, EH, EW, edge, scale, None, "swish")
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("cov", [None, "shared", "sessions"])
+@pytest.mark.parametrize("origin", ["rows", "host", "clamp"])
+def test_paste_sessions_kernel_matches_plain_on_card(dtypes, cov, origin):
+    """paste_sessions_f32 against its plain version, exactly: fp32, a bf16
+    base under fp32 windows (the bf16 caches) and bf16 throughout; with
+    per-session, shared or no coverage; per-session, host and clamped
+    origins."""
+    if not torch.cuda.is_available():
+        pytest.skip("the session kernels run only on a CUDA device")
+    from sige_torch.ops import sessions as ss
+
+    S, B, H, W, C, WH, WW = 3, 2, 16, 18, 8, 6, 7
+    base, gen = _session_inputs(S, B, H, W, C, dtypes[0], 2)
+    win = torch.randn(S * B, WH, WW, C, generator=gen).to(dtypes[1]).cuda()
+    org = {"rows": torch.tensor([[0, 0], [5, 11], [10, 3]]).cuda(),
+           "host": (4, 9),
+           "clamp": torch.tensor([[-2, 3], [14, 15], [7, -5]]).cuda()}[origin]
+    mask = {None: None,
+            "shared": torch.rand(WH, WW, generator=gen) < 0.5,
+            "sessions": torch.rand(S, WH, WW, generator=gen) < 0.5}[cov]
+    mask = None if mask is None else mask.cuda()
+    clamp = origin == "clamp"
+    before = ss.paste_sessions.launches
+    got = ss.paste_sessions(base, win, org, mask, clamp=clamp)
+    torch.cuda.synchronize()
+    assert ss.paste_sessions.launches == before + 1
+    want = ss.paste_sessions_plain(base, win, org, mask, clamp=clamp)
+    assert got.dtype == dtypes[1] and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["window", "tiles"])
+def test_tiny_session_server_card_matches_cpu(layout):
+    """SessionServer on a tiny DDPM U-Net, S = 3 sessions with their own
+    edits (one at the border): the stacked step, the commit and a second
+    edit give the same rows on the card as on the CPU, and the card's
+    steps launch the session kernels and the flash kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("card-vs-CPU comparison needs a CUDA device")
+    from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
+    from sige_torch.ops import sessions as ss
+    from sige_torch.parallel import SessionServer
+
+    cfg = DDPMUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                         attn_resolutions=(8,), resolution=32,
+                         sparse_resolution_threshold=32)
+    S, R = 3, 32
+    rng = np.random.default_rng(9)
+    x0 = torch.from_numpy(rng.standard_normal((S, 1, R, R, 3)).astype(
+        np.float32))
+    boxes = [(2, 8, 4, 10), (20, 27, 18, 26), (0, 6, 0, 9)]
+    masks, x1 = [], x0.clone()
+    for i, (r0, r1, c0, c1) in enumerate(boxes):
+        m = np.zeros((R, R), bool)
+        m[r0:r1, c0:c1] = True
+        x1[i] += torch.from_numpy(rng.standard_normal((1, R, R, 3)).astype(
+            np.float32) * m[None, :, :, None])
+        masks.append(downsample_mask(dilate_mask(m, 2), min_res=4))
+    t = torch.zeros((S, 1))
+    params, outs = None, {}
+    for dev in ("cpu", "cuda"):
+        server = SessionServer(SIGEFusedUNet(cfg), params, bucket_min=1,
+                               layout=layout, device=dev)
+        if params is None:
+            server.model.init(0)
+            params = {k: v.clone() for k, v in
+                      server.model.module.state_dict().items()}
+        server.prime(x0.to(dev), t.to(dev))
+        for i in range(S):
+            server.set_masks(i, masks[i])
+        before = (ss.crop_sessions.launches, ss.paste_sessions.launches,
+                  flash.flash_mha.launches)
+        ys = [server.step(x1.to(dev), t.to(dev)),
+              server.step(x1.to(dev), t.to(dev), sparse_update=True)]
+        server.set_masks(0, masks[2])
+        ys.append(server.step(x1.to(dev), t.to(dev)))
+        outs[dev] = [y.cpu() for y in ys]
+        if dev == "cuda":
+            after = (ss.crop_sessions.launches, ss.paste_sessions.launches,
+                     flash.flash_mha.launches)
+            assert all(a > b for a, b in zip(after, before))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert got.shape == (S, 1, R, R, 3)
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_session_kernels_refuse_what_they_do_not_take():
+    """The wrappers raise before a launch on inputs the kernels cannot
+    read: a mask or a window on another device, a mask of the wrong
+    shape or dtype, an unsupported dtype pair."""
+    if not torch.cuda.is_available():
+        pytest.skip("the session kernels run only on a CUDA device")
+    from sige_torch.ops import sessions as ss
+
+    x = torch.randn(2, 8, 8, 4, device="cuda")
+    org = torch.tensor([[1, 2], [3, 0]], device="cuda")
+    with pytest.raises(ValueError, match="mask on cpu"):
+        ss.crop_sessions(x, org, 4, 4, torch.ones(2, 4, 4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="expected bool"):
+        ss.crop_sessions(x, org, 4, 4, torch.ones(3, 4, 4, device="cuda",
+                                                  dtype=torch.bool))
+    with pytest.raises(ValueError, match="window on cpu"):
+        ss.paste_sessions(x, torch.randn(2, 4, 4, 4), org)
+    with pytest.raises(TypeError, match="dtypes"):
+        ss.paste_sessions(x, torch.randn(2, 4, 4, 4, device="cuda",
+                                         dtype=torch.bfloat16), org)

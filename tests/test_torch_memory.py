@@ -92,10 +92,11 @@ def test_profile_reports_params_caches_and_plan(family, mode):
     assert caches and plan
     assert stats["cache_mb"] == pytest.approx(_mb(caches), rel=1e-12)
     assert stats["plan_mb"] == pytest.approx(_mb(plan), rel=1e-12)
-    # what the plan holds: one int64 buffer of every host element (the
-    # upload's one copy) and a bool copy of each bool leaf
+    # what the plan holds: one byte buffer (the upload's one copy) of every
+    # host element, int leaves as int64 and bool leaves at one byte an
+    # element, each leaf at an 8-byte offset
     host = list(_plan_leaves(model.plan_host))
     elements = sum(np.asarray(a).size for a in host)
     assert elements == sum(t.numel() for t in plan)
-    bools = sum(t.numel() for t in plan if t.dtype == torch.bool)
-    assert stats["plan_mb"] * 2**20 == 8 * elements + bools
+    assert {t.dtype for t in plan} <= {torch.int64, torch.bool}
+    assert stats["plan_mb"] * 2**20 == sum(-(-t.nbytes // 8) * 8 for t in plan)

@@ -12,7 +12,10 @@ sige_tpu's, at ``tests/test_demo.py``'s TINY, with weights bridged by
     (``tests/test_parallel.py:53, 106``): per-session masks, ``step``,
     ``step(sparse_update=True)`` and a second edit per session over the
     committed caches equal sige_tpu's server (which stacks the plans on
-    pinned shapes and vmaps one program over the sessions).
+    pinned shapes and vmaps one program over the sessions), and each
+    session's row equals the port's single-session engine planned under
+    the server's merged pins; the window layout keeps its windows through
+    the merge, and a step is one forward at batch S * B for every S.
 """
 
 import functools
@@ -205,7 +208,7 @@ def test_session_server_matches_sige_tpu(layout):
     for i in range(S):
         server.set_masks(i, p.masks1[i])
     if layout == "window":
-        assert {st.active_layout for st in server.states} == {"window"}
+        assert server.model.active_layout == "window"
     y = server.step(t(p.x1), t(p.tb)).numpy()
     assert y.shape == (S, 1, R, R, 3)
     np.testing.assert_allclose(y, p.y, atol=ATOL, rtol=0)
@@ -216,3 +219,188 @@ def test_session_server_matches_sige_tpu(layout):
         server.set_masks(i, p.masks2[i])
     y2 = server.step(t(p.x2), t(p.tb)).numpy()
     np.testing.assert_allclose(y2, p.y2, atol=ATOL, rtol=0)
+
+
+def _port_server(layout, S=4, seed=11):
+    """The port's SessionServer and a single-session engine with the same
+    seeded weights, primed and planned on S sessions' edits."""
+    from sige_torch.nn import SIGEModel
+
+    rng = np.random.default_rng(seed)
+    x0 = rng.standard_normal((S, 1, R, R, 3)).astype(np.float32)
+    x1, masks1 = _session_edits(rng, x0, BOXES[layout][:S])
+    x2, masks2 = _session_edits(rng, x1, SECOND[:S])
+    tb = np.zeros((S, 1), np.float32)
+    single = SIGEModel(SIGEFusedUNet(DDPMUNetConfig(**TINY)), bucket_min=1,
+                       layout=layout, device="cpu")
+    single.init(0)
+    server = SessionServer(SIGEFusedUNet(DDPMUNetConfig(**TINY)),
+                           single.module.state_dict(), bucket_min=1,
+                           layout=layout, device="cpu")
+    t = torch.from_numpy
+    server.prime(t(x0), t(tb))
+    for i in range(S):
+        server.set_masks(i, masks1[i])
+    return server, single, [t(a) for a in (x0, x1, x2, tb)], masks1, masks2
+
+
+@pytest.mark.parametrize("layout", ["window", "tiles"])
+def test_session_rows_match_single_engine_under_server_pins(layout):
+    """Each session's row of a stacked step equals the port's
+    single-session engine planned with the server's merged pins
+    (``_stack._caps()``: the same leaf shapes), within 1e-4, as
+    ``tests/test_parallel.py:106-164`` holds sige_tpu's; also the
+    committing step, and a second edit per session over the committed
+    caches."""
+    server, single, (x0, x1, x2, tb), masks1, masks2 = _port_server(layout)
+    y = server.step(x1, tb)
+    y_upd = server.step(x1, tb, sparse_update=True)
+    caps1 = server._stack._caps()
+    for i in range(S):
+        server.set_masks(i, masks2[i])
+    y2 = server.step(x2, tb)
+    caps2 = server._stack._caps()
+    for i in range(S):
+        single.full(x0[i], tb[i])
+        single.set_masks(masks1[i], capacities=caps1)
+        want = single.sparse(x1[i], tb[i])
+        np.testing.assert_allclose(y[i], want, atol=ATOL, rtol=0,
+                                   err_msg=f"session {i}")
+        np.testing.assert_allclose(
+            y_upd[i], single.sparse(x1[i], tb[i], sparse_update=True),
+            atol=ATOL, rtol=0, err_msg=f"session {i} commit")
+        single.set_masks(masks2[i], capacities=caps2)
+        np.testing.assert_allclose(y2[i], single.sparse(x2[i], tb[i]),
+                                   atol=ATOL, rtol=0,
+                                   err_msg=f"session {i} second edit")
+
+
+def test_window_layout_survives_the_merge():
+    """Compact edits at four origins keep real windows on the shared
+    pins: ``win_pins`` is not empty and the stacked plan holds ``win_in``
+    leaves, one meta row per session."""
+    from sige_torch.nn.engine import plan_leaves, plan_sessions
+
+    server, _, (_, x1, _, tb), _, _ = _port_server("window")
+    stacked = server._stack.stacked()
+    assert server._stack.win_pins
+    metas = [a for path, a in plan_leaves(stacked) if path[-1] == "win_in"]
+    assert metas and all(a.shape[0] == S for a in metas)
+    server.step(x1, tb)
+    assert server.model.active_layout == "window"
+    assert plan_sessions(server.model.plan_host) == S
+
+
+@pytest.mark.parametrize("layout", ["window", "tiles"])
+def test_stacked_step_is_one_forward_whatever_s(layout):
+    """A step runs the module ONCE over the S sessions' samples (batch
+    S * B), for S = 1, 2 and 4: counted with a forward hook on the
+    module."""
+    for n in (1, 2, 4):
+        server, _, (_, x1, _, tb), _, _ = _port_server(layout, S=n)
+        batches = []
+        hook = server.model.module.register_forward_pre_hook(
+            lambda mod, args: batches.append(args[0].shape[0]))
+        try:
+            y = server.step(x1, tb)
+            server.step(x1, tb, sparse_update=True)
+        finally:
+            hook.remove()
+        assert batches == [n, n], (n, batches)
+        assert y.shape == (n, 1, R, R, 3)
+
+
+def test_session_server_runs_on_the_card_unless_asked_for_the_cpu(
+        monkeypatch):
+    """Without a CUDA device the server refuses to start unless the caller
+    passes ``device="cpu"``; it takes only the two layouts it can stack."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SessionServer(SIGEFusedUNet(DDPMUNetConfig(**TINY)))
+    with pytest.raises(ValueError, match="layout"):
+        SessionServer(SIGEFusedUNet(DDPMUNetConfig(**TINY)), layout="auto",
+                      device="cpu")
+    server = SessionServer(SIGEFusedUNet(DDPMUNetConfig(**TINY)),
+                           device="cpu")
+    with pytest.raises(RuntimeError, match="prime"):
+        server.step(torch.zeros(1, 1, R, R, 3), torch.zeros(1, 1))
+
+
+def _pd_sessions(rng, config="tiny"):
+    """The PD U-Net at one of tests/test_torch_pd.py's configs (its
+    resblocks resample inside the window chain; ``attn`` adds attention at
+    8 and 16 px): three sessions' (x, logsnr) and masks."""
+    from sige_torch.models.pd import PDUNetConfig, SIGEPDUNet
+    from test_torch_pd import CONFIGS
+
+    x0 = rng.standard_normal((3, 1, R, R, 3)).astype(np.float32)
+    x1, masks = _session_edits(rng, x0, [(8, 16, 10, 20), (0, 7, 26, 32),
+                                         (18, 26, 4, 12)])
+    ls = torch.full((3, 1), 1.3)
+    t = torch.from_numpy
+    return (lambda: SIGEPDUNet(PDUNetConfig(**CONFIGS[config])),
+            (t(x0), ls), (t(x1), ls), masks)
+
+
+def _gaugan_sessions(rng):
+    """The fused SPADE generator at tests/test_gaugan.py's TINY (64x32):
+    three sessions' one-hot label maps with a box relabelled each (one at
+    the border) and the runner's mask pyramids."""
+    from sige_torch.core.masks import compute_difference_mask
+    from sige_torch.models.gaugan import (SIGEFusedSPADEGenerator,
+                                          SPADEGenConfig)
+    from test_torch_gaugan import TINY as GTINY
+
+    cfg = SPADEGenConfig(**GTINY)
+    H, W = cfg.latent_hw[0] * 2 ** 5, cfg.crop_size
+    n = cfg.semantic_nc - 1
+    sems, masks = ([], []), []
+    for box in [(8, 14, 16, 26), (0, 5, 54, 64), (20, 28, 30, 44)]:
+        l0 = rng.integers(0, n - 1, (H, W))
+        l1 = l0.copy()
+        l1[box[0]:box[1], box[2]:box[3]] = n - 2
+        for out, lab in zip(sems, (l0, l1)):
+            one = np.zeros((1, H, W, cfg.semantic_nc), np.float32)
+            one[0, np.arange(H)[:, None], np.arange(W)[None, :], lab] = 1
+            out.append(one)
+        mask = dilate_mask(compute_difference_mask(
+            sems[0][-1][0], sems[1][-1][0], eps=1e-3), 1)
+        masks.append(downsample_mask(mask, min_res=cfg.latent_hw,
+                                     dilation=1))
+    return (lambda: SIGEFusedSPADEGenerator(cfg),
+            (torch.from_numpy(np.stack(sems[0])),),
+            (torch.from_numpy(np.stack(sems[1])),), masks)
+
+
+@pytest.mark.parametrize("layout", ["window", "tiles"])
+@pytest.mark.parametrize("family", ["pd", "pd_attn", "gaugan"])
+def test_session_server_on_other_families(family, layout):
+    """The stacked step on the PD U-Net (with and without its attention
+    at 8 and 16 px) and the GauGAN generator (their own window chains:
+    PD's resampling resblocks, SPADE's seg branch and up2 carries): each
+    session's rows, and the commit's, equal the single-session engine
+    under the server's pins within 1e-4."""
+    from sige_torch.nn import SIGEModel
+
+    make, args0, args1, masks = {
+        "pd": _pd_sessions,
+        "pd_attn": functools.partial(_pd_sessions, config="attn"),
+        "gaugan": _gaugan_sessions}[family](np.random.default_rng(4))
+    single = SIGEModel(make(), bucket_min=1, layout=layout, device="cpu")
+    single.init(0)
+    server = SessionServer(make(), single.module.state_dict(), bucket_min=1,
+                           layout=layout, device="cpu")
+    server.prime(*args0)
+    for i, m in enumerate(masks):
+        server.set_masks(i, m)
+    y = server.step(*args1)
+    y_upd = server.step(*args1, sparse_update=True)
+    assert server.model.active_layout == layout
+    caps = server._stack._caps()
+    for i, m in enumerate(masks):
+        single.full(*(a[i] for a in args0))
+        single.set_masks(m, capacities=caps)
+        for got, upd in ((y, False), (y_upd, True)):
+            want = single.sparse(*(a[i] for a in args1), sparse_update=upd)
+            np.testing.assert_allclose(got[i], want, atol=ATOL, rtol=0,
+                                       err_msg=f"session {i} commit {upd}")
