@@ -265,7 +265,10 @@ Phases (any failure raises and the script exits non-zero):
             within 1e-4. Beside them the earlier per-session loop
             at S = 4 (a measurement helper here), and every call shape
             of the session kernels at every S timed: kernel and plain ms
-            on CUDA events, device ms, the bytes bound.
+            on CUDA events, device ms, the bytes bound, and the copy
+            floor (the device ms of one ``copy_`` of the output's bytes,
+            not the same function); the launches that took the kernels'
+            scalar instantiation (not 16-byte vectors) are counted.
 
 Phases 6, 7, 9 and 11 also time the planning of each family's edit
 (DDPM window and tiles, the SD U-Net and decoder, PD, GauGAN), median of
@@ -4251,19 +4254,25 @@ def session_kernel_bytes(key, rec) -> int:
     return n
 
 
+COPY_FLOOR = ("one torch.Tensor.copy_ of the output's bytes (device ms): "
+              "the launch ramp of a copy this size; not the same function")
+
+
 def session_kernel_row(key, rec, calls_per_step):
     """A row of the session kernels' table: the key's max error against
     the plain version (on the path's own inputs), its launches per step,
-    its bound, the kernel's and the plain version's CUDA-event ms and the
+    its bound, the kernel's and the plain version's CUDA-event ms, the
     kernel's device ms on inputs of the key's shapes (random values, the
-    path's origins and masks)."""
+    path's origins and masks) and the copy floor beside it: the device ms
+    of one ``copy_`` of the output's bytes (:data:`COPY_FLOOR`)."""
     from sige_torch.ops import sessions as ss
 
     bound = session_kernel_bytes(key, rec) / PEAK_BYTES_PER_S * 1e3
     row = {"kernel": f"{key[0]}_sessions_f32", "key": [str(k) for k in key],
            "max_err": rec["err"], "launches_per_step": calls_per_step,
            "bound_ms": bound, "bound_by": "bytes", "ms": None,
-           "plain_ms": None, "device_ms": None, "library_ms": None}
+           "plain_ms": None, "device_ms": None, "library_ms": None,
+           "copy_floor_ms": None, "copy_floor": COPY_FLOOR}
     gen = torch.Generator(device="cuda").manual_seed(len(key))
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     if key[0] == "crop":
@@ -4283,6 +4292,10 @@ def session_kernel_row(key, rec, calls_per_step):
     row["plain_ms"] = time_ms(lambda: plain(*args), warmup=2, iters=10)
     row["device_ms"] = device_ms(lambda: kernel(*args), iters=5, tries=1,
                                  required=False)[0]
+    out = kernel(*args)
+    src = torch.empty_like(out)
+    row["copy_floor_ms"] = device_ms(lambda: out.copy_(src), iters=5,
+                                     tries=1, required=False)[0]
     return row
 
 
@@ -4388,6 +4401,7 @@ def session_run(flash, module, cfg, layout, S, seen, rows_timed):
     want = expected_launches(flash, cfg, forwards=SESSION_STEPS, batch=S)
     flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
     ss.crop_sessions.launches = ss.paste_sessions.launches = 0
+    ss.crop_sessions.scalar_launches = ss.paste_sessions.scalar_launches = 0
     torch.cuda.reset_peak_memory_stats()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True))
@@ -4400,6 +4414,8 @@ def session_run(flash, module, cfg, layout, S, seen, rows_timed):
     got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
     kernels = {"crop_sessions_f32": ss.crop_sessions.launches,
                "paste_sessions_f32": ss.paste_sessions.launches}
+    scalar = {"crop_sessions_f32": ss.crop_sessions.scalar_launches,
+              "paste_sessions_f32": ss.paste_sessions.scalar_launches}
     if got != want:
         raise AssertionError(f"sessions {layout} S={S}: flash launches {got} "
                              f"over {SESSION_STEPS} steps, expected {want}")
@@ -4444,6 +4460,7 @@ def session_run(flash, module, cfg, layout, S, seen, rows_timed):
            "plan_ms": plan_ms, "step_ms": step_ms, "step_ms_median": med,
            "ms_per_session": med / S, "flash_launches": got[0],
            "combine_launches": got[1], "kernel_launches": kernels,
+           "scalar_launches": scalar,
            "launches_per_step": launches, "busy_ms": busy,
            "idle_share": None if busy is None else max(0.0, 1 - busy / med),
            "plain_forced": {"step_ms": plain_ms, "busy_ms": plain_busy,
@@ -4460,7 +4477,9 @@ def session_run(flash, module, cfg, layout, S, seen, rows_timed):
           f"{med / S:.3f} ms per session; flash {got[0]} + {got[1]} combine "
           f"over {SESSION_STEPS} steps (expected {want[0]} + {want[1]}); "
           f"crop {kernels['crop_sessions_f32']}, paste "
-          f"{kernels['paste_sessions_f32']} launches; per step "
+          f"{kernels['paste_sessions_f32']} launches (scalar "
+          f"instantiation: {scalar['crop_sessions_f32']}, "
+          f"{scalar['paste_sessions_f32']}); per step "
           + ("busy, launches not measured" if busy is None else
              f"busy {busy:.3f} ms, {launches:.0f} kernel launches, idle share "
              f"{row['idle_share']:.3f}")
@@ -4583,7 +4602,9 @@ def phase_sessions(flash, seen_flash, first_row):
               f"a step; ms {r['ms']:.4f}, plain {r['plain_ms']:.4f}, device "
               + ("not measured" if r["device_ms"] is None
                  else f"{r['device_ms']:.4f}")
-              + f", bound {r['bound_ms']:.5f} (bytes)", flush=True)
+              + f", bound {r['bound_ms']:.5f} (bytes), copy floor "
+              + ("not measured" if r["copy_floor_ms"] is None
+                 else f"{r['copy_floor_ms']:.4f}"), flush=True)
     rows = []
     with fp32_scope():
         for key, (where, bias) in recorded.items():
@@ -4626,6 +4647,9 @@ def session_kernel_entries(sessions, demo_server=None):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "device_ms": main["device_ms"], "bound_ms": main["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
+            "copy_floor_ms": main["copy_floor_ms"], "copy_floor": COPY_FLOOR,
+            "scalar_launches": sum(r["scalar_launches"][name]
+                                   for r in sessions["runs"]),
             "shape": main["key"], "shapes": len(rows)})
     return out
 

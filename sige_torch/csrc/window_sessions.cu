@@ -12,12 +12,14 @@
 //                       outside the image, then an optional fused epilogue
 //                       (scale * v + shift and an activation, in either
 //                       order, in fp32 registers) and the ring re-zeroed
-//                       where edge[s, i, j] is false.
+//                       where edge[s, i, j] is false. A pixel outside the
+//                       image holds the epilogue of zero, not zero.
 //   paste_sessions_f32  out = base with win[n] written at session s's
 //                       origin where cov[s, i, j] is set (or everywhere in
 //                       the window); out has win's dtype, so a bf16 cache
 //                       (SIGEModel(cache_dtype=torch.bfloat16)) is widened
-//                       exactly as it is copied.
+//                       exactly as it is copied. Out of place: the base
+//                       stays as it was.
 //
 // An origin row is (r, c), or the planner's 4-form window meta
 // (clamped_r, clamped_c, roll_r, roll_c), whose virtual origin is
@@ -25,31 +27,72 @@
 // session. With `clamp` the origin is clamped so that the window fits in
 // the map, as jax.lax.dynamic_slice clamps its start.
 //
-// What bounds them on this card: bytes. Each output element costs one
-// read and one write and a few integer operations, so the least time is
-// the bytes moved over 3.35 TB/s; at the DDPM shapes (windows of ~10^5 to
-// 10^6 elements, maps of up to 8 x 256 x 256 x 128) both are far shorter
-// than the ~20-40 us that a launch costs the host, and a launch, not the
-// kernel, is what they save: in the single-session path an in-image crop
-// is a free view, while in a stacked forward it has to gather S windows
-// from S places, which the plain PyTorch version does in several launches
-// (index arithmetic, advanced indexing, torch.where). The design is the
-// simple one: one thread per output element, channels innermost so a
-// warp reads and writes consecutive addresses, the epilogue in registers,
-// no shared memory. Inputs may be strided views (strides in elements);
-// outputs are contiguous.
+// What bounds them on this card: bytes. Each output element is written
+// once and read from one source, and there is no arithmetic to speak of,
+// so the least time is those bytes over 3.35 TB/s. The design spends no
+// instructions per byte beyond the copy and keeps 16-byte accesses in
+// flight:
+//   - A block per output row (n, i), or per chunk of one when there are
+//     few rows (grid.y chunks, chosen by the wrapper so that the grid
+//     fills the 132 SMs several times over). The block decodes n, i and
+//     s = n / B once, in 32-bit arithmetic; one thread reads the session's
+//     origin row, subtracts the roll and clamps, and shares it through
+//     shared memory; the row's in-image (crop) or in-window (paste) run
+//     of pixels is two bounds per block. A crop row outside the image and
+//     a paste row outside the window are one run each.
+//   - Channels are innermost, so a row is EW x C elements: a thread walks
+//     them as VEC-element vectors f = j * (C / VEC) + q, in steps of the
+//     block's threads, with one division when it starts and an add and a
+//     compare a step (no 64-bit division, no per-element index decode).
+//   - VEC = 16 bytes of the output type (4 fp32 or 8 bf16; a bf16 base
+//     under an fp32 window: 8 bytes read, 16 written) where the wrapper
+//     finds C a multiple of VEC, channels at stride 1, and pointers and
+//     the other strides aligned to VEC elements; otherwise VEC = 1, the
+//     scalar instantiation of the same kernel, for any strides.
+//   - A thread issues kUnroll vectors' loads before its first store (the
+//     compiler cannot tell that the output aliases no mask, so a load
+//     placed after a store would wait for it): a crop's data and edge
+//     bytes together; a paste's coverage bytes, then each output vector
+//     from exactly one source (window or base). The wrapper cuts rows
+//     into chunks of at least kThreads * kUnroll vectors.
+//   - The epilogue has an instantiation of its own (EPI), so that a crop
+//     without one holds no registers for it. Its params ([C] or [N, C])
+//     are read as vectors, once per thread where C / VEC divides
+//     kThreads (C = 128, 256, 512), and its activation is chosen once per
+//     vector, not per element. `edge` and `cov` are read once per pixel
+//     vector, the same byte for the threads of a pixel.
+// Device ms per call on an NVIDIA H100 80GB HBM3 at 700 W, S = 4 sessions
+// of 128 channels (torch.profiler, median of 3 traces of 50 calls:
+// scripts/session_kernel_time.py, both versions in one process each, in
+// turns), the first version (one thread per element, 64-bit index
+// decode, a grid-stride loop) -> this one, beside one Tensor.copy_ of the
+// output's bytes and the bound (the bytes the function must move over
+// 3.35 TB/s; inputs that stay in the 50 MB L2 between calls can beat it):
+//   crop 256^2 -> 48^2, 4-form metas     0.0120 -> 0.0035  copy 0.0025  0.0028
+//   crop 48^2, swish epilogue, edge      0.0152 -> 0.0054  copy 0.0025  0.0027
+//   crop 48^2, edge                      0.0121 -> 0.0034  copy 0.0025  0.0027
+//   crop 256^2 -> 192^2 box, clamped     0.1361 -> 0.0571  copy 0.0513  0.0451
+//   paste 46^2 into 48^2, clamped        0.0120 -> 0.0036  copy 0.0025  0.0028
+//   paste 46^2 into 48^2, session cov    0.0126 -> 0.0035  copy 0.0026  0.0028
+//   paste 192^2 box into 256^2, cov      0.2626 -> 0.0974  copy 0.0904  0.0802
+// The epilogue row stays at 2.2x its copy: an expf and an IEEE division
+// per element, kept so that the crop equals PyTorch bit for bit.
 //
 // The C entries launch on the caller's stream, allocate nothing, do not
-// synchronise, and return cudaGetLastError() so the wrapper can raise.
+// synchronise, and return cudaGetLastError() (or -1 for arguments they do
+// not take) so the wrapper can raise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // a block (sige_torch/ops/sessions.py THREADS)
+constexpr int kUnroll = 4;     // vectors a thread loads before it stores
 
 // dtype codes, as the wrapper (sige_torch/ops/sessions.py) passes them
 constexpr int kF32 = 0;
@@ -82,15 +125,41 @@ __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case kSwish: return __fmul_rn(v, sigmoid(v));
-    case kRelu: return v > 0.0f ? v : 0.0f;
-    case kLeaky: return v > 0.0f ? v : __fmul_rn(v, 0.2f);
-    case kSigmoid: return sigmoid(v);
-    case kTanh: return tanhf(v);
-    case kIdentity:
-    default: return v;
+// VEC elements moved as one access (16 bytes on the vector path)
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load(const T* p) {
+  return *reinterpret_cast<const Pack<T, VEC>*>(p);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store(T* p, const Pack<T, VEC>& v) {
+  *reinterpret_cast<Pack<T, VEC>*>(p) = v;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> zeros() {
+  Pack<T, VEC> z;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) z.v[k] = from_f32<T>(0.0f);
+  return z;
+}
+
+// a base vector in the window's dtype: the same bits when the dtypes
+// agree, else widened exactly (bf16 -> fp32)
+template <typename TW, typename TB, int VEC>
+__device__ __forceinline__ Pack<TW, VEC> widen(const Pack<TB, VEC>& b) {
+  if constexpr (std::is_same<TB, TW>::value) {
+    return b;
+  } else {
+    Pack<TW, VEC> w;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) w.v[k] = from_f32<TW>(to_f32(b.v[k]));
+    return w;
   }
 }
 
@@ -101,12 +170,11 @@ struct Origin {
   int clamp;            // clamp into [0, limit - extent]
 };
 
-__device__ __forceinline__ void origin_of(const Origin& o, int64_t s,
-                                          int H, int W, int EH, int EW,
-                                          int* r, int* c) {
+__device__ __forceinline__ int2 origin_of(const Origin& o, int s, int H,
+                                          int W, int EH, int EW) {
   int rr = o.r, cc = o.c;
   if (o.rows != nullptr) {
-    const int64_t* row = o.rows + s * o.k;
+    const int64_t* row = o.rows + static_cast<int64_t>(s) * o.k;
     rr = static_cast<int>(row[0]);
     cc = static_cast<int>(row[1]);
     if (o.k == 4) {  // virtual origin of a 4-form meta
@@ -118,8 +186,7 @@ __device__ __forceinline__ void origin_of(const Origin& o, int64_t s,
     rr = max(0, min(rr, H - EH));
     cc = max(0, min(cc, W - EW));
   }
-  *r = rr;
-  *c = cc;
+  return make_int2(rr, cc);
 }
 
 struct Epilogue {
@@ -127,164 +194,331 @@ struct Epilogue {
   const float* shift;
   int scale_rows, shift_rows;  // 1 or N
   int act, act_first;
-  int on;  // any of the above
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-crop_sessions_f32(const T* __restrict__ x, T* __restrict__ out, Origin o,
-                  int64_t N, int B, int H, int W, int C, int EH, int EW,
-                  int64_t sx0, int64_t sx1, int64_t sx2, int64_t sx3,
-                  const bool* __restrict__ edge, int edge_per_session,
-                  Epilogue e) {
-  const int64_t total = N * EH * EW * C;
-  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                     threadIdx.x;
-       idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int c = static_cast<int>(idx % C);
-    int64_t t = idx / C;
-    const int j = static_cast<int>(t % EW);
-    t /= EW;
-    const int i = static_cast<int>(t % EH);
-    const int64_t n = t / EH;
-    const int64_t s = n / B;
-    int r0, c0;
-    origin_of(o, s, H, W, EH, EW, &r0, &c0);
-    const int h = r0 + i, w = c0 + j;
-    float v = 0.0f;
-    if (h >= 0 && h < H && w >= 0 && w < W) {
-      v = to_f32(x[n * sx0 + h * sx1 + w * sx2 + c * sx3]);
+// the VEC epilogue params from channel c of sample n, [C] or [N, C]
+template <int VEC>
+__device__ __forceinline__ void params(const Epilogue& e, int n, int C,
+                                       int c, Pack<float, VEC>& sc,
+                                       Pack<float, VEC>& sh) {
+  if (e.scale != nullptr) {
+    sc = load<float, VEC>(
+        e.scale + static_cast<int64_t>(e.scale_rows == 1 ? 0 : n) * C + c);
+  }
+  if (e.shift != nullptr) {
+    sh = load<float, VEC>(
+        e.shift + static_cast<int64_t>(e.shift_rows == 1 ? 0 : n) * C + c);
+  }
+}
+
+template <int ACT>
+__device__ __forceinline__ float act_of(float v) {
+  if constexpr (ACT == kSwish) return __fmul_rn(v, sigmoid(v));
+  if constexpr (ACT == kRelu) return v > 0.0f ? v : 0.0f;
+  if constexpr (ACT == kLeaky) return v > 0.0f ? v : __fmul_rn(v, 0.2f);
+  if constexpr (ACT == kSigmoid) return sigmoid(v);
+  if constexpr (ACT == kTanh) return tanhf(v);
+  return v;
+}
+
+// scale * v + shift and the activation ACT, in either order, on VEC values
+template <int ACT, int VEC>
+__device__ __forceinline__ void apply_act(Pack<float, VEC>& v,
+                                          const Epilogue& e,
+                                          const Pack<float, VEC>& sc,
+                                          const Pack<float, VEC>& sh) {
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    float a = v.v[k];
+    // __fmul_rn / __fadd_rn: never contracted into an FMA, so the
+    // roundings are those of PyTorch's separate multiply and add
+    if (e.act_first) {
+      a = act_of<ACT>(a);
+      if (e.scale != nullptr) a = __fmul_rn(a, sc.v[k]);
+      if (e.shift != nullptr) a = __fadd_rn(a, sh.v[k]);
+    } else {
+      if (e.scale != nullptr) a = __fmul_rn(a, sc.v[k]);
+      if (e.shift != nullptr) a = __fadd_rn(a, sh.v[k]);
+      a = act_of<ACT>(a);
     }
-    if (e.on) {
-      const float sc = e.scale == nullptr
-          ? 1.0f : e.scale[(e.scale_rows == 1 ? 0 : n) * C + c];
-      const float sh = e.shift == nullptr
-          ? 0.0f : e.shift[(e.shift_rows == 1 ? 0 : n) * C + c];
-      // __fmul_rn / __fadd_rn: never contracted into an FMA, so the
-      // roundings are those of PyTorch's separate multiply and add
-      if (e.act_first) {
-        v = activate(v, e.act);
-        if (e.scale != nullptr) v = __fmul_rn(v, sc);
-        if (e.shift != nullptr) v = __fadd_rn(v, sh);
-      } else {
-        if (e.scale != nullptr) v = __fmul_rn(v, sc);
-        if (e.shift != nullptr) v = __fadd_rn(v, sh);
-        v = activate(v, e.act);
+    v.v[k] = a;
+  }
+}
+
+// the epilogue on VEC values: the activation chosen once per vector, not
+// per element
+template <int VEC>
+__device__ __forceinline__ void apply(Pack<float, VEC>& v, const Epilogue& e,
+                                      const Pack<float, VEC>& sc,
+                                      const Pack<float, VEC>& sh) {
+  switch (e.act) {
+    case kSwish: apply_act<kSwish>(v, e, sc, sh); break;
+    case kRelu: apply_act<kRelu>(v, e, sc, sh); break;
+    case kLeaky: apply_act<kLeaky>(v, e, sc, sh); break;
+    case kSigmoid: apply_act<kSigmoid>(v, e, sc, sh); break;
+    case kTanh: apply_act<kTanh>(v, e, sc, sh); break;
+    default: apply_act<kIdentity>(v, e, sc, sh); break;
+  }
+}
+
+// A thread's walk over the vectors of one row, f = j * CV + q (pixel j,
+// channel vector q of CV), in steps of kThreads: one division when it
+// starts, then an add and a compare a step.
+struct Walk {
+  int f, j, q, CV, dj, dq;
+  __device__ __forceinline__ Walk(int f0, int cv)
+      : f(f0), j(f0 / cv), q(f0 - (f0 / cv) * cv), CV(cv),
+        dj(kThreads / cv), dq(kThreads - (kThreads / cv) * cv) {}
+  __device__ __forceinline__ void next() {
+    f += kThreads;
+    j += dj;
+    q += dq;
+    if (q >= CV) {
+      q -= CV;
+      ++j;
+    }
+  }
+};
+
+// [begin, end) of this block's chunk of a row of len vectors
+__device__ __forceinline__ int2 chunk(int len) {
+  const int per = (len + gridDim.y - 1) / gridDim.y;
+  const int begin = blockIdx.y * per;
+  return make_int2(begin, min(len, begin + per));
+}
+
+struct CropArgs {
+  const void* x;
+  void* out;
+  Origin o;
+  int B, H, W, C, EH, EW;
+  int64_t sx0, sx1, sx2, sx3;  // x's strides, in elements
+  const bool* edge;            // [S, EH, EW], [EH, EW] or null
+  int edge_per_session;
+  Epilogue e;
+};
+
+// EPI: the fused epilogue (fp32 only; a thread holds the params of its
+// channel vector in registers)
+template <typename T, int VEC, bool EPI>
+__global__ void __launch_bounds__(kThreads)
+crop_sessions_f32(const CropArgs a) {
+  const T* __restrict__ x = static_cast<const T*>(a.x);
+  T* __restrict__ out = static_cast<T*>(a.out);
+  __shared__ int2 org;
+  const int row = blockIdx.x;  // the output row (n, i)
+  const int n = row / a.EH, i = row - n * a.EH, s = n / a.B;
+  if (threadIdx.x == 0) org = origin_of(a.o, s, a.H, a.W, a.EH, a.EW);
+  __syncthreads();
+  const int CV = a.C / VEC, len = a.EW * CV;
+  const int2 span = chunk(len);
+  const int h = org.x + i;
+  // the in-image vectors of the row: columns [max(0, -c0), min(EW, W - c0))
+  int lo = 0, hi = 0;
+  if (h >= 0 && h < a.H) {
+    lo = max(0, -org.y) * CV;
+    hi = min(a.EW, a.W - org.y) * CV;
+  }
+  const int64_t xrow = n * a.sx0 + h * a.sx1 + org.y * a.sx2;
+  const int64_t sq = VEC * a.sx3;  // from one channel vector to the next
+  T* orow = out + static_cast<int64_t>(row) * len * VEC;
+  const bool* erow = a.edge == nullptr ? nullptr
+      : a.edge + (static_cast<int64_t>(a.edge_per_session ? s : 0) * a.EH
+                  + i) * a.EW;
+  Walk w(span.x + threadIdx.x, CV);
+  // the epilogue params of the thread's channel vector: loaded with its
+  // first data, again only where a step moves it to another channel group
+  // (never when CV divides kThreads, as at C = 128, 256, 512)
+  int qp = w.q;
+  Pack<float, VEC> sc, sh;
+  if constexpr (EPI) {
+    if (w.f < span.y) params(a.e, n, a.C, qp * VEC, sc, sh);
+  }
+  while (w.f < span.y) {
+    Pack<T, VEC> v[kUnroll];
+    int fs[kUnroll], qs[kUnroll];
+    bool keep[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      fs[u] = w.f;
+      qs[u] = w.q;
+      v[u] = zeros<T, VEC>();
+      keep[u] = true;
+      if (w.f < span.y) {
+        if (w.f >= lo && w.f < hi) {
+          v[u] = load<T, VEC>(x + xrow + w.j * a.sx2 + w.q * sq);
+        }
+        if (erow != nullptr) keep[u] = erow[w.j];
+      }
+      w.next();
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (fs[u] < span.y) {
+        if constexpr (EPI) {
+          if (qs[u] != qp) {
+            qp = qs[u];
+            params(a.e, n, a.C, qp * VEC, sc, sh);
+          }
+          apply(v[u], a.e, sc, sh);
+        }
+        if (!keep[u]) v[u] = zeros<T, VEC>();
+        store(orow + static_cast<int64_t>(fs[u]) * VEC, v[u]);
       }
     }
-    if (edge != nullptr &&
-        !edge[((edge_per_session ? s : 0) * EH + i) * EW + j]) {
-      v = 0.0f;
-    }
-    out[idx] = from_f32<T>(v);
   }
+}
+
+struct PasteArgs {
+  const void* base;
+  const void* win;
+  void* out;
+  Origin o;
+  int B, H, W, C, WH, WW;
+  int64_t sb0, sb1, sb2, sb3;  // base's strides, in elements
+  int64_t sw0, sw1, sw2, sw3;  // win's
+  const bool* cov;             // [S, WH, WW], [WH, WW] or null
+  int cov_per_session;
+};
+
+template <typename TB, typename TW, int VEC>
+__global__ void __launch_bounds__(kThreads)
+paste_sessions_f32(const PasteArgs a) {
+  const TB* __restrict__ base = static_cast<const TB*>(a.base);
+  const TW* __restrict__ win = static_cast<const TW*>(a.win);
+  TW* __restrict__ out = static_cast<TW*>(a.out);
+  __shared__ int2 org;
+  const int row = blockIdx.x;  // the output row (n, h)
+  const int n = row / a.H, h = row - n * a.H, s = n / a.B;
+  if (threadIdx.x == 0) org = origin_of(a.o, s, a.H, a.W, a.WH, a.WW);
+  __syncthreads();
+  const int CV = a.C / VEC, len = a.W * CV;
+  const int2 span = chunk(len);
+  const int i = h - org.x;
+  // the window's vectors of the row: columns [c0, c0 + WW) within [0, W);
+  // base on either side, and on the whole of a row outside the window
+  int lo = 0, hi = 0;
+  if (i >= 0 && i < a.WH) {
+    lo = max(0, org.y) * CV;
+    hi = min(a.W, org.y + a.WW) * CV;
+  }
+  const int64_t brow = n * a.sb0 + h * a.sb1;
+  const int64_t wrow = n * a.sw0 + i * a.sw1 - org.y * a.sw2;
+  const int64_t bq = VEC * a.sb3, wq = VEC * a.sw3;
+  TW* orow = out + static_cast<int64_t>(row) * len * VEC;
+  const int64_t crow = (static_cast<int64_t>(a.cov_per_session ? s : 0)
+                        * a.WH + i) * a.WW - org.y;
+  for (Walk w(span.x + threadIdx.x, CV); w.f < span.y;) {
+    int fs[kUnroll], js[kUnroll], qs[kUnroll];
+    bool take[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      fs[u] = w.f;
+      js[u] = w.j;
+      qs[u] = w.q;
+      take[u] = w.f < span.y && w.f >= lo && w.f < hi;
+      w.next();
+    }
+    if (a.cov != nullptr) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (take[u]) take[u] = a.cov[crow + js[u]];
+      }
+    }
+    Pack<TW, VEC> v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (take[u]) {
+        v[u] = load<TW, VEC>(win + wrow + js[u] * a.sw2 + qs[u] * wq);
+      } else if (fs[u] < span.y) {
+        v[u] = widen<TW, TB, VEC>(
+            load<TB, VEC>(base + brow + js[u] * a.sb2 + qs[u] * bq));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (fs[u] < span.y) store(orow + static_cast<int64_t>(fs[u]) * VEC, v[u]);
+    }
+  }
+}
+
+template <typename T, bool EPI>
+int launch_crop(int vec, dim3 grid, cudaStream_t st, const CropArgs& a) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec == kVec) {
+    crop_sessions_f32<T, kVec, EPI><<<grid, kThreads, 0, st>>>(a);
+  } else if (vec == 1) {
+    crop_sessions_f32<T, 1, EPI><<<grid, kThreads, 0, st>>>(a);
+  } else {
+    return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TB, typename TW>
-__global__ void __launch_bounds__(kThreads)
-paste_sessions_f32(const TB* __restrict__ base, const TW* __restrict__ win,
-                   TW* __restrict__ out, Origin o, int64_t N, int B, int H,
-                   int W, int C, int WH, int WW, int64_t sb0, int64_t sb1,
-                   int64_t sb2, int64_t sb3, int64_t sw0, int64_t sw1,
-                   int64_t sw2, int64_t sw3, const bool* __restrict__ cov,
-                   int cov_per_session) {
-  const int64_t total = N * H * W * C;
-  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                     threadIdx.x;
-       idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int c = static_cast<int>(idx % C);
-    int64_t t = idx / C;
-    const int w = static_cast<int>(t % W);
-    t /= W;
-    const int h = static_cast<int>(t % H);
-    const int64_t n = t / H;
-    const int64_t s = n / B;
-    int r0, c0;
-    origin_of(o, s, H, W, WH, WW, &r0, &c0);
-    const int i = h - r0, j = w - c0;
-    bool take = i >= 0 && i < WH && j >= 0 && j < WW;
-    if (take && cov != nullptr) {
-      take = cov[((cov_per_session ? s : 0) * WH + i) * WW + j];
-    }
-    if (take) {
-      out[idx] = win[n * sw0 + i * sw1 + j * sw2 + c * sw3];
-    } else {
-      out[idx] = from_f32<TW>(to_f32(base[n * sb0 + h * sb1 + w * sb2 +
-                                          c * sb3]));
-    }
+int launch_paste(int vec, dim3 grid, cudaStream_t st, const PasteArgs& a) {
+  constexpr int kVec = 16 / sizeof(TW);
+  if (vec == kVec) {
+    paste_sessions_f32<TB, TW, kVec><<<grid, kThreads, 0, st>>>(a);
+  } else if (vec == 1) {
+    paste_sessions_f32<TB, TW, 1><<<grid, kThreads, 0, st>>>(a);
+  } else {
+    return -1;
   }
-}
-
-int blocks_for(int64_t total) {
-  // a grid-stride loop: enough blocks to fill the card several times over
-  const int64_t want = (total + kThreads - 1) / kThreads;
-  return static_cast<int>(want < 132 * 64 ? (want > 0 ? want : 1)
-                                          : 132 * 64);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int sige_crop_sessions(
-    int dtype, const void* x, void* out, const void* org, int org_k,
-    int r_const, int c_const, int clamp, int64_t N, int B, int H, int W,
-    int C, int EH, int EW, int64_t sx0, int64_t sx1, int64_t sx2,
-    int64_t sx3, const void* edge, int edge_per_session, const void* scale,
-    int scale_rows, const void* shift, int shift_rows, int act,
-    int act_first, int epilogue, void* stream) {
-  Origin o{static_cast<const int64_t*>(org), org_k, r_const, c_const, clamp};
-  Epilogue e{static_cast<const float*>(scale),
-             static_cast<const float*>(shift), scale_rows, shift_rows, act,
-             act_first, epilogue};
-  const int64_t total = N * EH * EW * C;
+    int dtype, int vec, int chunks, const void* x, void* out,
+    const void* org, int org_k, int r_const, int c_const, int clamp, int N,
+    int B, int H, int W, int C, int EH, int EW, int64_t sx0, int64_t sx1,
+    int64_t sx2, int64_t sx3, const void* edge, int edge_per_session,
+    const void* scale, int scale_rows, const void* shift, int shift_rows,
+    int act, int act_first, int epilogue, void* stream) {
+  CropArgs a{x, out,
+             Origin{static_cast<const int64_t*>(org), org_k, r_const,
+                    c_const, clamp},
+             B, H, W, C, EH, EW, sx0, sx1, sx2, sx3,
+             static_cast<const bool*>(edge), edge_per_session,
+             Epilogue{static_cast<const float*>(scale),
+                      static_cast<const float*>(shift), scale_rows,
+                      shift_rows, act, act_first}};
+  const dim3 grid(static_cast<unsigned>(N) * EH, chunks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) {
-    crop_sessions_f32<float><<<blocks_for(total), kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), o, N, B, H,
-        W, C, EH, EW, sx0, sx1, sx2, sx3, static_cast<const bool*>(edge),
-        edge_per_session, e);
-  } else if (dtype == kBF16) {
-    crop_sessions_f32<__nv_bfloat16><<<blocks_for(total), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<__nv_bfloat16*>(out), o, N, B, H, W, C, EH, EW, sx0,
-        sx1, sx2, sx3, static_cast<const bool*>(edge), edge_per_session, e);
-  } else {
-    return -1;
+  if (dtype == kF32 && epilogue) {
+    return launch_crop<float, true>(vec, grid, st, a);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == kF32) return launch_crop<float, false>(vec, grid, st, a);
+  if (dtype == kBF16 && !epilogue) {
+    return launch_crop<__nv_bfloat16, false>(vec, grid, st, a);
+  }
+  return -1;  // a bf16 epilogue runs in PyTorch, after the crop
 }
 
 extern "C" int sige_paste_sessions(
-    int base_dtype, int win_dtype, const void* base, const void* win,
-    void* out, const void* org, int org_k, int r_const, int c_const,
-    int clamp, int64_t N, int B, int H, int W, int C, int WH, int WW,
-    int64_t sb0, int64_t sb1, int64_t sb2, int64_t sb3, int64_t sw0,
+    int base_dtype, int win_dtype, int vec, int chunks, const void* base,
+    const void* win, void* out, const void* org, int org_k, int r_const,
+    int c_const, int clamp, int N, int B, int H, int W, int C, int WH,
+    int WW, int64_t sb0, int64_t sb1, int64_t sb2, int64_t sb3, int64_t sw0,
     int64_t sw1, int64_t sw2, int64_t sw3, const void* cov,
     int cov_per_session, void* stream) {
-  Origin o{static_cast<const int64_t*>(org), org_k, r_const, c_const, clamp};
-  const int64_t total = N * H * W * C;
+  PasteArgs a{base, win, out,
+              Origin{static_cast<const int64_t*>(org), org_k, r_const,
+                     c_const, clamp},
+              B, H, W, C, WH, WW, sb0, sb1, sb2, sb3, sw0, sw1, sw2, sw3,
+              static_cast<const bool*>(cov), cov_per_session};
+  const dim3 grid(static_cast<unsigned>(N) * H, chunks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool* cv = static_cast<const bool*>(cov);
   if (base_dtype == kF32 && win_dtype == kF32) {
-    paste_sessions_f32<float, float><<<blocks_for(total), kThreads, 0, st>>>(
-        static_cast<const float*>(base), static_cast<const float*>(win),
-        static_cast<float*>(out), o, N, B, H, W, C, WH, WW, sb0, sb1, sb2,
-        sb3, sw0, sw1, sw2, sw3, cv, cov_per_session);
-  } else if (base_dtype == kBF16 && win_dtype == kF32) {
-    paste_sessions_f32<__nv_bfloat16, float>
-        <<<blocks_for(total), kThreads, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(base),
-            static_cast<const float*>(win), static_cast<float*>(out), o, N,
-            B, H, W, C, WH, WW, sb0, sb1, sb2, sb3, sw0, sw1, sw2, sw3, cv,
-            cov_per_session);
-  } else if (base_dtype == kBF16 && win_dtype == kBF16) {
-    paste_sessions_f32<__nv_bfloat16, __nv_bfloat16>
-        <<<blocks_for(total), kThreads, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(base),
-            static_cast<const __nv_bfloat16*>(win),
-            static_cast<__nv_bfloat16*>(out), o, N, B, H, W, C, WH, WW, sb0,
-            sb1, sb2, sb3, sw0, sw1, sw2, sw3, cv, cov_per_session);
-  } else {
-    return -1;
+    return launch_paste<float, float>(vec, grid, st, a);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (base_dtype == kBF16 && win_dtype == kF32) {
+    return launch_paste<__nv_bfloat16, float>(vec, grid, st, a);
+  }
+  if (base_dtype == kBF16 && win_dtype == kBF16) {
+    return launch_paste<__nv_bfloat16, __nv_bfloat16>(vec, grid, st, a);
+  }
+  return -1;
 }

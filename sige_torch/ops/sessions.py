@@ -30,11 +30,15 @@ On CUDA tensors the wrappers launch the hand-written kernels of
 ``paste_sessions_f32``; fp32, and bf16 caches of
 ``SIGEModel(cache_dtype=torch.bfloat16)``), built with nvcc at first use
 (:class:`~sige_torch.ops.cuda_lib.CudaLibrary`), and count each launch
-(``crop_sessions.launches``, ``paste_sessions.launches``); a refused
-launch raises. On CPU tensors they run the plain versions
-(:func:`crop_sessions_plain`, :func:`paste_sessions_plain`), each a fixed
-number of PyTorch ops whatever S is: index arithmetic, ``torch.gather``
-and ``torch.where``.
+(``crop_sessions.launches``, ``paste_sessions.launches``; of them, the
+``scalar_launches`` that took the scalar instantiation); a refused
+launch raises. The host work of a launch is a few integer checks:
+:func:`vector_width` picks 16-byte accesses or the scalar instantiation
+from the dtypes, C, strides and pointers, :func:`row_chunks` the grid (a
+block per output row, rows cut into chunks when they are few). On CPU
+tensors they run the plain versions (:func:`crop_sessions_plain`,
+:func:`paste_sessions_plain`), each a fixed number of PyTorch ops whatever
+S is: index arithmetic, ``torch.gather`` and ``torch.where``.
 """
 
 from __future__ import annotations
@@ -51,11 +55,11 @@ SOURCE = CSRC / "window_sessions.cu"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 LIBRARY = CudaLibrary(SOURCE, "sige_window_sessions", {
     "sige_crop_sessions": (
-        [_I, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _I,
-         _L, _L, _L, _L, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P], _I),
+        [_I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+         _I, _L, _L, _L, _L, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P], _I),
     "sige_paste_sessions": (
-        [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I,
-         _I, _L, _L, _L, _L, _L, _L, _L, _L, _P, _I, _P], _I),
+        [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+         _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _P, _I, _P], _I),
 })
 # the CUDA source's codes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -192,6 +196,70 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# the kernels' launch shape: THREADS a block and UNROLL vectors a thread
+# loads at once (kThreads, kUnroll in the source), and enough blocks to
+# fill the card's 132 SMs TARGET_BLOCKS // 132 times over
+THREADS = 128
+UNROLL = 4
+TARGET_BLOCKS = 132 * 8
+_MAX_CHUNKS = 65535  # grid.y
+_MAX_ROW = 2 ** 30  # elements of one row, and rows, in the kernels' ints
+
+
+def vector_width(width: int, C: int, views=(), flat=()) -> int:
+    """The elements a kernel thread moves per access: ``width`` (16 bytes
+    of the output's dtype) when C is a multiple of it and every NHWC view
+    in ``views`` — ``(data_ptr, element size, strides)`` — has its channels
+    at stride 1 and its other strides and data pointer aligned to
+    ``width`` of its own elements, and every fp32 pointer in ``flat`` (the
+    epilogue params, [rows, C]) is aligned to ``width`` floats; else 1,
+    the scalar instantiation of the same kernel, which takes any
+    strides."""
+    if width <= 1 or C % width:
+        return 1
+    for ptr, size, strides in views:
+        if strides[3] != 1 or ptr % (width * size) \
+                or any(st % width for st in strides[:3]):
+            return 1
+    if any(ptr % (4 * width) for ptr in flat):
+        return 1
+    return width
+
+
+def _view(t: torch.Tensor):
+    return t.data_ptr(), t.element_size(), t.stride()
+
+
+def crop_vector_width(x: torch.Tensor, params=()) -> int:
+    """:func:`vector_width` of a crop of ``x`` with the fp32 epilogue
+    params ``params`` ([rows, C] tensors or None). The output, a fresh
+    contiguous NHWC tensor, is aligned whenever C is a multiple of the
+    width."""
+    return vector_width(16 // x.element_size(), x.shape[3], (_view(x),),
+                        [p.data_ptr() for p in params if p is not None])
+
+
+def paste_vector_width(base: torch.Tensor, win: torch.Tensor) -> int:
+    """:func:`vector_width` of a paste of ``win`` over ``base`` (into a
+    fresh tensor of ``win``'s dtype): 16 bytes of ``win``, so a bf16 base
+    under fp32 windows is read 8 bytes at a time."""
+    return vector_width(16 // win.element_size(), base.shape[3],
+                        (_view(base), _view(win)))
+
+
+def row_chunks(rows: int, row_vectors: int) -> int:
+    """The chunks each output row is cut into: the kernels' grid is
+    ``(rows, chunks)``, a block per chunk of a row. Rows are cut only until
+    the grid reaches TARGET_BLOCKS, and never below THREADS * UNROLL
+    vectors a chunk (a thread's loads all in flight at once)."""
+    if rows > _MAX_ROW or row_vectors > _MAX_ROW:
+        raise ValueError(f"{rows} rows of {row_vectors} vectors: more than "
+                         f"the session kernels index")
+    want = -(-TARGET_BLOCKS // max(rows, 1))
+    cap = -(-row_vectors // (THREADS * UNROLL))
+    return max(1, min(want, cap, _MAX_CHUNKS))
+
+
 def _origin_args(org, device):
     """(origin tensor or None, k, host row, host col) for the kernels."""
     if is_sessions(org):
@@ -263,15 +331,18 @@ def _crop_cuda(x, org, EH, EW, edge, scale, shift, activation,
     out = torch.empty((N, EH, EW, C), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    vec = crop_vector_width(x, (sc[0], sh[0]))
+    chunks = row_chunks(N * EH, EW * C // vec)
     err = LIBRARY.load().sige_crop_sessions(
-        _DTYPES[x.dtype], x.data_ptr(), out.data_ptr(), _ptr(o), k, r0, c0,
-        int(clamp), N, B, H, W, C, EH, EW, *x.stride(), _ptr(e), per,
-        _ptr(sc[0]), sc[1], _ptr(sh[0]), sh[1], _ACTS[activation],
+        _DTYPES[x.dtype], vec, chunks, x.data_ptr(), out.data_ptr(), _ptr(o),
+        k, r0, c0, int(clamp), N, B, H, W, C, EH, EW, *x.stride(), _ptr(e),
+        per, _ptr(sc[0]), sc[1], _ptr(sh[0]), sh[1], _ACTS[activation],
         int(activation_first), int(epi), _stream(x.device))
     if err != 0:
         raise RuntimeError(f"crop_sessions_f32 launch failed: CUDA error "
                            f"{err}")
     crop_sessions.launches += 1
+    crop_sessions.scalar_launches += int(vec == 1)
     return out
 
 
@@ -299,15 +370,18 @@ def _paste_cuda(base, win, org, cov, clamp):
     out = torch.empty((N, H, W, C), dtype=win.dtype, device=base.device)
     if out.numel() == 0:
         return out
+    vec = paste_vector_width(base, win)
+    chunks = row_chunks(N * H, W * C // vec)
     err = LIBRARY.load().sige_paste_sessions(
-        _DTYPES[base.dtype], _DTYPES[win.dtype], base.data_ptr(),
-        win.data_ptr(), out.data_ptr(), _ptr(o), k, r0, c0, int(clamp), N, B,
-        H, W, C, WH, WW, *base.stride(), *win.stride(), _ptr(cv), per,
-        _stream(base.device))
+        _DTYPES[base.dtype], _DTYPES[win.dtype], vec, chunks,
+        base.data_ptr(), win.data_ptr(), out.data_ptr(), _ptr(o), k, r0, c0,
+        int(clamp), N, B, H, W, C, WH, WW, *base.stride(), *win.stride(),
+        _ptr(cv), per, _stream(base.device))
     if err != 0:
         raise RuntimeError(f"paste_sessions_f32 launch failed: CUDA error "
                            f"{err}")
     paste_sessions.launches += 1
+    paste_sessions.scalar_launches += int(vec == 1)
     return out
 
 
@@ -353,8 +427,8 @@ def paste_sessions(base: torch.Tensor, win: torch.Tensor, org,
     return paste_sessions_plain(base, win, org, cov, clamp)
 
 
-crop_sessions.launches = 0
-paste_sessions.launches = 0
+crop_sessions.launches = crop_sessions.scalar_launches = 0
+paste_sessions.launches = paste_sessions.scalar_launches = 0
 
 
 def cov_where(cov: torch.Tensor, a: torch.Tensor, b: torch.Tensor

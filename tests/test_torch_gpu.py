@@ -875,14 +875,46 @@ def _session_inputs(S, B, H, W, C, dtype, seed):
     return x.cuda(), gen
 
 
+def _as_view(t, view):
+    """``t``'s values as the view a case asks for: ``contiguous``, a
+    ``channel_strided`` view (every other channel of a map twice as
+    wide), a ``channel_slice`` (the middle C of 3C channels) or an
+    ``offset`` one (contiguous, its data pointer one element past an
+    aligned allocation)."""
+    if view == "contiguous":
+        return t
+    N, H, W, C = t.shape
+    if view == "offset":
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+    elif view == "channel_strided":
+        out = torch.empty(N, H, W, 2 * C, dtype=t.dtype,
+                          device=t.device)[..., ::2]
+    else:
+        out = torch.empty(N, H, W, 3 * C, dtype=t.dtype,
+                          device=t.device)[..., C:2 * C]
+    out.copy_(t)
+    return out
+
+
+def _vector_view(view, C, dtype):
+    """Whether a map of this view, C and dtype takes the kernels' 16-byte
+    instantiation."""
+    return view in ("contiguous", "channel_slice") and \
+        C % (16 // torch.tensor([], dtype=dtype).element_size()) == 0
+
+
 # (S, B, H, W, C, EH, EW, origin rows): in image, at the border, negative
-# virtual origins, an extent wider than the canvas, and the DDPM path's
-# widths (64 px at 128 channels)
+# virtual origins, an extent wider than the canvas, the DDPM path's widths
+# (64 px at 128 channels), C = 3 and 6 (the scalar instantiation) with
+# source rows wholly outside the image (above and below it)
 CROP_CASES = [
     (2, 1, 12, 14, 5, 6, 7, [[3, 4], [0, 7]]),
     (3, 2, 12, 14, 8, 6, 7, [[-1, 9], [6, -2], [11, 13]]),
     (2, 2, 10, 12, 4, 14, 16, [[-1, -1], [-3, -2]]),
     (4, 1, 64, 64, 128, 34, 34, [[5, 7], [30, 30], [-1, 20], [0, 0]]),
+    (2, 1, 9, 11, 3, 5, 6, [[-7, 2], [4, 8]]),
+    (2, 2, 9, 11, 6, 5, 6, [[2, -3], [12, 1]]),
 ]
 
 
@@ -891,16 +923,23 @@ CROP_CASES = [
 @pytest.mark.parametrize("epilogue", [None, "swish", "swish_first",
                                       "leaky", "tanh"])
 @pytest.mark.parametrize("form", ["2", "4", "clamp"])
-def test_crop_sessions_kernel_matches_plain_on_card(case, epilogue, form):
+@pytest.mark.parametrize("view", ["contiguous", "channel_strided", "offset",
+                                  "channel_slice"])
+def test_crop_sessions_kernel_matches_plain_on_card(case, epilogue, form,
+                                                    view):
     """crop_sessions_f32 against its plain version on the same CUDA
-    tensors: exact without an epilogue, within 1e-6 with one; origins as
-    [S, 2] rows, as 4-form metas (clamped, roll) and clamped."""
+    tensors: exact without an epilogue, within 1e-6 with one (outside the
+    image: the epilogue of zero); origins as [S, 2] rows, as 4-form metas
+    (clamped, roll) and clamped; the 16-byte instantiation on contiguous
+    maps and channel slices with C a multiple of 4, the scalar one
+    otherwise, each counted."""
     if not torch.cuda.is_available():
         pytest.skip("the session kernels run only on a CUDA device")
     from sige_torch.ops import sessions as ss
 
     S, B, H, W, C, EH, EW, rows = case
     x, gen = _session_inputs(S, B, H, W, C, torch.float32, S + EH)
+    x = _as_view(x, view)
     org = torch.tensor(rows, dtype=torch.int64)
     if form == "4":  # clamped origin and roll whose difference is the row
         cl = org.clamp(min=0)
@@ -914,10 +953,12 @@ def test_crop_sessions_kernel_matches_plain_on_card(case, epilogue, form):
                   activation=epilogue.split("_")[0],
                   activation_first=epilogue.endswith("first"))
     clamp = form == "clamp"
-    before = ss.crop_sessions.launches
+    before = ss.crop_sessions.launches, ss.crop_sessions.scalar_launches
     got = ss.crop_sessions(x, org, EH, EW, edge, clamp=clamp, **kw)
     torch.cuda.synchronize()
-    assert ss.crop_sessions.launches == before + 1
+    scalar = not _vector_view(view, C, torch.float32)
+    assert (ss.crop_sessions.launches, ss.crop_sessions.scalar_launches) \
+        == (before[0] + 1, before[1] + scalar)
     want = ss.crop_sessions_plain(x, org, EH, EW, edge, clamp=clamp, **kw)
     assert got.shape == want.shape and got.dtype == want.dtype
     err = (got - want).abs().max().item()
@@ -925,21 +966,28 @@ def test_crop_sessions_kernel_matches_plain_on_card(case, epilogue, form):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", CROP_CASES[:3])
-def test_crop_sessions_kernel_bf16_on_card(case):
+@pytest.mark.parametrize("case", CROP_CASES[:3] + CROP_CASES[5:])
+@pytest.mark.parametrize("view", ["contiguous", "offset", "channel_slice"])
+def test_crop_sessions_kernel_bf16_on_card(case, view):
     """The bf16 cache form: a crop of a bf16 map equals the plain version
-    bit for bit; with an epilogue (which the kernel leaves to PyTorch for
-    bf16 input, promoting to fp32 as the plain version does) too."""
+    bit for bit (8 bf16 a vector where C is a multiple of 8, else the
+    scalar instantiation); with an epilogue (which the kernel leaves to
+    PyTorch for bf16 input, promoting to fp32 as the plain version does)
+    too."""
     if not torch.cuda.is_available():
         pytest.skip("the session kernels run only on a CUDA device")
     from sige_torch.ops import sessions as ss
 
     S, B, H, W, C, EH, EW, rows = case
     x, gen = _session_inputs(S, B, H, W, C, torch.bfloat16, 1)
+    x = _as_view(x, view)
     org = torch.tensor(rows, dtype=torch.int64).cuda()
+    before = ss.crop_sessions.scalar_launches
     got = ss.crop_sessions(x, org, EH, EW)
     want = ss.crop_sessions_plain(x, org, EH, EW)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert ss.crop_sessions.scalar_launches == before + (
+        not _vector_view(view, C, torch.bfloat16))
     edge = (torch.rand(S, EH, EW, generator=gen) < 0.8).cuda()
     scale = torch.randn(S * B, C, generator=gen).cuda()
     got = ss.crop_sessions(x, org, EH, EW, edge, scale, None, "swish")
@@ -947,36 +995,67 @@ def test_crop_sessions_kernel_bf16_on_card(case):
     assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
+# (S, B, H, W, C, WH, WW): B > 1, C = 6 (the scalar instantiation), a
+# window wider than the map, the DDPM path's 46^2 windows at 128 channels
+PASTE_CASES = [
+    (3, 2, 16, 18, 8, 6, 7),
+    (2, 1, 9, 11, 6, 4, 5),
+    (2, 2, 10, 12, 8, 14, 16),
+    (4, 1, 48, 48, 128, 46, 46),
+]
+PASTE_ORIGINS = {  # per-session rows, cut to S
+    "rows": [[0, 0], [5, 11], [10, 3], [2, 1]],
+    "negative": [[-2, 3], [-1, -4], [3, -6], [-5, -5]],
+    "clamp": [[-2, 3], [14, 15], [7, -5], [60, 60]],
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
                                     (torch.bfloat16, torch.float32),
                                     (torch.bfloat16, torch.bfloat16)])
 @pytest.mark.parametrize("cov", [None, "shared", "sessions"])
-@pytest.mark.parametrize("origin", ["rows", "host", "clamp"])
-def test_paste_sessions_kernel_matches_plain_on_card(dtypes, cov, origin):
+@pytest.mark.parametrize("origin", ["rows", "host", "clamp", "negative",
+                                    "meta4"])
+@pytest.mark.parametrize("case", PASTE_CASES)
+@pytest.mark.parametrize("view", ["contiguous", "offset",
+                                  "channel_strided"])
+def test_paste_sessions_kernel_matches_plain_on_card(dtypes, cov, origin,
+                                                     case, view):
     """paste_sessions_f32 against its plain version, exactly: fp32, a bf16
     base under fp32 windows (the bf16 caches) and bf16 throughout; with
-    per-session, shared or no coverage; per-session, host and clamped
-    origins."""
+    per-session, shared or no coverage; per-session, negative, 4-form,
+    host and clamped origins; the 16-byte instantiation where the base's
+    view and C allow it, the scalar one otherwise, each counted."""
     if not torch.cuda.is_available():
         pytest.skip("the session kernels run only on a CUDA device")
     from sige_torch.ops import sessions as ss
 
-    S, B, H, W, C, WH, WW = 3, 2, 16, 18, 8, 6, 7
+    S, B, H, W, C, WH, WW = case
     base, gen = _session_inputs(S, B, H, W, C, dtypes[0], 2)
+    base = _as_view(base, view)
     win = torch.randn(S * B, WH, WW, C, generator=gen).to(dtypes[1]).cuda()
-    org = {"rows": torch.tensor([[0, 0], [5, 11], [10, 3]]).cuda(),
-           "host": (4, 9),
-           "clamp": torch.tensor([[-2, 3], [14, 15], [7, -5]]).cuda()}[origin]
+    if origin == "host":
+        org = (4, 9)
+    else:
+        rows = torch.tensor(PASTE_ORIGINS.get(origin, PASTE_ORIGINS[
+            "negative"])[:S])
+        if origin == "meta4":  # clamped origin and roll
+            cl = rows.clamp(min=0)
+            rows = torch.cat([cl, cl - rows], dim=1)
+        org = rows.cuda()
     mask = {None: None,
             "shared": torch.rand(WH, WW, generator=gen) < 0.5,
             "sessions": torch.rand(S, WH, WW, generator=gen) < 0.5}[cov]
     mask = None if mask is None else mask.cuda()
     clamp = origin == "clamp"
-    before = ss.paste_sessions.launches
+    before = ss.paste_sessions.launches, ss.paste_sessions.scalar_launches
     got = ss.paste_sessions(base, win, org, mask, clamp=clamp)
     torch.cuda.synchronize()
-    assert ss.paste_sessions.launches == before + 1
+    width = 16 // win.element_size()
+    scalar = view != "contiguous" or C % width != 0
+    assert (ss.paste_sessions.launches, ss.paste_sessions.scalar_launches) \
+        == (before[0] + 1, before[1] + scalar)
     want = ss.paste_sessions_plain(base, win, org, mask, clamp=clamp)
     assert got.dtype == dtypes[1] and torch.equal(got, want)
 
@@ -1038,23 +1117,43 @@ def test_tiny_session_server_card_matches_cpu(layout):
 
 
 @pytest.mark.gpu
-def test_session_kernels_refuse_what_they_do_not_take():
+@pytest.mark.parametrize("op", ["crop_sessions", "paste_sessions"])
+def test_session_kernels_refuse_what_they_do_not_take(op):
     """The wrappers raise before a launch on inputs the kernels cannot
     read: a mask or a window on another device, a mask of the wrong
-    shape or dtype, an unsupported dtype pair."""
+    shape or dtype, an unsupported dtype pair; the C entries return -1
+    for a vector width they have no instantiation for."""
     if not torch.cuda.is_available():
         pytest.skip("the session kernels run only on a CUDA device")
     from sige_torch.ops import sessions as ss
 
     x = torch.randn(2, 8, 8, 4, device="cuda")
     org = torch.tensor([[1, 2], [3, 0]], device="cuda")
-    with pytest.raises(ValueError, match="mask on cpu"):
-        ss.crop_sessions(x, org, 4, 4, torch.ones(2, 4, 4, dtype=torch.bool))
-    with pytest.raises(ValueError, match="expected bool"):
-        ss.crop_sessions(x, org, 4, 4, torch.ones(3, 4, 4, device="cuda",
-                                                  dtype=torch.bool))
-    with pytest.raises(ValueError, match="window on cpu"):
-        ss.paste_sessions(x, torch.randn(2, 4, 4, 4), org)
-    with pytest.raises(TypeError, match="dtypes"):
-        ss.paste_sessions(x, torch.randn(2, 4, 4, 4, device="cuda",
-                                         dtype=torch.bfloat16), org)
+    out = torch.empty(2, 4, 4, 4, device="cuda")
+    lib = ss.LIBRARY.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    before = getattr(ss, op).launches
+    if op == "crop_sessions":
+        with pytest.raises(ValueError, match="mask on cpu"):
+            ss.crop_sessions(x, org, 4, 4,
+                             torch.ones(2, 4, 4, dtype=torch.bool))
+        with pytest.raises(ValueError, match="expected bool"):
+            ss.crop_sessions(x, org, 4, 4, torch.ones(
+                3, 4, 4, device="cuda", dtype=torch.bool))
+        err = lib.sige_crop_sessions(
+            0, 2, 1, x.data_ptr(), out.data_ptr(), org.data_ptr(), 2, 0, 0,
+            0, 2, 1, 8, 8, 4, 4, 4, *x.stride(), None, 0, None, 1, None, 1,
+            0, 0, 0, stream)
+    else:
+        with pytest.raises(ValueError, match="window on cpu"):
+            ss.paste_sessions(x, torch.randn(2, 4, 4, 4), org)
+        with pytest.raises(TypeError, match="dtypes"):
+            ss.paste_sessions(x, torch.randn(2, 4, 4, 4, device="cuda",
+                                             dtype=torch.bfloat16), org)
+        err = lib.sige_paste_sessions(
+            0, 0, 2, 1, x.data_ptr(), out.data_ptr(), x.data_ptr(),
+            org.data_ptr(), 2, 0, 0, 0, 2, 1, 8, 8, 4, 4, 4, *x.stride(),
+            *out.stride(), None, 0, stream)
+    assert err == -1
+    torch.cuda.synchronize()
+    assert getattr(ss, op).launches == before
