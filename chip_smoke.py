@@ -2,11 +2,11 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase {checkpoints,sd_text,engine_options,quality,
-                                   twin,sessions}
+                                   twin,sessions,adopt,dp}
 
 With ``--phase`` it builds the kernels and the native planner and runs
-that phase alone (13, 14 with phase 13's SD checkpoint, 15, 16, 17 or
-18),
+that phase alone (13, 14 with phase 13's SD checkpoint, 15, 16, 17, 18,
+19 or 20),
 printing the card first and the phase's record as one JSON line last.
 
 Phases (any failure raises and the script exits non-zero):
@@ -268,7 +268,36 @@ Phases (any failure raises and the script exits non-zero):
             on CUDA events, device ms, the bytes bound, and the copy
             floor (the device ms of one ``copy_`` of the output's bytes,
             not the same function); the launches that took the kernels'
-            scalar instantiation (not 16-byte vectors) are counted.
+            scalar instantiation (not 16-byte vectors) are counted. Then
+            the SD models stacked, window layout, compact edits of
+            1.2-3% at S places (one at the border): the SD v1 U-Net
+            (``SDUNetConfig()``) at latent 64^2, two samples a session (a
+            context [S, 2, 77, 768]), S = 1, 2, 4, and the decoder
+            (``SDVAEConfig(resolution=512)``) at S = 2; per S: prime,
+            plan, a warm-up step, 3 steps on CUDA events (ms per step
+            and per session), the flash launches held exactly (32 per
+            U-Net forward, 1 per decoder forward, plus combines), a
+            trace's busy time, launches and idle share, each session's
+            rows and committed rows against the single-session engine
+            under the server's pins within 1e-4 * max(1, max|full|), and
+            the flash kernel against its plain version at every new call
+            shape, the masked ones with their key bias of one row per
+            session (SDPA timed beside it with the same additive mask);
+19. adopt — ``SIGEModel.adopt_full`` on the SD decoder at 512^2, full
+            width: a second model's full pass, its caches and metadata in
+            host memory, adopted by a fresh model (ms of the move,
+            synchronised, and MB moved); its sparse forward equals the
+            plain engine's within 1e-4 * max(1, max|ref|), with its flash
+            launches held; its peak beside the plain full pass's;
+20. dp    — ``TwinStepServer`` (B = 4) and ``SessionServer`` (window,
+            S = 4) on a (dp = 2, tp = 1) mesh: two rank processes of this
+            script (``--dp-rank``) share the card under gloo, each at
+            church256 full width with two requests or sessions; each
+            rank's flash launches per step held exactly (12 + 12 a twin
+            step, 6 + 6 a session step), ms per step per rank (two
+            processes on one card: not a scaling number); the rows
+            ``gather_batch`` assembles equal the one-process servers'
+            within 1e-4. A rank's failure or time-out fails the run.
 
 Phases 6, 7, 9 and 11 also time the planning of each family's edit
 (DDPM window and tiles, the SD U-Net and decoder, PD, GauGAN), median of
@@ -373,11 +402,11 @@ def time_ms(fn, warmup: int = 5, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(B, N, M, H, D, bias: bool):
-    """Least time for one attention call: bytes (q, k, v, bias read once,
-    out written once) over HBM bandwidth vs 4*N*M*D flops per head over
-    the fp32 rate."""
-    nbytes = 4 * (2 * B * N * H * D + 2 * B * M * H * D + (M if bias else 0))
+def attention_bound(B, N, M, H, D, bias_rows: int):
+    """Least time for one attention call: bytes (q, k, v and the
+    ``bias_rows`` x M key bias read once, out written once) over HBM
+    bandwidth vs 4*N*M*D flops per head over the fp32 rate."""
+    nbytes = 4 * (2 * B * N * H * D + 2 * B * M * H * D + bias_rows * M)
     flops = 4.0 * B * H * N * M * D
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
@@ -412,9 +441,17 @@ def phase_kernels(flash):
     return [kernel_row(flash, *shape) for shape in shapes]
 
 
+def bias_rows(bias) -> int:
+    """Rows of a key bias: 0 for none, 1 for [M], R for [R, M]."""
+    return 0 if bias is None else (1 if bias.ndim == 1 else bias.shape[0])
+
+
 def kernel_row(flash, label, B, N, M, H, D, bias):
     """Hold the flash kernel against its plain twin at one shape (random
-    q, k, v) and time it, the plain version and SDPA."""
+    q, k, v; ``bias`` None, [M] or one row per session [R, M]) and time
+    it, the plain version and SDPA (given the same additive bias as a
+    float ``attn_mask``, broadcast to [B, 1, 1, M] for per-session
+    rows)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(N + M + D)
@@ -430,13 +467,16 @@ def kernel_row(flash, label, B, N, M, H, D, bias):
     if not (err <= TOL):
         raise AssertionError(f"{label}: kernel vs plain max err {err:.3e}")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rows = bias_rows(bias)
+    mask = bias if rows <= 1 else bias.repeat_interleave(B // rows, 0)[
+        :, None, None, :]
     fns = {"kernel": lambda: flash.flash_mha(q, k, v, scale, bias),
            "plain": lambda: flash.flash_mha_plain(q, k, v, scale, bias),
            "library": lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, attn_mask=bias, scale=scale)}
+               qt, kt, vt, attn_mask=mask, scale=scale)}
     call = {n: time_ms(fn) for n, fn in fns.items()}
     dev = {n: device_ms(fn, required=False)[0] for n, fn in fns.items()}
-    bound_ms, bound_by = attention_bound(B, N, M, H, D, bias is not None)
+    bound_ms, bound_by = attention_bound(B, N, M, H, D, rows)
 
     def fmt(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -447,7 +487,7 @@ def kernel_row(flash, label, B, N, M, H, D, bias):
           f"device ms (profiler): kernel {fmt(dev['kernel'])}  plain "
           f"{fmt(dev['plain'])}  sdpa {fmt(dev['library'])}", flush=True)
     return {"shape": label, "B": B, "N": N, "M": M, "H": H, "D": D,
-            "bias": bias is not None, "splits": splits,
+            "bias": bias is not None, "bias_rows": rows, "splits": splits,
             "max_err": err, "kernel_ms": call["kernel"],
             "plain_ms": call["plain"], "library_ms": call["library"],
             "kernel_device_ms": dev["kernel"],
@@ -943,17 +983,21 @@ def sd_transformer_shapes(cfg, latent):
 def _sparse_tokens(sparse_ok, gather, res):
     """(query tokens per batch row, whether the masked stale/fresh form
     runs) of one sparse-mode attention, from its gather's plan."""
+    from sige_torch.ops.window import window_extent
+
     if not sparse_ok:
         return res * res, False
     if gather.planned_window():
-        return gather.read_wsc((res, res))[1].numel(), True
+        h, w = window_extent(gather.read_wsc((res, res))[1])
+        return h * w, True
     bh, bw = gather.geom.block_size
-    return gather.plan["indices"].shape[0] * bh * bw, False
+    return gather.plan["indices"].shape[-2] * bh * bw, False
 
 
-def sd_unet_calls(unet, latent, mode, update=False):
+def sd_unet_calls(unet, latent, mode, update=False, batch=2):
     """(B, N, M, heads, D) of every flash call of one forward of the U-Net
-    ``unet`` (a ``SIGEModel``) at ``latent`` px with guidance (batch 2):
+    ``unet`` (a ``SIGEModel``) at ``latent`` px at ``batch`` (2: one
+    sample with guidance; 2 S under a plan stacked over S sessions):
     per transformer block a self-attention (masked stale/fresh in the
     window chain, which ``sparse_update`` (``update``) turns off; over the
     full K/V map at a K/V-cached level, ``kv_cache_min_tokens``) and a
@@ -977,15 +1021,15 @@ def sd_unet_calls(unet, latent, mode, update=False):
             kv_cached = m.sparse_ok and res * res >= cfg.kv_cache_min_tokens
             if masked and cfg.window_chain and not kv_cached and not update:
                 M = res * res + N
-        calls += [(2, N, M, H, ch // H), (2, N, 77, H, ch // H)] * len(
-            m.blocks)
+        calls += [(batch, N, M, H, ch // H),
+                  (batch, N, 77, H, ch // H)] * len(m.blocks)
     return calls
 
 
-def sd_vae_calls(model, mode, update=False):
-    """The flash call of one encoder or decoder forward (the mid block's
-    single-head attention; its masked window-chain form off under
-    ``sparse_update``, ``update``)."""
+def sd_vae_calls(model, mode, update=False, batch=1):
+    """The flash call of one encoder or decoder forward at ``batch`` (the
+    mid block's single-head attention; its masked window-chain form off
+    under ``sparse_update``, ``update``)."""
     m = model.module.mid_attn
     cfg = model.module.cfg
     res = cfg.resolution // 2 ** (len(cfg.ch_mult) - 1)
@@ -994,7 +1038,7 @@ def sd_vae_calls(model, mode, update=False):
         N, masked = _sparse_tokens(m.sparse_ok, m.gather, res)
         M = res * res + (N if masked and cfg.window_chain and not update
                          else 0)
-    return [(1, N, M, 1, m.channels)]
+    return [(batch, N, M, 1, m.channels)]
 
 
 def expected_counts(flash, calls):
@@ -4558,6 +4602,233 @@ def session_loop(flash, module, cfg):
     return rec
 
 
+SD_SESSION_COUNTS = (1, 2, 4)  # SD U-Net sessions per stacked step
+SD_DECODER_SESSIONS = 2  # SD decoder sessions per stacked step
+SD_SESSION_STEPS = 3  # timed steps per run, after one warm-up step
+SD_SESSION_T = 501.0  # every sample's timestep (half of SD's 1000)
+
+
+def sd_session_masks(R: int, S: int):
+    """S compact image edits at R px (squares of 1.2-3% of the image at S
+    places, the second at the top border: its windows poke out, the
+    4-form metas) and their pyramids as ``SDRunner.edit_masks`` builds
+    them: [(U-Net's and encoder's, decoder's)] per session."""
+    from sige_torch.core.masks import dilate_mask, downsample_mask
+    from sige_torch.runners import SDRunConfig
+
+    rc = SDRunConfig()
+    places = [(R // 4, R // 4), (0, 5 * R // 8), (5 * R // 8, R // 8),
+              (R // 8, 5 * R // 8)]
+    out = []
+    for i in range(S):
+        side = int(round(((0.012 + 0.006 * i) * R * R) ** 0.5))
+        m = np.zeros((R, R), bool)
+        r, c = places[i]
+        m[r:r + side, c:c + side] = True
+        diff = dilate_mask(m, rc.mask_dilate_radius)
+        out.append((downsample_mask(diff, min_res=rc.mask_min_res,
+                                    dilation=1),
+                    downsample_mask(dilate_mask(diff,
+                                                rc.decoder_dilate_radius),
+                                    min_res=(4, 4), dilation=0)))
+    return out
+
+
+def latent_edits(x0, masks, seed: int):
+    """x0 [S, B, L, L, C] with noise added inside each session's mask at
+    the latent side L (its pyramid's L x L level)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    L = x0.shape[2]
+    m = torch.stack([torch.from_numpy(np.ascontiguousarray(ms[(L, L)]))
+                     for ms in masks]).to("cuda")
+    noise = torch.randn(x0.shape, generator=gen, device="cuda")
+    return x0 + 0.7 * noise * m[:, None, :, :, None]
+
+
+def sd_session_run(flash, name, module, args0, args1, masks, calls_fn,
+                   seen, seen_ops):
+    """One stacked run of S SD sessions (window layout): prime, plan, a
+    warm-up step (recording new flash call shapes, and holding the session
+    kernels against their plain versions at every call shape not in
+    ``seen_ops``, as :func:`session_run` does), SD_SESSION_STEPS steps
+    on CUDA events with the flash and session-kernel counters set to 0
+    just before and read just after (flash held exactly to
+    ``calls_fn``'s count, each session kernel launched), a trace's busy
+    time and kernel launches, the commit; then each session's rows and
+    committed rows against the single-session engine under the server's
+    pins, within 1e-4 * max(1, max|full|). Returns (record, new flash
+    shapes)."""
+    from sige_torch.nn import SIGEModel
+    from sige_torch.ops import sessions as ss
+    from sige_torch.parallel import SessionServer
+
+    S = int(args0[0].shape[0])
+    server = SessionServer(module, layout="window", device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.prime(*args0)
+    torch.cuda.synchronize()
+    prime_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for i, m in enumerate(masks):
+        server.set_masks(i, m)
+    server._stack.stacked()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    caps = server._stack._caps()
+    ops_calls, known = {}, set(seen_ops)
+    with session_ops_recorded(seen_ops, ops_calls):
+        _, new = record_calls(lambda: server.step(*args1), seen,
+                              f"sessions {name} S={S}")
+    ops_new = [k for k in ops_calls if k not in known]
+    calls = calls_fn(server.model)
+    want = expected_counts(flash, calls * SD_SESSION_STEPS)
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    ss.crop_sessions.launches = ss.paste_sessions.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(SD_SESSION_STEPS)]
+    for start, end in events:
+        start.record()
+        y = server.step(*args1)
+        end.record()
+    torch.cuda.synchronize()
+    got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+    kernels = {"crop_sessions_f32": ss.crop_sessions.launches,
+               "paste_sessions_f32": ss.paste_sessions.launches}
+    if got != want:
+        raise AssertionError(f"sessions {name} S={S}: flash launches {got} "
+                             f"over {SD_SESSION_STEPS} steps, expected "
+                             f"{want}")
+    if not all(kernels.values()):
+        raise AssertionError(f"sessions {name} S={S}: a session kernel was "
+                             f"not launched: {kernels}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    step_ms = sorted(a.elapsed_time(b) for a, b in events)
+    med = float(np.median(step_ms))
+    busy, launches = trace_stats(lambda: server.step(*args1), iters=2)
+    y_upd = server.step(*args1, sparse_update=True)
+    layout, meta_fast = server.model.active_layout, server._stack.meta_fast
+    win_pins = server._stack.win_pins  # None: one session, never merged
+    windows = None if win_pins is None else len(win_pins)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = SIGEModel(module, layout="window", device="cuda")
+    errs, tols = [], []
+    for i, m in enumerate(masks):
+        full = ref.full(*(a[i] for a in args0))
+        ref.set_masks(m, capacities=caps)
+        tols.append(TOL * max(1.0, full.abs().max().item()))
+        for out, upd in ((y, False), (y_upd, True)):
+            want_i = ref.sparse(*(a[i] for a in args1), sparse_update=upd)
+            errs.append((out[i] - want_i).abs().max().item())
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"model": name, "S": S, "layout": layout, "prime_ms": prime_ms,
+           "plan_ms": plan_ms, "step_ms": step_ms, "step_ms_median": med,
+           "ms_per_session": med / S, "flash_launches": got[0],
+           "combine_launches": got[1],
+           "flash_calls_per_forward": len(calls),
+           "launches_per_step": launches, "busy_ms": busy,
+           "idle_share": None if busy is None else max(0.0, 1 - busy / med),
+           "peak_mb": peak, "max_err": errs, "tol": tols,
+           "meta_fast": meta_fast, "windowed_resolutions": windows,
+           "kernel_launches": kernels,
+           "session_calls_per_step": sum(ops_calls.values()),
+           "session_shapes": len(ops_calls),
+           "session_shapes_new": len(ops_new),
+           "session_max_err": max(seen_ops[k]["err"] for k in ops_calls)}
+    print(f"  [sessions] SD {name} S={S}: step {med:.3f} ms median of "
+          f"{SD_SESSION_STEPS} (CUDA events; "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)}), {med / S:.3f} ms per "
+          f"session; flash {got[0]} + {got[1]} combine over "
+          f"{SD_SESSION_STEPS} steps ({len(calls)} calls a forward; "
+          f"expected {want[0]} + {want[1]}); per step "
+          + ("busy, launches not measured" if busy is None else
+             f"busy {busy:.3f} ms, {launches:.0f} kernel launches, idle share "
+             f"{row['idle_share']:.3f}")
+          + f"; session kernels {kernels} over {SD_SESSION_STEPS} steps, "
+          f"{sum(ops_calls.values())} calls a step at {len(ops_calls)} "
+          f"call shapes ({len(ops_new)} new, each held against its plain "
+          f"version on the step's inputs)"
+          + f"; peak {peak:.0f} MB; prime {prime_ms:.1f} ms, plan "
+          f"{plan_ms:.1f} ms; layout {layout}, meta_fast {meta_fast}, "
+          f"windowed resolutions after the merge {windows}; rows (step, "
+          f"commit per session) "
+          f"vs the single-session engine under the pins: "
+          + ", ".join(f"{e:.3e}" for e in errs) + " (tolerances "
+          + ", ".join(f"{t:.3e}" for t in tols) + ")", flush=True)
+    if not all(e <= tols[k // 2] for k, e in enumerate(errs)):
+        raise AssertionError(f"sessions {name} S={S}: rows differ from the "
+                             f"single-session engine by {errs}")
+    if layout != "window" or (S > 1 and meta_fast):
+        raise AssertionError(f"sessions {name} S={S}: layout {layout}, "
+                             f"meta_fast {meta_fast}")
+    for out in (y, y_upd):
+        if out.shape[0] != S or not torch.isfinite(out).all():
+            raise AssertionError(f"sessions {name} S={S}: output "
+                                 f"{tuple(out.shape)} or non-finite")
+    return row, new
+
+
+def sd_sessions(flash, seen_flash, seen_ops):
+    """Phase 18's SD part: the SD v1 U-Net (``SDUNetConfig()``, 859.5 M)
+    at latent 64^2, two samples a session (unconditional and conditional:
+    a context [S, 2, 77, 768]), S in :data:`SD_SESSION_COUNTS`; then the
+    decoder (``SDVAEConfig(resolution=512)``) at S =
+    :data:`SD_DECODER_SESSIONS`; random weights from seed 0, the window
+    layout, the compact edits of :func:`sd_session_masks`; ``seen_ops``:
+    the session kernels' call shapes already held (:func:`session_run`).
+    Returns (runs, new flash shapes {key: (where, bias)})."""
+    from sige_torch.models.sd import (SDUNetConfig, SDVAEConfig,
+                                      SIGEDecoder, SIGESDUNet)
+    from sige_torch.nn import SIGEModel
+
+    runs, recorded = [], {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    init = SIGEModel(SIGESDUNet(SDUNetConfig()), device="cuda")
+    init.init(0)
+    unet = init.module
+    del init
+    R, L = 512, 64
+    for S in SD_SESSION_COUNTS:
+        masks = [m for m, _ in sd_session_masks(R, S)]
+        x0 = torch.randn(S, 2, L, L, 4, generator=gen, device="cuda")
+        t = torch.full((S, 2), SD_SESSION_T, device="cuda")
+        ctx = torch.randn(S, 2, 77, 768, generator=gen, device="cuda")
+        x1 = latent_edits(x0, masks, seed=10 + S)
+        row, new = sd_session_run(
+            flash, "unet", unet, (x0, t, ctx), (x1, t, ctx), masks,
+            lambda model, S=S: sd_unet_calls(model, L, "sparse",
+                                             batch=2 * S), seen_flash,
+            seen_ops)
+        runs.append(row)
+        recorded.update(new)
+    del unet
+    gc.collect()
+    torch.cuda.empty_cache()
+    init = SIGEModel(SIGEDecoder(SDVAEConfig(resolution=R)), device="cuda")
+    init.init(0)
+    decoder = init.module
+    del init
+    S = SD_DECODER_SESSIONS
+    masks = [m for _, m in sd_session_masks(R, S)]
+    z0 = torch.randn(S, 1, L, L, 4, generator=gen, device="cuda")
+    z1 = latent_edits(z0, masks, seed=20)
+    row, new = sd_session_run(
+        flash, "decoder", decoder, (z0,), (z1,), masks,
+        lambda model: sd_vae_calls(model, "sparse", batch=S), seen_flash,
+        seen_ops)
+    runs.append(row)
+    recorded.update(new)
+    del decoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, recorded
+
+
 def phase_sessions(flash, seen_flash, first_row):
     """Phase 18: ``SessionServer`` on ``DDPMUNetConfig()`` at church256,
     full width, random weights from seed 0: S sessions with their own
@@ -4565,8 +4836,11 @@ def phase_sessions(flash, seen_flash, first_row):
     the window layout (compact edits, one at the border: the 4-form) and
     the tile layout (spread edits: the re-pin); the earlier per-session
     loop at :data:`SESSION_LOOP_S` beside them; the session kernels held
-    against their plain versions at every call shape of the path.
-    Returns (record, flash kernel rows at new shapes)."""
+    against their plain versions at every call shape of the path. Then
+    the SD U-Net and decoder stacked (:func:`sd_sessions`), and the flash
+    kernel against its plain version at every new call shape, the masked
+    ones with their per-session key bias rows. Returns (record, flash
+    kernel rows at new shapes)."""
     from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
     from sige_torch.nn import SIGEModel
 
@@ -4590,12 +4864,26 @@ def phase_sessions(flash, seen_flash, first_row):
                              if k not in seen_flash})
             seen_flash.update(new)
     rec["loop"] = session_loop(flash, module, cfg)
+    del module
+    gc.collect()
+    torch.cuda.empty_cache()
+    ddpm_shapes = len(seen)
+    rec["sd"], sd_recorded = sd_sessions(flash, seen_flash, seen)
     errs = [r["max_err"] for r in rec["kernel_rows"]]
+    sd_keys = list(seen)[ddpm_shapes:]
+    rec["sd_session_shapes"] = {op: sum(k[0] == op for k in sd_keys)
+                                for op in ("crop", "paste")}
+    rec["sd_session_max_err"] = {op: max(seen[k]["err"] for k in sd_keys
+                                         if k[0] == op)
+                                 for op in ("crop", "paste")}
     timed = [r for r in rec["kernel_rows"] if r["S"] == SESSION_LOOP_S]
-    print(f"  [sessions] session kernels: {len(seen)} distinct call shapes, "
-          f"each held against its plain version on the path's inputs (max "
-          f"err {max(errs):.3e}), each timed (the JSON record has every "
-          f"S); at S={SESSION_LOOP_S}:", flush=True)
+    print(f"  [sessions] session kernels: {ddpm_shapes} distinct call shapes "
+          f"on the DDPM path, each held against its plain version on the "
+          f"path's inputs (max err {max(errs):.3e}), each timed (the JSON "
+          f"record has every S); {len(sd_keys)} more on the SD path "
+          f"({rec['sd_session_shapes']}), each held the same way (max err "
+          f"{rec['sd_session_max_err']}), not timed; at "
+          f"S={SESSION_LOOP_S}:", flush=True)
     for r in timed:
         print(f"    {r['layout']} {r['kernel']} {r['key'][1:]}: "
               f"x{r['launches_per_step']} "
@@ -4613,6 +4901,16 @@ def phase_sessions(flash, seen_flash, first_row):
                      f"{'16 px' if N == 256 else '8 px mid'} attention "
                      f"(B {B}, N {N}, M {M}, H {H}, D {D})")
             rows.append(kernel_row(flash, label, B, N, M, H, D, bias))
+        for key, (where, bias) in sd_recorded.items():
+            B, N, M, H, D, masked = key
+            kind = ("mid attention" if "decoder" in where else
+                    "cross-attention over 77 text tokens" if M == 77 else
+                    "self-attention")
+            label = (f"{row_label(first_row + len(rows))}: SD {where} "
+                     f"{'masked stale/fresh ' if masked else ''}{kind}, "
+                     f"key bias {bias_rows(bias)} x {M} "
+                     f"(B {B}, N {N}, M {M}, H {H}, D {D})")
+            rows.append(kernel_row(flash, label, B, N, M, H, D, bias))
     rec["s"] = time.perf_counter() - t_start
     print(f"  [sessions] phase 18 in {rec['s']:.1f} s, {len(rows)} new flash "
           f"shapes", flush=True)
@@ -4628,12 +4926,16 @@ def session_kernel_entries(sessions, demo_server=None):
     for name, source_line in (("crop_sessions_f32", CROP_REPLACES),
                               ("paste_sessions_f32", PASTE_REPLACES)):
         rows = [r for r in sessions["kernel_rows"] if r["kernel"] == name]
+        op = name.split("_")[0]
         timed = [r for r in rows if r["S"] == SESSION_LOOP_S
                  and r["layout"] == "window"]
         main = max(timed, key=lambda r: (r["launches_per_step"],
                                          r["bound_ms"]))
         by_path = {f"sessions_{r['layout']}_S{r['S']}_{SESSION_STEPS}_steps":
                    r["kernel_launches"][name] for r in sessions["runs"]}
+        for r in sessions["sd"]:
+            by_path[f"sessions_sd_{r['model']}_S{r['S']}_"
+                    f"{SD_SESSION_STEPS}_steps"] = r["kernel_launches"][name]
         if demo_server is not None:
             by_path["demo_session_server_step"] = demo_server[
                 "kernel_launches"][name]
@@ -4643,15 +4945,334 @@ def session_kernel_entries(sessions, demo_server=None):
             "tpu_kernel": None,  # XLA dynamic_slice / update_slice, no Pallas
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(r["max_err"] for r in rows),
+            "max_abs_err": max([r["max_err"] for r in rows]
+                               + [sessions["sd_session_max_err"][op]]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "device_ms": main["device_ms"], "bound_ms": main["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
             "copy_floor_ms": main["copy_floor_ms"], "copy_floor": COPY_FLOOR,
             "scalar_launches": sum(r["scalar_launches"][name]
                                    for r in sessions["runs"]),
-            "shape": main["key"], "shapes": len(rows)})
+            "shape": main["key"], "shapes": len(rows),
+            "sd_shapes": sessions["sd_session_shapes"][op]})
     return out
+
+
+# --- phase 19: adopt_full; phase 20: the servers on a dp mesh -----------
+
+
+def host_state(model):
+    """A model's caches (a copy of each tensor in host memory) and its
+    planning metadata, as another process or card would hand them over,
+    and the bytes of the caches."""
+    caches = {path: [{k: t.detach().to("cpu", copy=True)
+                      for k, t in d.items()} for d in slots]
+              for path, slots in model.state.caches.items()}
+    nbytes = sum(t.nbytes for slots in caches.values() for d in slots
+                 for t in d.values())
+    return caches, model.meta, nbytes
+
+
+def peak_of(fn):
+    """(peak MB while ``fn`` runs, peak MB above what was allocated when
+    it started)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 2**20, (peak - base) / 2**20
+
+
+def phase_adopt(flash):
+    """Phase 19: ``SIGEModel.adopt_full`` on the SD decoder
+    (``SDVAEConfig(resolution=512)``, full width, random weights from seed
+    0). A second model runs ``full`` on the card and its caches and
+    metadata go to host memory; a fresh model of the same weights adopts
+    them (ms of the move, synchronised, and MB moved); its ``sparse`` on a
+    compact edit (the flash launches held exactly) equals the plain
+    engine's within 1e-4 * max(1, max|ref|); the adopted model's peak for
+    one sparse forward beside the plain engine's full pass."""
+    from sige_torch.models.sd import SDVAEConfig, SIGEDecoder
+    from sige_torch.nn import SIGEModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    cfg = SDVAEConfig(resolution=512)
+    src = SIGEModel(SIGEDecoder(cfg), layout="window", device="cuda")
+    src.init(0)
+    masks = sd_session_masks(cfg.resolution, 1)[0][1]
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    z0 = torch.randn(1, 1, 64, 64, 4, generator=gen, device="cuda")
+    z1 = latent_edits(z0, [masks], seed=31)[0]
+    z0 = z0[0]
+    full_peak = peak_of(lambda: src.full(z0))
+    caches, meta, nbytes = host_state(src)
+    fresh = SIGEModel(SIGEDecoder(cfg), layout="window", device="cuda")
+    fresh.module.load_state_dict(src.module.state_dict())
+    move_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.adopt_full(caches, meta, z0)
+        torch.cuda.synchronize()
+        move_ms.append((time.perf_counter() - t0) * 1e3)
+    fresh.set_masks(masks)
+    want_calls = expected_counts(flash, sd_vae_calls(fresh, "sparse"))
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    y = fresh.sparse(z1)
+    torch.cuda.synchronize()
+    got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+    if got != want_calls:
+        raise AssertionError(f"adopt: flash launches {got}, expected "
+                             f"{want_calls}")
+    sparse_peak = peak_of(lambda: fresh.sparse(z1))
+    src.set_masks(masks)
+    ref = src.sparse(z1)
+    tol = TOL * max(1.0, ref.abs().max().item())
+    err = (y - ref).abs().max().item()
+    rec = {"moved_mb": nbytes / 2**20, "move_ms": move_ms,
+           "move_ms_median": float(np.median(move_ms)), "launches": got[0],
+           "combine_launches": got[1], "max_err": err, "tol": tol,
+           "sparse_peak_mb": sparse_peak[0],
+           "sparse_peak_above_start_mb": sparse_peak[1],
+           "full_peak_mb": full_peak[0],
+           "full_peak_above_start_mb": full_peak[1],
+           "layout": fresh.active_layout}
+    print(f"  [adopt] SD decoder at 512^2: {rec['moved_mb']:.1f} MB of "
+          f"caches from host memory in {rec['move_ms_median']:.3f} ms "
+          f"(median of 3, synchronised; "
+          f"{', '.join(f'{v:.3f}' for v in move_ms)}), "
+          f"{rec['moved_mb'] / 1024 / (rec['move_ms_median'] / 1e3):.2f} "
+          f"GB/s; layout {rec['layout']}; sparse after adopt_full vs the "
+          f"plain engine: max err {err:.3e} (tolerance {tol:.3e}); flash "
+          f"{got[0]} + {got[1]} combine (expected {want_calls[0]} + "
+          f"{want_calls[1]}); peak MB: the adopted model's sparse forward "
+          f"{sparse_peak[0]:.1f} ({sparse_peak[1]:.1f} above its start), the "
+          f"plain engine's full pass {full_peak[0]:.1f} ({full_peak[1]:.1f} "
+          f"above its start)", flush=True)
+    if not err <= tol or not torch.isfinite(y).all():
+        raise AssertionError(f"adopt: sparse after adopt_full differs from "
+                             f"the plain engine by {err:.3e}")
+    if not sparse_peak[1] < full_peak[1]:
+        raise AssertionError("adopt: the sparse forward holds no less than "
+                             "the full pass")
+    del src, fresh, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["s"] = time.perf_counter() - t_start
+    return rec
+
+
+DP_WORLD = 2  # ranks sharing the one card
+DP_STEPS = 3  # timed steps per server and rank, after one warm-up step
+DP_TIMEOUT_S = 420
+
+
+def dp_inputs():
+    """The dp phase's inputs at church256: the twin requests (four
+    originals of seeds 0-3, the ``edit_pair`` edit over each, one plan
+    from request 0) and four window-layout sessions
+    (:func:`session_inputs`)."""
+    from sige_torch.models.ddpm import DDPMUNetConfig
+
+    cfg = DDPMUNetConfig()
+    R, B = cfg.resolution, 2 * DP_WORLD
+    reqs = [ddpm_edit(cfg, edit_pair(R, seed=i)) for i in range(B)]
+    twin = (torch.cat([r[0] for r in reqs]), torch.cat([r[1] for r in reqs]),
+            torch.full((B,), TWIN_T, device="cuda"), reqs[0][2])
+    x0, x1, _, m1, _ = session_inputs(cfg, B, "window")
+    return cfg, twin, (x0, x1, torch.full((B, 1), SESSION_T, device="cuda"),
+                       m1)
+
+
+def dp_servers(flash, cfg, twin, sessions, params, plan, mesh=None):
+    """TwinStepServer (B = 4) and SessionServer (window, S = 4) at
+    church256 on ``mesh`` (None: one process): a warm-up step, DP_STEPS
+    steps on CUDA events with the flash counters set to 0 just before
+    and read just after, held exactly; returns ({server: rows, gathered
+    on a mesh}, {server: record})."""
+    from sige_torch.models.ddpm import SIGEFusedUNet
+    from sige_torch.parallel import (SessionServer, TwinStepServer,
+                                     gather_batch)
+
+    dp = 1 if mesh is None else mesh.dp
+    dev = "cuda" if mesh is None else None
+    outs, recs = {}, {}
+    x0, x1, t, _ = twin
+    tserver = TwinStepServer(SIGEFusedUNet(cfg), params, plan, device=dev,
+                             mesh=mesh)
+    tserver.prime(x0, t)
+    sserver = SessionServer(SIGEFusedUNet(cfg), params, layout="window",
+                            device=dev, mesh=mesh)
+    sx0, sx1, st, masks = sessions
+    sserver.prime(sx0, st)
+    for i, m in enumerate(masks):
+        sserver.set_masks(i, m)
+    n = x0.shape[0] // dp
+    for name, step, forwards in (
+            ("twin", lambda: tserver.step(x0, x1, t)[1], 2),
+            ("sessions", lambda: sserver.step(sx1, st), 1)):
+        step()
+        want = expected_launches(flash, cfg, forwards=forwards * DP_STEPS,
+                                 batch=n)
+        flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(DP_STEPS)]
+        for start, end in events:
+            start.record()
+            y = step()
+            end.record()
+        torch.cuda.synchronize()
+        got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+        if got != want:
+            raise AssertionError(f"dp {name}: flash launches {got} over "
+                                 f"{DP_STEPS} steps, expected {want}")
+        step_ms = sorted(a.elapsed_time(b) for a, b in events)
+        recs[name] = {"step_ms": step_ms,
+                      "step_ms_median": float(np.median(step_ms)),
+                      "rows": n, "flash_launches": got[0],
+                      "combine_launches": got[1]}
+        outs[name] = y if mesh is None else gather_batch(mesh, y)
+    return outs, recs
+
+
+def dp_rank_main(rank: int, world: int, workdir: str) -> int:
+    """One rank of phase 20 (``--dp-rank``): joins the gloo group through
+    a file in ``workdir``, builds the kernels' libraries (found built by
+    the parent), runs :func:`dp_servers` on the (dp, 1) mesh on the card
+    (rank 0's weights from seed 0, broadcast to the others) and writes
+    its record, and on rank 0 the gathered rows, to ``workdir``."""
+    import torch.distributed as dist
+
+    from sige_torch.models.ddpm import SIGEFusedUNet
+    from sige_torch.nn import SIGEModel
+    from sige_torch.ops import flash
+    from sige_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/init",
+                            rank=rank, world_size=world)
+    try:
+        job = torch.load(f"{workdir}/job.pt", weights_only=False)
+        mesh = make_mesh()
+        to = {k: [a.to(mesh.device) if isinstance(a, torch.Tensor) else a
+                  for a in v] for k, v in job["inputs"].items()}
+        params = None
+        if rank == 0:
+            init = SIGEModel(SIGEFusedUNet(job["cfg"]), device=mesh.device)
+            init.init(0)
+            params = init.module.state_dict()
+        outs, recs = dp_servers(flash, job["cfg"], to["twin"], to["sessions"],
+                                params, job["plan"], mesh=mesh)
+        recs["mesh"] = {"dp": mesh.dp, "tp": mesh.tp, "rank": rank,
+                        "device": str(mesh.device)}
+        with open(f"{workdir}/rank{rank}.json", "w") as f:
+            json.dump(recs, f)
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in outs.items()},
+                       f"{workdir}/gathered.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_dp(flash):
+    """Phase 20: the servers' ``mesh=`` with DP_WORLD ranks sharing the one
+    card under gloo (NCCL refuses two ranks on one device), each with
+    ``DDPMUNetConfig()`` at church256, full width: ``TwinStepServer`` at
+    B = 4 (two requests a rank) and ``SessionServer`` in the window layout
+    at S = 4 (two sessions a rank). The same servers in this one process
+    give the reference rows; each rank's flash launches per step are held
+    exactly; ``gather_batch``'s rows equal the one-process rows within
+    1e-4. A rank's failure or time-out fails the phase. The step times
+    are two processes sharing one card, not a scaling number."""
+    import shutil
+    import tempfile
+
+    from sige_torch.models.ddpm import SIGEFusedUNet
+    from sige_torch.nn import SIGEModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    cfg, twin, sessions = dp_inputs()
+    init = SIGEModel(SIGEFusedUNet(cfg), layout="auto", device="cuda")
+    init.init(0)
+    params = init.module.state_dict()
+    init.full(twin[0][:1], twin[2][:1])
+    plan = init.set_masks(twin[3])
+    del init
+    outs, recs = dp_servers(flash, cfg, twin, sessions, params, plan)
+    ref = {k: v.cpu() for k, v in outs.items()}
+    del outs, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, r in recs.items():
+        print(f"  [dp] one process, {name}: {r['rows']} rows a step, "
+              f"{r['step_ms_median']:.3f} ms median of {DP_STEPS}; flash "
+              f"{r['flash_launches']} + {r['combine_launches']} combine",
+              flush=True)
+    workdir = tempfile.mkdtemp(prefix="sige-dp-")
+    try:
+        host = {"twin": [a.cpu() if isinstance(a, torch.Tensor) else a
+                         for a in twin],
+                "sessions": [a.cpu() if isinstance(a, torch.Tensor) else a
+                             for a in sessions]}
+        torch.save({"cfg": cfg, "inputs": host, "plan": plan},
+                   f"{workdir}/job.pt")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+             "--dp-world", str(DP_WORLD), "--dp-dir", workdir],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(DP_WORLD)]
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        logs = []
+        try:
+            for p in procs:
+                out, _ = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+                logs.append(out.decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            print(f"  [dp] rank {r} exited {p.returncode}; its output:",
+                  flush=True)
+            print("\n".join("    " + line for line in
+                            log.strip().splitlines()[-20:]), flush=True)
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"dp: rank exit codes "
+                                 f"{[p.returncode for p in procs]}")
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(f"{workdir}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+        gathered = torch.load(f"{workdir}/gathered.pt")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    errs = {k: (gathered[k] - ref[k]).abs().max().item() for k in ref}
+    for r, rr in enumerate(ranks):
+        for name in ("twin", "sessions"):
+            x = rr[name]
+            print(f"  [dp] rank {r} of {DP_WORLD} on one card ({rr['mesh']}"
+                  f"), {name}: {x['rows']} rows a step, "
+                  f"{x['step_ms_median']:.3f} ms median of {DP_STEPS} "
+                  f"({', '.join(f'{v:.3f}' for v in x['step_ms'])}); flash "
+                  f"{x['flash_launches']} + {x['combine_launches']} combine "
+                  f"over {DP_STEPS} steps (held)", flush=True)
+    print(f"  [dp] gather_batch rows vs the one-process servers: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    if not all(e <= TOL for e in errs.values()):
+        raise AssertionError(f"dp: gathered rows differ from one process by "
+                             f"{errs}")
+    return {"one_process": recs, "ranks": ranks, "max_err": errs,
+            "world": DP_WORLD, "s": time.perf_counter() - t_start}
 
 
 def one_phase(flash, name: str) -> dict:
@@ -4675,6 +5296,10 @@ def one_phase(flash, name: str) -> dict:
         result, rows = phase_sessions(flash, set(), 0)
         return {"sessions": result, "rows": rows,
                 "kernels": session_kernel_entries(result)}
+    if name == "adopt":
+        return {"adopt": phase_adopt(flash)}
+    if name == "dp":
+        return {"dp": phase_dp(flash)}
     return {"quality": phase_quality(flash)}
 
 
@@ -4740,11 +5365,17 @@ def main(argv=None) -> int:
                                 "NVIDIA GPU (every phase, or one).")
     p.add_argument("--phase", choices=("checkpoints", "sd_text",
                                        "engine_options", "quality", "twin",
-                                       "sessions"))
+                                       "sessions", "adopt", "dp"))
+    # one rank of phase 20, started by it
+    p.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--dp-world", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--dp-dir", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.dp_rank is not None:
+        return dp_rank_main(args.dp_rank, args.dp_world, args.dp_dir)
     if args.phase:
         from sige_torch.ops import flash
 
@@ -4852,6 +5483,14 @@ def main(argv=None) -> int:
         flash, {(r["B"], r["N"], r["M"], r["H"], r["D"], r["bias"])
                 for r in rows}, len(rows))
     rows += session_rows
+    print("adopt (SIGEModel.adopt_full: the SD decoder at 512^2, full "
+          "width, caches from another model's full pass in host memory):",
+          flush=True)
+    adopt = phase_adopt(flash)
+    print(f"dp (TwinStepServer and SessionServer on a mesh of {DP_WORLD} "
+          f"ranks sharing the card under gloo: church256 at full width):",
+          flush=True)
+    dp = phase_dp(flash)
     if precision_flags() != defaults:
         raise AssertionError(f"precision flags {precision_flags()} after the "
                              f"run, {defaults} before it")
@@ -4887,7 +5526,13 @@ def main(argv=None) -> int:
                for B, r in twin["batches"].items()},
             demo_session_server_step=demo["session_server"]["launches"],
             **{f"sessions_{r['layout']}_S{r['S']}_{SESSION_STEPS}_steps":
-               r["flash_launches"] for r in sessions["runs"]}),
+               r["flash_launches"] for r in sessions["runs"]},
+            **{f"sessions_sd_{r['model']}_S{r['S']}_{SD_SESSION_STEPS}_steps":
+               r["flash_launches"] for r in sessions["sd"]},
+            adopt_sd_decoder_sparse=adopt["launches"],
+            **{f"dp_rank{r}_{name}_{DP_STEPS}_steps":
+               dp["ranks"][r][name]["flash_launches"]
+               for r in range(DP_WORLD) for name in ("twin", "sessions")}),
         "combine_launches_by_path": dict(
             {n: p["combine_launches"] for n, p in paths.items()},
             sd_sdedit=sd["combine_launches"],
@@ -4901,7 +5546,13 @@ def main(argv=None) -> int:
             demo_session_server_step=demo["session_server"][
                 "combine_launches"],
             **{f"sessions_{r['layout']}_S{r['S']}_{SESSION_STEPS}_steps":
-               r["combine_launches"] for r in sessions["runs"]}),
+               r["combine_launches"] for r in sessions["runs"]},
+            **{f"sessions_sd_{r['model']}_S{r['S']}_{SD_SESSION_STEPS}_steps":
+               r["combine_launches"] for r in sessions["sd"]},
+            adopt_sd_decoder_sparse=adopt["combine_launches"],
+            **{f"dp_rank{r}_{name}_{DP_STEPS}_steps":
+               dp["ranks"][r][name]["combine_launches"]
+               for r in range(DP_WORLD) for name in ("twin", "sessions")}),
         "splits": main_row["splits"],
         "max_abs_err": max([r["max_err"] for r in rows]
                            + [f["max_err"] for f in forced.values()]
@@ -4924,7 +5575,8 @@ def main(argv=None) -> int:
                       "gaugan": gaugan, "demo": demo, "checkpoints": ckpt,
                       "sd_text": sd_text, "options": options,
                       "quality": quality, "twin": twin,
-                      "sessions": sessions, "native": native_rec,
+                      "sessions": sessions, "adopt": adopt, "dp": dp,
+                      "native": native_rec,
                       "card": card}),
           flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -9,8 +9,11 @@
 // with an online softmax that keeps the running max and sum of every
 // query row in fp32 (running max starts at -1e30, as on the TPU), the P.V
 // product accumulated in fp32, and one division by the row sum at the
-// end. bias is an optional fp32 [M] additive key bias shared by every
-// (b, h) (0 / -1e9: ragged-KV padding and the masked stale/fresh K/V form).
+// end. bias is an optional fp32 additive key bias [R, M] (0 / -1e9:
+// ragged-KV padding and the masked stale/fresh K/V form): R = 1 shares one
+// row with every (b, h); R = S gives each of S sessions of B / S batch
+// rows its own, batch row b reading row b / (B / R) (a plan stacked over
+// sessions lays out its batch as S blocks of B / S samples).
 //
 // What bounds it on this card. The work is 4*N*M*D flops on a few MB, far
 // above the fp32 ridge, so the fp32 FMA rate of the SIMT units bounds it
@@ -145,7 +148,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
               float* __restrict__ out, float* __restrict__ o_part,
               float* __restrict__ m_part, float* __restrict__ l_part,
-              int H, int N, int M, int D, float scale,
+              int H, int N, int M, int D, int bias_div, float scale,
               int64_t q_sb, int64_t q_sn, int64_t q_sh,
               int64_t k_sb, int64_t k_sn, int64_t k_sh,
               int64_t v_sb, int64_t v_sn, int64_t v_sh,
@@ -178,6 +181,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* qg = q + b * q_sb + h * q_sh;
   const float* kg = k + b * k_sb + h * k_sh;
   const float* vg = v + b * v_sb + h * v_sh;
+  // this batch row's key bias: row b / bias_div of [R, M]
+  const float* kbias =
+      bias == nullptr ? nullptr : bias + (int64_t)(b / bias_div) * M;
 
   stage_rows<BQ == 16>(sq, ld, qg, q_sn, n0, N, BQ, d4);
   stage_rows<BQ == 16>(sk, ld, kg, k_sn, t_begin * kBK, M, kBK, d4);
@@ -274,7 +280,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     const int key = k0 + lane;
     const bool live = key < M;
-    const float kb = (live && bias != nullptr) ? bias[key] : 0.f;
+    const float kb = (live && kbias != nullptr) ? kbias[key] : 0.f;
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
       // ragged edge: keys past M get probability exactly 0
@@ -433,8 +439,8 @@ template <int BQ, int RJ>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* bias, float* out, float* o_part,
                    float* m_part, float* l_part, int B, int H, int N, int M,
-                   int D, int splits, float scale, const int64_t* st,
-                   cudaStream_t stream) {
+                   int D, int splits, int bias_div, float scale,
+                   const int64_t* st, cudaStream_t stream) {
   const int ld = smem_ld(D);
   const size_t smem =
       sizeof(float) * ((size_t)(BQ + 2 * kBK) * ld + BQ * kLdp + 3 * BQ +
@@ -449,7 +455,8 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   }
   const dim3 grid((N + BQ - 1) / BQ, B * H, splits);
   flash_fwd_f32<BQ, RJ><<<grid, kThreads, smem, stream>>>(
-      q, k, v, bias, out, o_part, m_part, l_part, H, N, M, D, scale, st[0],
+      q, k, v, bias, out, o_part, m_part, l_part, H, N, M, D, bias_div,
+      scale, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
       st[11]);
   return cudaGetLastError();
@@ -471,8 +478,9 @@ cudaError_t launch_combine(const float* o_part, const float* m_part,
 }  // namespace
 
 // q, k, v, out: fp32 with unit stride along D; strides are in elements,
-// (batch, sequence, head) for each of q, k, v, out. bias: fp32 [M] or
-// null. D must be a multiple of 4 and at most 512, pointers 16-byte
+// (batch, sequence, head) for each of q, k, v, out. bias: fp32 [R, M],
+// contiguous, or null; bias_rows = R divides B (batch row b reads row
+// b / (B / R)). D must be a multiple of 4 and at most 512, pointers 16-byte
 // aligned, strides multiples of 4 (the wrapper checks all of this).
 // splits: 1 (scratch null; flash_fwd_f32 writes out) or 2..ceil(M/32)
 // (scratch holds splits*B*H*N*(D + 2) floats: flash_fwd_f32 writes the
@@ -482,7 +490,7 @@ cudaError_t launch_combine(const float* o_part, const float* m_part,
 extern "C" int sige_flash_attn_f32(
     const void* q, const void* k, const void* v, const void* bias, void* out,
     void* scratch, int B, int H, int N, int M, int D, int splits,
-    float scale, int64_t q_sb, int64_t q_sn, int64_t q_sh, int64_t k_sb,
+    int bias_rows, float scale, int64_t q_sb, int64_t q_sn, int64_t q_sh, int64_t k_sb,
     int64_t k_sn, int64_t k_sh, int64_t v_sb, int64_t v_sn, int64_t v_sh,
     int64_t o_sb, int64_t o_sn, int64_t o_sh, void* stream) {
   const int64_t st[12] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
@@ -498,6 +506,8 @@ extern "C" int sige_flash_attn_f32(
   if (splits < 1 || splits > (M + kBK - 1) / kBK)
     return (int)cudaErrorInvalidValue;
   if ((splits > 1) != (scratch != nullptr)) return (int)cudaErrorInvalidValue;
+  if (bias_rows < 1 || B % bias_rows != 0) return (int)cudaErrorInvalidValue;
+  const int bias_div = B / bias_rows;
   float* op = static_cast<float*>(scratch);
   const int64_t rows = (int64_t)splits * B * H * N;
   float* mp = op == nullptr ? nullptr : op + rows * D;
@@ -505,16 +515,16 @@ extern "C" int sige_flash_attn_f32(
   cudaError_t err;
   if (D <= 64) {
     err = launch<block_q(64), 4>(qf, kf, vf, bf, of, op, mp, lp, B, H, N, M,
-                                 D, splits, scale, st, s);
+                                 D, splits, bias_div, scale, st, s);
   } else if (D <= 128) {
     err = launch<block_q(128), 4>(qf, kf, vf, bf, of, op, mp, lp, B, H, N, M,
-                                  D, splits, scale, st, s);
+                                  D, splits, bias_div, scale, st, s);
   } else if (D <= 256) {
     err = launch<block_q(256), 4>(qf, kf, vf, bf, of, op, mp, lp, B, H, N, M,
-                                  D, splits, scale, st, s);
+                                  D, splits, bias_div, scale, st, s);
   } else {
     err = launch<block_q(512), 8>(qf, kf, vf, bf, of, op, mp, lp, B, H, N, M,
-                                  D, splits, scale, st, s);
+                                  D, splits, bias_div, scale, st, s);
   }
   if (err != cudaSuccess || splits == 1) return (int)err;
   return (int)launch_combine(op, mp, lp, of, B, H, N, D, splits, st, s);

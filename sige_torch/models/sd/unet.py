@@ -63,7 +63,8 @@ from ...nn.module import (Gather, Scatter, SIGECtx, SIGEConv2d, SIGEModule,
                           WindowState, add_dense_macs, add_macs)
 from ...nn.norm import group_norm_with_affine
 from ...ops.attention import masked_mha, mha, stale_fresh_biases
-from ...ops.window import window_slice
+from ...ops.sessions import cov_where
+from ...ops.window import window_extent, window_slice
 from ..blocks import (FoldedGroupNorm, ResBlock, SIGEDownsample, SIGEUpsample,
                       affine, swish, to_map)
 
@@ -371,7 +372,7 @@ class SIGESpatialTransformer(SIGEModule):
         cache = self.scatter2.cache["original"]
         res = tuple(cache.shape[1:3])
         org, cov = self.gather.read_wsc(res)
-        WH, WW = cov.shape
+        WH, WW = window_extent(cov)
         xw = x.win if isinstance(x, WindowState) else window_slice(
             x, org, (WH, WW))
         B = xw.shape[0]
@@ -392,7 +393,7 @@ class SIGESpatialTransformer(SIGEModule):
 
         h = self.proj_out(tok.reshape(B, WH, WW, self.inner), ctx)
         y0w = window_slice(cache, org, (WH, WW))
-        return WindowState(torch.where(cov[None, :, :, None], h + xw, y0w),
+        return WindowState(cov_where(cov, h + xw, y0w),
                            cache, org)
 
 

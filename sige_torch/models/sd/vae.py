@@ -37,7 +37,8 @@ from ...nn.module import (Gather, Scatter, SIGECtx, SIGEConv2d, SIGEModule,
 from ...nn.norm import group_norm_with_affine
 from ...ops import gather_tiles, scatter_gather_residual_tiles
 from ...ops.attention import masked_mha, mha, stale_fresh_biases
-from ...ops.window import window_chain_extend, window_slice
+from ...ops.sessions import cov_where
+from ...ops.window import window_chain_extend, window_extent, window_slice
 from ..blocks import (FoldedGroupNorm, FoldedNormAffine, ResBlock,
                       SIGEDownsample, SIGEUpsample, affine, swish, to_map)
 
@@ -194,7 +195,7 @@ class SIGEVAEAttnBlock(SIGEModule):
         cache = self.out_scatter.cache["original"]
         res = tuple(cache.shape[1:3])
         org, cov = self.gather.read_wsc(res)
-        WH, WW = cov.shape
+        WH, WW = window_extent(cov)
         xw = x.win if isinstance(x, WindowState) else window_slice(
             x, org, (WH, WW))
         B = xw.shape[0]
@@ -211,7 +212,7 @@ class SIGEVAEAttnBlock(SIGEModule):
         add_macs(ctx, 2 * B * q.shape[1] * (ks.shape[1] + q.shape[1]) * C)
         out = self.proj_out(out.reshape(B, WH, WW, C), ctx)
         y0w = window_slice(cache, org, (WH, WW))
-        return WindowState(torch.where(cov[None, :, :, None], out + xw, y0w),
+        return WindowState(cov_where(cov, out + xw, y0w),
                            cache, org)
 
 
@@ -291,9 +292,8 @@ class SIGEEncoder(SIGEModule):
                 # start the window chain at the stem
                 cache = self.in_scatter.cache["original"]
                 org, cov = self.in_gather.read_wsc(cache.shape[1:3])
-                y0w = window_slice(cache, org, cov.shape)
-                h = WindowState(torch.where(cov[None, :, :, None], hwin, y0w),
-                                cache, org)
+                y0w = window_slice(cache, org, window_extent(cov))
+                h = WindowState(cov_where(cov, hwin, y0w), cache, org)
             else:
                 h = self.in_scatter(hwin, ctx)
         elif self._head_sparse and ctx.mode == "full":

@@ -6,7 +6,8 @@ which method you call, plus ``set_masks`` / ``clear_cache``
 ``sige_tpu.nn.engine.SIGEModel``: :meth:`full` and :meth:`sparse` run the
 module eagerly under ``torch.inference_mode``, on cache slot
 ``cache_id`` (``sparse_update`` commits an edit into its slot);
-:meth:`set_masks` plans on the host (:meth:`plan_masks`) and moves the
+:meth:`adopt_full` installs the caches and metadata of a full pass run
+elsewhere; :meth:`set_masks` plans on the host (:meth:`plan_masks`) and moves the
 plan's leaves to the device in one copy (:meth:`set_plan`);
 :meth:`SIGEModel.pin_capacities` freezes the current plan's tile-layout
 shapes for later edits. An :class:`EngineState` holds one session's
@@ -365,6 +366,46 @@ class SIGEModel:
         if self.meta is None:
             self.meta = self._gathers_meta()
         return y
+
+    def adopt_full(self, caches: Mapping, meta: Mapping, *args):
+        """Adopt the caches and planning metadata of a full pass run
+        elsewhere (another :class:`SIGEModel`, another card, the CPU), as
+        ``sige_tpu``'s ``SIGEModel.adopt_full`` does: ``caches`` in the
+        form of :attr:`EngineState.caches` (by module path, one dict per
+        slot; fewer slots than the model's leave the rest empty),
+        ``meta`` as :attr:`meta` (by Gather path). The caches move onto
+        :attr:`device`; every Gather gets its metadata entry (planning
+        reads :attr:`meta`, the sparse pass the Gathers' own). ``args`` are
+        the example inputs the external pass ran on: their shapes key the
+        input signature as :meth:`full` keys it, so a later ``full`` at
+        another shape drops what was adopted. The state's plan and pins
+        are dropped; :meth:`set_masks` and :meth:`sparse` follow as after
+        :meth:`full`."""
+        paths = {name for name, _ in self._sige}
+        unknown = sorted(set(caches) - paths)
+        if unknown:
+            raise KeyError(f"caches for modules the model lacks: {unknown}")
+        state = self.state
+        for name in paths:
+            slots = list(caches.get(name, ()))
+            if len(slots) > self.cache_slots:
+                raise ValueError(f"{name}: {len(slots)} cache slots, the "
+                                 f"model has {self.cache_slots}")
+            slots += [{}] * (self.cache_slots - len(slots))
+            state.caches[name] = [{k: t.to(self.device) for k, t in d.items()}
+                                  for d in slots]
+        state.plan, state.plan_host, state.pins = {}, None, {}
+        for path, g in self._gathers:
+            try:
+                entry = _get_path(meta, path)
+            except KeyError:
+                entry = None
+            g.meta = None if entry is None else {
+                k: tuple(np.asarray(a) for a in v) for k, v in entry.items()}
+        self._input_sig = tuple(tuple(a.shape) if hasattr(a, "shape") else a
+                                for a in args)
+        self.meta = self._gathers_meta()
+        self.use(state)
 
     def plan_masks(self, masks: Mapping, capacities: Optional[Dict] = None
                    ) -> Tuple[Dict, str]:

@@ -9,7 +9,8 @@ back before attending). Two shapes recur:
 * ``masked_mha(q, ks, vs, kf, vf, bias_s, bias_f)`` — queries attend
   over [stale K/V map ++ fresh window] with additive 0/-1e9 biases
   keeping exactly one live token per spatial position (the masked
-  stale-K/V chain form of the SD U-Net).
+  stale-K/V chain form of the SD U-Net and VAE; under a plan stacked
+  over sessions the biases hold one row per session).
 
 Both go through :func:`sige_torch.ops.flash.flash_mha`, which dispatches
 on the tensor's device: on a CUDA tensor every call launches the
@@ -23,6 +24,8 @@ from __future__ import annotations
 import torch
 
 from .flash import flash_mha
+from .sessions import _clamp, _per_session, _rows, is_sessions
+from .window import window_extent
 
 NEG_INF = -1e9
 
@@ -43,17 +46,21 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
 
 
 def stale_fresh_biases(cov: torch.Tensor, org, res):
-    """The additive biases of :func:`masked_mha` for a window at host
-    origin ``org`` with coverage ``cov`` (bool [WH, WW]) on a map of
-    ``res``: fresh window tokens live where covered, stale map tokens live
-    everywhere else, so exactly one copy of every position is live.
-    Returns (bias_s [H*W], bias_f [WH*WW]), float32 on ``cov``'s device.
-    One bias serves every sample of the call, so a plan stacked over
-    sessions (origins as a device tensor) is refused."""
-    if isinstance(org, torch.Tensor):
-        raise ValueError("the masked stale/fresh attention takes one key "
-                         "bias per call: plans stacked over sessions "
-                         "(SessionServer) are not supported here")
+    """The additive biases of :func:`masked_mha` for a window at origin
+    ``org`` with coverage ``cov`` on a map of ``res``: fresh window tokens
+    live where covered, stale map tokens live everywhere else, so exactly
+    one copy of every position is live.
+
+    A single plan gives a host origin and ``cov`` bool [WH, WW], and one
+    bias pair serves every sample of the call: (bias_s [H*W], bias_f
+    [WH*WW]). A plan stacked over S sessions gives the origins as a device
+    tensor [S, 2] (or [S, 4] window metas) and ``cov`` [S, WH, WW] or
+    [WH, WW]: (bias_s [S, H*W], bias_f [S, WH*WW]), one row per session,
+    built on the device from the origins without reading them on the host
+    (each clamped so the window fits, as the window crop of the same call
+    clamps it). float32 on ``cov``'s device."""
+    if is_sessions(org):
+        return _stale_fresh_sessions(cov, org, res)
     WH, WW = cov.shape
     zero = torch.zeros((), dtype=torch.float32, device=cov.device)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=cov.device)
@@ -61,6 +68,28 @@ def stale_fresh_biases(cov: torch.Tensor, org, res):
     bias_s[org[0]:org[0] + WH, org[1]:org[1] + WW] = torch.where(
         cov, neg, zero)
     return bias_s.reshape(-1), torch.where(cov.reshape(-1), zero, neg)
+
+
+def _stale_fresh_sessions(cov: torch.Tensor, org: torch.Tensor, res):
+    H, W = res
+    S = int(org.shape[0])
+    WH, WW = window_extent(cov)
+    cov = _per_session(cov, S)
+    dev = cov.device
+    r0, c0 = _rows(org, S, dev)
+    r0, c0 = _clamp(r0, WH, H), _clamp(c0, WW, W)
+    # every map position's offset inside its session's window
+    dr = torch.arange(H, device=dev)[None, :] - r0[:, None]  # [S, H]
+    dc = torch.arange(W, device=dev)[None, :] - c0[:, None]  # [S, W]
+    inside = (((dr >= 0) & (dr < WH))[:, :, None]
+              & ((dc >= 0) & (dc < WW))[:, None, :])
+    rows = dr.clamp(0, WH - 1)[:, :, None].expand(S, H, W)
+    cols = dc.clamp(0, WW - 1)[:, None, :].expand(S, H, W)
+    covered = cov[torch.arange(S, device=dev)[:, None, None], rows, cols]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    bias_s = torch.where(inside & covered, neg, zero).reshape(S, H * W)
+    return bias_s, torch.where(cov.reshape(S, WH * WW), zero, neg)
 
 
 def masked_mha(q: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
@@ -73,7 +102,8 @@ def masked_mha(q: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
 
     q: [B, N, inner]; ks/vs: [B, Ms, inner] (stale maps — any cached
     dtype, cast to q's); kf/vf: [B, Mf, inner]; bias_s/bias_f: [Ms]/[Mf]
-    float32."""
+    float32, or [S, Ms]/[S, Mf] with one row per session of a batch
+    stacked over S sessions (:func:`stale_fresh_biases`)."""
     B, N, _ = q.shape
     Ms, Mf = ks.shape[1], kf.shape[1]
     qh = q.reshape(B, N, heads, dim_head)
@@ -82,6 +112,6 @@ def masked_mha(q: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                     kf.reshape(B, Mf, heads, dim_head)], dim=1).to(q.dtype)
     vh = torch.cat([vs.reshape(B, Ms, heads, dim_head),
                     vf.reshape(B, Mf, heads, dim_head)], dim=1).to(q.dtype)
-    bias = torch.cat([bias_s, bias_f]).to(torch.float32)
+    bias = torch.cat([bias_s, bias_f], dim=-1).to(torch.float32)
     out = flash_mha(qh, kh, vh, dim_head ** -0.5, bias=bias)
     return out.reshape(B, N, heads * dim_head)

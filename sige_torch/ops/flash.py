@@ -5,10 +5,12 @@ The kernels (``sige_torch/csrc/flash_attn.cu``) replace the Pallas TPU
 kernel ``sige_tpu/ops/flash.py:_fwd_kernel`` (launched by
 ``flash_mha_bhsd``). Together they compute
 
-    out = softmax(q . k^T * scale + bias[M]) . v
+    out = softmax(q . k^T * scale + bias[r(b), M]) . v
 
 per (batch, head), online softmax with fp32 running max and sum, fp32
-data. ``flash_fwd_f32`` walks the key range in 32-key tiles staged with
+data. The key bias has R rows: one shared by every batch row, or one per
+session of a batch stacked over R sessions, batch row b reading row
+``r(b) = b // (B / R)`` (:func:`bias_rows`). ``flash_fwd_f32`` walks the key range in 32-key tiles staged with
 ``cp.async``; when the grid of query blocks is smaller than the card's
 SM count, :func:`_num_splits` cuts the key range into ``splits`` runs of
 whole tiles (split-KV), each block writes an unnormalised partial, and
@@ -40,18 +42,29 @@ MAX_HEAD_DIM = 512
 BLOCK_K = 32  # keys per tile: must match kBK in the CUDA source
 
 LIBRARY = CudaLibrary(SOURCE, "sige_flash", {"sige_flash_attn_f32": (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float]
     + [ctypes.c_int64] * 12 + [ctypes.c_void_p], ctypes.c_int)})
+
+
+def _add_bias(s: torch.Tensor, bias: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+    """Logits s [B, H, N, M] plus the key bias: [M] added to every row as
+    it is; [R, M] with batch row b taking row b // (B / R)."""
+    if bias is None:
+        return s
+    if bias.ndim == 1:
+        return s + bias.to(s.dtype)
+    rows = bias.to(s.dtype).repeat_interleave(s.shape[0] // bias.shape[0], 0)
+    return s + rows[:, None, None, :]
 
 
 def flash_mha_plain(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                     scale: float, bias: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: qh [B, N, H, D], kh/vh
-    [B, M, H, D], bias optional [M] fp32 -> [B, N, H, D]."""
-    s = torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale
-    if bias is not None:
-        s = s + bias.to(s.dtype)
+    [B, M, H, D], bias optional fp32 [M] or [R, M] (R dividing B: batch
+    row b takes row b // (B / R)) -> [B, N, H, D]."""
+    s = _add_bias(torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale, bias)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhnm,bmhd->bnhd", p, vh)
 
@@ -101,9 +114,7 @@ def flash_partials_plain(qh: torch.Tensor, kh: torch.Tensor,
     """Each split's unnormalised partial output, row max and row sum, in
     the layout the attention kernel writes them ([S, B, H, N, D] and
     [S, B, H, N])."""
-    s = torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale
-    if bias is not None:
-        s = s + bias.to(s.dtype)
+    s = _add_bias(torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale, bias)
     o, m, l = [], [], []
     for kb, ke in _split_bounds(kh.shape[1], splits):
         ss = s[..., kb:ke]
@@ -123,6 +134,17 @@ def flash_mha_plain_split(qh: torch.Tensor, kh: torch.Tensor,
     :func:`flash_combine_plain`. Equals :func:`flash_mha_plain`."""
     return flash_combine_plain(
         *flash_partials_plain(qh, kh, vh, scale, bias, splits))
+
+
+def bias_rows(bias: torch.Tensor, M: int) -> int:
+    """R of a key bias given as [M] (R = 1) or [R, M]; ValueError for any
+    other shape."""
+    if bias.shape == (M,):
+        return 1
+    if bias.ndim == 2 and bias.shape[1] == M and bias.shape[0] >= 1:
+        return int(bias.shape[0])
+    raise ValueError(f"bias must be [{M}] or [R, {M}], got "
+                     f"{tuple(bias.shape)}")
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
@@ -148,9 +170,14 @@ def _check(qh, kh, vh, bias) -> Tuple[int, int, int, int, int]:
     if D % 4 != 0 or D > MAX_HEAD_DIM:
         raise ValueError(f"flash kernel takes head dims that are multiples "
                          f"of 4 up to {MAX_HEAD_DIM}, got {D}")
-    if bias is not None and (bias.shape != (M,) or bias.dtype != torch.float32
-                             or bias.device != qh.device):
-        raise ValueError(f"bias must be fp32 [{M}] on {qh.device}")
+    if bias is not None:
+        R = bias_rows(bias, M)
+        if (B % R or bias.dtype != torch.float32 or bias.device != qh.device
+                or not bias.is_contiguous()):
+            raise ValueError(f"bias must be contiguous fp32 [{M}] or [R, {M}] "
+                             f"with R dividing {B}, on {qh.device}; got "
+                             f"{bias.dtype} {tuple(bias.shape)} on "
+                             f"{bias.device}")
     if N == 0 or M == 0 or B * H == 0:
         raise ValueError("empty attention")
     return B, N, H, D, M
@@ -181,7 +208,6 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                          f"got {splits}")
     fn = LIBRARY.load().sige_flash_attn_f32
     q, k, v = _kernel_ready(qh), _kernel_ready(kh), _kernel_ready(vh)
-    b = None if bias is None else bias.contiguous()
     # one allocation: out [B, N, H, D], then with splits > 1 the partials
     # o_part [S, B, H, N, D], m_part and l_part [S, B, H, N]
     size = B * N * H * D
@@ -189,9 +215,10 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     buf = torch.empty(size + extra, dtype=torch.float32, device=qh.device)
     out = buf[:size].view(B, N, H, D)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             None if b is None else b.data_ptr(), buf.data_ptr(),
+             None if bias is None else bias.data_ptr(), buf.data_ptr(),
              None if splits == 1 else buf.data_ptr() + 4 * size,
-             B, H, N, M, D, splits, float(scale),
+             B, H, N, M, D, splits,
+             1 if bias is None else bias_rows(bias, M), float(scale),
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *out.stride()[:3], torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
@@ -205,7 +232,9 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
 def flash_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
               scale: float, bias: Optional[torch.Tensor] = None
               ) -> torch.Tensor:
-    """qh [B, N, H, D], kh/vh [B, M, H, D], bias optional [M] fp32.
+    """qh [B, N, H, D], kh/vh [B, M, H, D], bias optional fp32 [M]
+    (shared) or [R, M] (R dividing B; batch row b takes row b // (B / R):
+    one row per session of a batch stacked over R sessions).
     Returns [B, N, H, D]. Runs the kernels on CUDA tensors (split-KV when
     the query blocks alone leave SMs idle) and the plain version on CPU
     tensors."""

@@ -1,9 +1,15 @@
-"""Serving on one GPU: batched twin steps for B requests that share one
-plan (``TwinStepServer``), and S concurrent editing sessions, each with
-its OWN mask and plan, run as one batch (``SessionServer``, over the
+"""Serving: batched twin steps for B requests that share one plan
+(``TwinStepServer``), and S concurrent editing sessions, each with its
+OWN mask and plan, run as one batch (``SessionServer``, over the
 per-session plans that ``PlanStack`` stacks on shared shape pins) — the
-ports of ``sige_tpu.parallel.serving``'s classes of those names, without
-a mesh.
+ports of ``sige_tpu.parallel.serving``'s classes of those names.
+
+Both take a (dp, tp) ``mesh`` (:mod:`sige_torch.parallel.mesh`: one
+process per card, the same global arguments on every rank). Each rank
+runs its dp rows (B/dp requests, S/dp sessions) and returns them;
+``gather_batch`` assembles the global batch after a step. Without a
+process group the mesh is one rank and a server runs everything on its
+card.
 
 ``TwinStepServer`` is the identical-mask batching regime (inpainting
 with a fixed template, per-mask request queues): one step runs the full
@@ -32,22 +38,55 @@ from torch import nn
 
 from ..nn.engine import SIGEModel, _get_path, plan_leaves, upload_leaves
 from ..nn.planner import build_plan, merge_pins, plan_layout, plan_pins
+from .mesh import Mesh, make_mesh, replicate, shard_batch
+
+
+def _same_device(a, b) -> bool:
+    """Whether two device names are one device, a CUDA device without an
+    index read as the current one."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return a.index == b.index
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)
+
+
+def _on_mesh(module: nn.Module, params, mesh: Optional[Mesh], tp: int,
+             device) -> Mesh:
+    """A server's mesh (``mesh``, else the (dp, tp) mesh of the world:
+    one rank without a process group, on ``device``), with ``params``
+    loaded into ``module``: rank 0's on a mesh of several ranks, where a
+    rank without ``params`` takes rank 0's weights."""
+    if mesh is None:
+        mesh = make_mesh(tp=tp, device=device)
+    elif device is not None and not _same_device(device, mesh.device):
+        raise ValueError(f"device {device} beside a mesh on {mesh.device}")
+    if params is not None or mesh.size > 1:
+        module.load_state_dict(replicate(
+            mesh, module.state_dict() if params is None else params))
+    return mesh
 
 
 class TwinStepServer:
     """B edit requests that share one plan, on one model. ``params`` is a
-    state dict for ``module`` (None keeps its weights); ``plan`` is a host
-    plan as :meth:`SIGEModel.set_masks` returns it (built from a full pass
-    on one request: plans carry no batch axis). :meth:`prime` fills the
-    caches of the B originals; :meth:`step` runs a twin step. The device
-    is the GPU unless ``device="cpu"``."""
+    state dict for ``module`` (None keeps its weights; on a mesh, rank 0's
+    are broadcast); ``plan`` is a host plan as :meth:`SIGEModel.set_masks`
+    returns it (built from a full pass on one request: plans carry no
+    batch axis). :meth:`prime` fills the caches of the B originals;
+    :meth:`step` runs a twin step. On a (dp, tp) ``mesh`` (default: the
+    world's, with ``tp``) every rank takes the same global batch and runs
+    its B/dp requests. The device is the mesh's: the GPU unless
+    ``device="cpu"``."""
 
     def __init__(self, module: nn.Module,
                  params: Optional[Mapping[str, torch.Tensor]],
-                 plan: Mapping, device=None):
-        if params is not None:
-            module.load_state_dict(params)
-        self.model = SIGEModel(module, device=device)
+                 plan: Mapping, device=None, mesh: Optional[Mesh] = None,
+                 tp: int = 1):
+        self.mesh = _on_mesh(module, params, mesh, tp, device)
+        self.model = SIGEModel(module, device=self.mesh.device)
         self.plan = plan
         self.layout = plan_layout(plan)
 
@@ -59,21 +98,28 @@ class TwinStepServer:
             self.model.set_plan(self.plan, self.layout)
         return y
 
+    def _rows(self, *xs):
+        return [shard_batch(self.mesh, x) for x in xs]
+
     def prime(self, x_batch, *args):
         """One full pass on the original batch ([B, ...]; extra model args
-        lead with B too): fills the caches and installs the plan. Returns
-        the planning metadata, as ``sige_tpu``'s does."""
-        self._full(x_batch, args)
+        lead with B too; on a mesh, this rank's rows of them): fills the
+        caches and installs the plan. Returns the planning metadata, as
+        ``sige_tpu``'s does."""
+        x, *args = self._rows(x_batch, *args)
+        self._full(x, args)
         return self.model.meta
 
     def step(self, x_orig, x_edit, *args):
         """One twin step: the full pass on the originals (refreshing their
         caches), then the sparse pass on the edits under the shared plan.
-        Returns (y0, y1), each [B, ...]."""
+        Returns (y0, y1), this rank's rows of each ([B/dp, ...]; all B on
+        one rank)."""
         if self.model.meta is None:
             raise RuntimeError("prime() before step()")
-        y0 = self._full(x_orig, args)
-        return y0, self.model.sparse(x_edit, *args)
+        x0, x1, *args = self._rows(x_orig, x_edit, *args)
+        y0 = self._full(x0, args)
+        return y0, self.model.sparse(x1, *args)
 
 
 def _stack_trees(trees: List[Mapping]) -> Dict:
@@ -298,6 +344,13 @@ def _flat(t):
     return t.flatten(0, 1)
 
 
+def _session_rows(tree: Mapping, rows: slice) -> Dict:
+    """A stacked plan tree with every leaf's leading session axis cut to
+    ``rows`` (the whole tree when ``rows`` covers it)."""
+    return {k: _session_rows(v, rows) if isinstance(v, Mapping)
+            else v[rows] for k, v in tree.items()}
+
+
 class SessionServer:
     """S editing sessions on one model, each with its OWN mask — the
     multi-user regime. Sessions are a batch axis: :meth:`prime` runs ONE
@@ -309,36 +362,55 @@ class SessionServer:
     window-resident chains per session, extents pinned to the
     across-session maximum; pass ``layout="tiles"`` for scattered
     multi-region edits. ``params`` is a state dict for ``module`` (None
-    keeps its weights). The device is the GPU unless ``device="cpu"``.
+    keeps its weights; on a mesh, rank 0's are broadcast).
 
-    The DDPM and PD U-Nets and the GauGAN generators run stacked in both
-    layouts. The SD models' masked stale/fresh attention (window layout)
-    takes one key bias per call and refuses a stacked plan."""
+    On a (dp, tp) ``mesh`` (default: the world's, with ``tp``) every rank
+    takes the same global arguments and runs S/dp sessions: it plans all
+    S (planning is deterministic, and the pins are shared across all S),
+    installs its rows of the stacked plan and returns its rows of the
+    step, equal to the one-process server's rows with no collective. The
+    device is the mesh's: the GPU unless ``device="cpu"``.
+
+    Every family runs stacked in both layouts: the DDPM, PD and SD U-Nets,
+    the SD VAE and the GauGAN generators. The SD models' masked
+    stale/fresh attention (window layout) takes one key bias row per
+    session (``ops/attention.py stale_fresh_biases``)."""
 
     def __init__(self, module: nn.Module,
                  params: Optional[Mapping[str, torch.Tensor]] = None,
-                 bucket_min: int = 2, layout: str = "window", device=None):
+                 bucket_min: int = 2, layout: str = "window", device=None,
+                 mesh: Optional[Mesh] = None, tp: int = 1):
         if layout not in ("tiles", "window"):
             raise ValueError(f"unknown layout {layout!r}")
-        if params is not None:
-            module.load_state_dict(params)
+        self.mesh = _on_mesh(module, params, mesh, tp, device)
         self.model = SIGEModel(module, bucket_min=bucket_min, layout=layout,
-                               device=device)
+                               device=self.mesh.device)
         self.bucket_min = bucket_min
         self.layout = layout
         self.num_sessions: Optional[int] = None
         self._stack: Optional[PlanStack] = None
+        self._installed = None  # the stacked host tree installed last
+
+    def _rows(self, x):
+        """This rank's sessions of an [S, ...] argument, flattened to
+        [S/dp * B, ...]."""
+        return _flat(shard_batch(self.mesh, x))
 
     def prime(self, x_sessions, *args) -> None:
-        """One full pass over every session's original input ([S, B, ...];
-        extra model args lead with S too) at batch S*B: fills the caches
-        and records the planning metadata."""
+        """One full pass over the sessions' original inputs ([S, B, ...];
+        extra model args lead with S too; on a mesh, this rank's S/dp
+        sessions) at batch S/dp * B: fills the caches and records the
+        planning metadata."""
         S = int(x_sessions.shape[0])
+        if S % self.mesh.dp:
+            raise ValueError(f"{S} sessions over dp={self.mesh.dp}")
         self.num_sessions = S
-        self.model.full(_flat(x_sessions), *(_flat(a) for a in args))
+        self.model.full(self._rows(x_sessions),
+                        *(self._rows(a) for a in args))
         self._stack = PlanStack(self.model.meta, S, self.bucket_min,
                                 layout=self.layout,
                                 chain_nesting=self.model.chain_nesting)
+        self._installed = None
 
     def set_masks(self, i: int, masks) -> None:
         """Host planning for session ``i``'s edit mask pyramid."""
@@ -347,22 +419,27 @@ class SessionServer:
         self._stack.set(i, masks)
 
     def _install(self) -> None:
-        """The stacked plan on the card and in the model, moved again only
-        when ``PlanStack.stacked()`` returns a new tree (unchanged leaves
-        keep their device tensors)."""
-        host, state = self._stack.stacked(), self.model.state
-        if host is state.plan_host and state.plan:
+        """This rank's rows of the stacked plan on the card and in the
+        model, moved again only when ``PlanStack.stacked()`` returns a new
+        tree (unchanged leaves keep their device tensors)."""
+        stacked, state = self._stack.stacked(), self.model.state
+        if stacked is self._installed and state.plan:
             return
+        host = stacked if self.mesh.dp == 1 else _session_rows(
+            stacked, self.mesh.rows(self.num_sessions))
         self.model.set_plan(host, plan_layout(host), device_plan=upload_reuse(
             self.model.device, state.plan_host, state.plan, host))
+        self._installed = stacked
 
     def step(self, x_edit, *args, sparse_update: bool = False):
-        """One sparse forward over every session ([S, B, ...] in and out).
-        ``sparse_update=True`` commits every session's edit into the
-        caches (the demo's "apply")."""
+        """One sparse forward over the sessions ([S, B, ...] in; out this
+        rank's [S/dp, B, ...], all S on one rank). ``sparse_update=True``
+        commits every session's edit into the caches (the demo's
+        "apply")."""
         if self._stack is None:
             raise RuntimeError("prime() before step()")
         self._install()
-        y = self.model.sparse(_flat(x_edit), *(_flat(a) for a in args),
+        y = self.model.sparse(self._rows(x_edit),
+                              *(self._rows(a) for a in args),
                               sparse_update=sparse_update)
-        return y.unflatten(0, (self.num_sessions, -1))
+        return y.unflatten(0, (self.num_sessions // self.mesh.dp, -1))

@@ -39,6 +39,13 @@ reach: :func:`alexnet_state_from_flax`, :func:`inception_state_from_flax`
 and :func:`drn_state_from_flax` map those trees, and
 :func:`lpips_state_from_lins` writes LPIPS's per-layer channel weights in
 the lpips ``alex.pth`` layout.
+
+A full pass's state carries over too: :func:`caches_from_flax` takes
+``sige_tpu``'s ``"cache"`` collection (leaves ``[slots, ...]``) to the
+port's caches (``EngineState.caches``: by module path, one dict per
+slot), and :func:`meta_from_flax` its ``"meta"`` collection to the port's
+planning metadata (by Gather path), the two that
+``SIGEModel.adopt_full`` installs.
 """
 
 from __future__ import annotations
@@ -168,3 +175,47 @@ def lpips_state_from_lins(lins: Sequence[np.ndarray]) -> Dict[str, torch.Tensor]
     return {f"lin{i}.model.1.weight": torch.from_numpy(
                 np.array(w, np.float32).reshape(1, -1, 1, 1))
             for i, w in enumerate(lins)}
+
+
+def _walk_flax(tree: Mapping, path: Tuple[str, ...] = ()):
+    """(module path, {leaf name: value}) of every module of a flax
+    collection that holds leaves."""
+    leaves = {k: v for k, v in tree.items() if not isinstance(v, Mapping)}
+    if leaves:
+        yield path, leaves
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _walk_flax(v, path + (k,))
+
+
+def caches_from_flax(cache: Mapping) -> Dict[str, list]:
+    """The port's caches for a ``sige_tpu`` ``"cache"`` collection (nested
+    dicts of numpy arrays, each ``[slots, ...]``): ``{module path: [one
+    dict per slot of {name: tensor}]}``, as ``EngineState.caches`` holds
+    them and ``SIGEModel.adopt_full`` takes them."""
+    out: Dict[str, list] = {}
+    for path, leaves in _walk_flax(cache):
+        arrays = {k: np.asarray(v) for k, v in leaves.items()}
+        slots = {a.shape[0] for a in arrays.values()}
+        if len(slots) != 1:
+            raise ValueError(f"{'/'.join(path)}: cache leaves with slot "
+                             f"counts {sorted(slots)}")
+        out[".".join(torch_path(path))] = [
+            {k: torch.from_numpy(np.array(a[s])) for k, a in arrays.items()}
+            for s in range(slots.pop())]
+    return out
+
+
+def meta_from_flax(meta: Mapping) -> Dict:
+    """The port's planning metadata for a ``sige_tpu`` ``"meta"``
+    collection (each Gather's sown tuples of int arrays): the same entries
+    nested under the port's module path segments, as ``SIGEModel.meta``
+    holds them."""
+    out: Dict = {}
+    for path, leaves in _walk_flax(meta):
+        node = out
+        for seg in torch_path(path):
+            node = node.setdefault(seg, {})
+        node.update({k: tuple(np.asarray(a) for a in v)
+                     for k, v in leaves.items()})
+    return out

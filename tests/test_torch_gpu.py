@@ -92,6 +92,65 @@ def test_forced_splits_match_plain_twin_on_card(B, N, M, H, D, which,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M,H,D,S", [
+    (4, 120, 1144, 8, 40, 2),   # SD U-Net masked self-attention, 2 a session
+    (8, 120, 1144, 8, 40, 4),
+    (6, 48, 304, 5, 80, 3),     # ragged M, 3 sessions
+    (2, 64, 1088, 1, 512, 2),   # SD decoder's mid attention, 1 a session
+    (3, 100, 77, 2, 80, 3),
+])
+@pytest.mark.parametrize("which", ["auto", "one", "max"])
+def test_session_bias_rows_match_plain_twin_on_card(B, N, M, H, D, S, which):
+    """A key bias of one row per session ([S, M], batch row b reading row
+    b // (B / S)) through the attention kernel, split by the wrapper's
+    rule, not split, or split into every tile, against the plain version;
+    every session's row kills other keys, so a row read for the wrong
+    session shows."""
+    if not torch.cuda.is_available():
+        pytest.skip("the flash kernels run only on a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda")
+               for n in (N, M, M))
+    bias = torch.where(torch.rand(S, M, generator=gen, device="cuda") < 0.4,
+                       -1e9, 0.0)
+    splits = {"auto": None, "one": 1, "max": -(-M // flash.BLOCK_K)}[which]
+    launches = flash.flash_mha.launches
+    got = flash._launch(q, k, v, D ** -0.5, bias, splits)
+    torch.cuda.synchronize()
+    assert flash.flash_mha.launches == launches + 1
+    with fp32_scope():
+        want = flash.flash_mha_plain(q, k, v, D ** -0.5, bias)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M,H,D", [(2, 100, 77, 2, 80),
+                                       (1, 64, 1088, 1, 512)])
+def test_shared_bias_row_forms_agree_bit_for_bit_on_card(B, N, M, H, D):
+    """One shared key bias given as [M] or as [1, M] launches the same
+    kernel on the same bytes: the outputs are equal bit for bit; a bias
+    whose rows do not divide the batch, or that is not contiguous, is
+    refused before a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("the flash kernels run only on a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda")
+               for n in (N, M, M))
+    bias = torch.where(torch.rand(M, generator=gen, device="cuda") < 0.3,
+                       -1e9, 0.0)
+    a = flash.flash_mha(q, k, v, D ** -0.5, bias)
+    b = flash.flash_mha(q, k, v, D ** -0.5, bias[None])
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    launches = flash.flash_mha.launches
+    for bad in (torch.zeros(B + 1, M, device="cuda"),
+                torch.zeros(M, 2, device="cuda").t()):
+        with pytest.raises(ValueError):
+            flash.flash_mha(q, k, v, D ** -0.5, bad)
+    assert flash.flash_mha.launches == launches
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("D", [40, 512])
 def test_split_path_matches_plain_split_on_card(D):
     """The attention kernel's partials merged by the combine kernel,
@@ -819,6 +878,27 @@ def test_native_planner_on_this_host(monkeypatch):
         for a, b in zip(case, want):
             assert a.dtype == b.dtype and a.shape == b.shape
             assert np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_mesh_of_one_keeps_the_current_card():
+    """Without a process group the servers' mesh is on the device a server
+    on one card takes (``cuda``, the current card), and ``device="cuda"``
+    or ``"cuda:<current>"`` beside such a mesh is the same card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
+    from sige_torch.parallel import TwinStepServer, make_mesh
+
+    mesh = make_mesh()
+    assert mesh.size == 1 and mesh.device == torch.device("cuda")
+    cur = torch.cuda.current_device()
+    cfg = DDPMUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                         attn_resolutions=(8,), resolution=32)
+    for dev in ("cuda", f"cuda:{cur}"):
+        server = TwinStepServer(SIGEFusedUNet(cfg), None, {}, device=dev,
+                                mesh=mesh)
+        assert server.model.device == torch.device("cuda")
 
 
 @pytest.mark.gpu

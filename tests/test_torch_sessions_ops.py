@@ -375,13 +375,18 @@ def test_tile_ops_sessions(tile_plans, dtype):
 
 
 def test_masked_attention_refuses_stacked_plans():
-    """The SD models' masked stale/fresh attention builds one key bias per
-    call, which S sessions with their own windows cannot share: a
-    per-session origin raises instead of biasing every session alike."""
+    """The SD models' masked stale/fresh attention never biases S sessions
+    with their own windows alike: a per-session origin gives one key bias
+    row per session (each the single-plan bias of that session's window),
+    where a host origin gives the one shared row."""
     from sige_torch.ops.attention import stale_fresh_biases
 
     cov = torch.ones(4, 4, dtype=torch.bool)
     bias_s, bias_f = stale_fresh_biases(cov, (2, 3), (8, 8))
     assert bias_s.shape == (64,) and bias_f.shape == (16,)
-    with pytest.raises(ValueError, match="stacked over sessions"):
-        stale_fresh_biases(cov, torch.tensor([[2, 3], [0, 0]]), (8, 8))
+    rows_s, rows_f = stale_fresh_biases(cov, torch.tensor([[2, 3], [0, 0]]),
+                                        (8, 8))
+    assert rows_s.shape == (2, 64) and rows_f.shape == (2, 16)
+    assert torch.equal(rows_s[0], bias_s) and torch.equal(rows_f[0], bias_f)
+    assert torch.equal(rows_s[1], stale_fresh_biases(cov, (0, 0), (8, 8))[0])
+    assert not torch.equal(rows_s[0], rows_s[1])
