@@ -2,11 +2,11 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase {checkpoints,sd_text,engine_options,quality,
-                                   twin,sessions,adopt,dp}
+                                   twin,sessions,adopt,dp,sp}
 
 With ``--phase`` it builds the kernels and the native planner and runs
 that phase alone (13, 14 with phase 13's SD checkpoint, 15, 16, 17, 18,
-19 or 20),
+19, 20 or 21),
 printing the card first and the phase's record as one JSON line last.
 
 Phases (any failure raises and the script exits non-zero):
@@ -297,7 +297,30 @@ Phases (any failure raises and the script exits non-zero):
             step, 6 + 6 a session step), ms per step per rank (two
             processes on one card: not a scaling number); the rows
             ``gather_batch`` assembles equal the one-process servers'
-            within 1e-4. A rank's failure or time-out fails the run.
+            within 1e-4. A rank's failure or time-out fails the run;
+21. sp    — ``sige_torch.parallel.spatial`` on the SD VAE at its
+            published widths (``SDVAEConfig(resolution=1024)``, random
+            weights from seeds) at a 1024^2 canvas (latent 128^2): first
+            the reference in this process (decoder dense and full, encoder
+            dense, the 1.2% edit planned and one sparse forward: ms on
+            CUDA events, flash launches held, peak MB, the caches' MB),
+            freed; then two rank processes of this script (``--sp-rank``)
+            sharing the card under gloo, each with its band of rows:
+            ``spatial_apply`` of the decoder and the encoder and
+            ``spatial_full_apply`` of the decoder (ms, flash launches per
+            forward held exactly, halo exchanges, all-reduces, row
+            gathers and MB sent per forward, peak MB beside the one
+            process's, the rank's cache MB), the outputs and caches
+            gathered onto rank 0 (ms and MB), which holds every cache
+            against a one-process full pass of its own (within 1e-4 *
+            max(1, max|cache|)) and the metadata against this process's
+            exactly, adopts the caches on one card (``adopt_full``),
+            plans the edit and runs sparse; every gathered output equals
+            the reference within 1e-4 * max(1, max|ref|). Then the flash
+            kernel against its plain version at the ranks' call shape
+            (1, 8192, 16384, 1, 512). A rank's failure or time-out fails
+            the run; the times are two processes on one card, not a
+            scaling number.
 
 Phases 6, 7, 9 and 11 also time the planning of each family's edit
 (DDPM window and tiles, the SD U-Net and decoder, PD, GauGAN), median of
@@ -655,12 +678,16 @@ STEPS = 5  # sampling steps of every full-width generate
 RETIME_ITERS = 20  # forwards per mode and cuDNN setting in phase_retime
 
 
-def events_ms(fn, iters):
+def events_ms(fn, iters, between=None):
     """Median and p90 of ``iters`` calls of ``fn``, each between two CUDA
-    events."""
+    events; ``between``, if given, runs before each call, outside the
+    events, and the card is synchronised after it."""
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for start, end in events:
+        if between is not None:
+            between()
+            torch.cuda.synchronize()
         start.record()
         fn()
         end.record()
@@ -1048,41 +1075,70 @@ def expected_counts(flash, calls):
                            for B, N, M, H, D in calls)
 
 
-def forward_stats(flash, name, model, args, mode, calls, iters=SD_ITERS):
-    """One model's forward in ``mode``: flash launches (asserted against
-    ``calls``), latency (CUDA events around each of ``iters`` forwards,
-    after 3 warm-ups: median and p90), analytic GMACs and peak MB."""
-    from sige_torch.nn.module import SIGECtx
-
-    fwd = {"dense": model.dense, "full": model.full,
-           "sparse": model.sparse}[mode]
+def forward_stats(flash, name, fn, calls, iters=SD_ITERS, warmups=3,
+                  macs=None, reset=None, mesh=None):
+    """One forward ``fn``: the flash launches of one call, asserted against
+    ``calls`` (on a ``mesh``, its collective counters of that call too),
+    ``warmups`` more calls, latency (CUDA events around each of ``iters``
+    calls: median and p90), ``macs()`` GMACs if given, and the peak MB of
+    one more call, absolute and above its start. ``reset``, if given, runs
+    before each timed call and before the peak's, outside the events: it
+    drops what the last call left (a full pass's caches). Returns (the
+    last call's output, record)."""
     flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
-    fwd(*args)
+    if mesh is not None:
+        mesh.counts.update(dict.fromkeys(mesh.counts, 0))
+    fn()
     torch.cuda.synchronize()
     got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
     want = expected_counts(flash, calls)
     if got != want:
-        raise AssertionError(f"{name} {mode}: flash launches {got}, "
-                             f"expected {want}")
-    for _ in range(3):
-        fwd(*args)
-    median, p90 = events_ms(lambda: fwd(*args), iters)
-    ctx = SIGECtx(mode=mode, macs=[])
-    with torch.inference_mode(), fp32_scope():
-        model.module(*args, ctx=ctx)
+        raise AssertionError(f"{name}: flash launches {got}, expected "
+                             f"{want}")
+    counts = None if mesh is None else dict(mesh.counts)
+    for _ in range(warmups):
+        fn()
+    between = None if reset is None else lambda: (reset(), gc.collect())
+    median, p90 = events_ms(fn, iters, between)
+    res = {"launches": got[0], "combine_launches": got[1],
+           "latency_ms": median, "latency_p90_ms": p90, "iters": iters}
+    if macs is not None:
+        res["macs_g"] = macs()
+    if between is not None:
+        between()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fwd(*args)
+    base = torch.cuda.memory_allocated()
+    y = fn()
     torch.cuda.synchronize()
-    res = {"launches": got[0], "combine_launches": got[1],
-           "latency_ms": median, "latency_p90_ms": p90,
-           "iters": iters, "macs_g": sum(ctx.macs) / 1e9,
-           "peak_mb": torch.cuda.max_memory_allocated() / 2**20}
-    print(f"  [{name}] {mode}: {res['latency_ms']:.3f} ms median (p90 "
-          f"{res['latency_p90_ms']:.3f}, n={iters}), {res['macs_g']:.2f} "
-          f"GMACs, peak {res['peak_mb']:.1f} MB, flash launches {got[0]} + "
-          f"{got[1]} combine (expected {want[0]} + {want[1]})", flush=True)
-    return res
+    peak = torch.cuda.max_memory_allocated()
+    res.update(peak_mb=peak / 2**20, peak_above_start_mb=(peak - base) / 2**20)
+    if counts is not None:
+        res["collectives"] = counts
+    gmacs = "" if macs is None else f", {res['macs_g']:.2f} GMACs"
+    print(f"  [{name}]: {median:.3f} ms median (p90 {p90:.3f}, n={iters})"
+          f"{gmacs}, peak {res['peak_mb']:.1f} MB "
+          f"({res['peak_above_start_mb']:.1f} above its start), flash "
+          f"launches {got[0]} + {got[1]} combine (expected {want[0]} + "
+          f"{want[1]})", flush=True)
+    return y, res
+
+
+def model_stats(flash, name, model, args, mode, calls, iters=SD_ITERS):
+    """:func:`forward_stats` of ``model``'s forward in ``mode`` on ``args``,
+    with its analytic GMACs."""
+    from sige_torch.nn.module import SIGECtx
+
+    fwd = getattr(model, mode)
+
+    def macs():
+        ctx = SIGECtx(mode=mode, macs=[])
+        with torch.inference_mode(), fp32_scope():
+            model.module(*args, ctx=ctx)
+        return sum(ctx.macs) / 1e9
+
+    return forward_stats(flash, f"{name} {mode}", lambda: fwd(*args), calls,
+                         iters, macs=macs)[1]
 
 
 def resident_mb(model):
@@ -1224,9 +1280,9 @@ def phase_sd(flash):
     print(f"  [sd] {len(recorded)} distinct flash calls (B, N, M, H, D, "
           f"masked): {sorted(recorded)}", flush=True)
 
-    prof = {n: {mode: forward_stats(flash, f"sd {n}", models[n], args[n][0]
-                                    if mode == "full" else args[n][1], mode,
-                                    calls[n, mode])
+    prof = {n: {mode: model_stats(flash, f"sd {n}", models[n], args[n][0]
+                                  if mode == "full" else args[n][1], mode,
+                                  calls[n, mode])
                 for mode in ("full", "sparse")}
             for n in ("unet", "decoder", "encoder")}
     masks, dec_masks = runner.edit_masks(init, edit)
@@ -1415,8 +1471,8 @@ def phase_pd(flash):
     print(f"  [pd] {len(recorded)} distinct flash calls (B, N, M, H, D, "
           f"masked): {sorted(recorded)}", flush=True)
     args = {"dense": (x1, ls), "full": (x0, ls), "sparse": (x1, ls)}
-    prof = {mode: forward_stats(flash, "pd", runner.model, args[mode], mode,
-                                calls, iters=PD_ITERS)
+    prof = {mode: model_stats(flash, "pd", runner.model, args[mode], mode,
+                              calls, iters=PD_ITERS)
             for mode in ("dense", "full", "sparse")}
     planning = planning_ms("pd", runner.model,
                            lambda: runner.preprocess(original, edited),
@@ -1503,13 +1559,13 @@ def _gaugan_exact(name, model, x0, x1):
 
 def _gaugan_forwards(flash, name, runner, x0, x1, modes):
     """Per mode: flash launches (asserted 0), CUDA-event median and p90,
-    GMACs, peak MB (``forward_stats``), and kernel launches per forward
+    GMACs, peak MB (``model_stats``), and kernel launches per forward
     (profiler)."""
     args = {"dense": (x1,), "full": (x0,), "sparse": (x1,)}
     out = {}
     for mode in modes:
-        out[mode] = forward_stats(flash, name, runner.model, args[mode],
-                                  mode, [], iters=GAUGAN_ITERS)
+        out[mode] = model_stats(flash, name, runner.model, args[mode],
+                                mode, [], iters=GAUGAN_ITERS)
         fwd = getattr(runner.model, mode)
         out[mode]["kernel_launches"] = launches_per_forward(
             lambda: fwd(*args[mode]))
@@ -2726,10 +2782,10 @@ def trace_stats(fn, iters: int = 10):
 
 
 def forward_row(flash, name, model, args, mode, calls):
-    """:func:`forward_stats` plus the trace's busy time (the sum of its
+    """:func:`model_stats` plus the trace's busy time (the sum of its
     kernels' times), kernel launches and idle share (1 - busy / median,
     floored at 0) of one forward."""
-    res = forward_stats(flash, name, model, args, mode, calls)
+    res = model_stats(flash, name, model, args, mode, calls)
     fwd = model.sparse if mode == "sparse" else model.full
     busy, kernels = trace_stats(lambda: fwd(*args))
     if busy is None:
@@ -5180,6 +5236,44 @@ def dp_rank_main(rank: int, world: int, workdir: str) -> int:
     return 0
 
 
+def run_ranks(kind: str, world: int, workdir: str, timeout: float):
+    """Start ``world`` rank processes of this script (``--dp-rank`` or
+    ``--sp-rank``, by ``kind``) on the job in ``workdir``, wait for all
+    of them within ``timeout`` seconds (killing any left), print the end
+    of each one's output, raise if any failed, and return each rank's
+    record (``rank<r>.json`` in ``workdir``)."""
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), f"--{kind}-rank", str(r),
+         f"--{kind}-world", str(world), f"--{kind}-dir", workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            logs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        print(f"  [{kind}] rank {r} exited {p.returncode}; its output:",
+              flush=True)
+        print("\n".join("    " + line for line in
+                        log.strip().splitlines()[-20:]), flush=True)
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"{kind}: rank exit codes "
+                             f"{[p.returncode for p in procs]}")
+    ranks = []
+    for r in range(world):
+        with open(f"{workdir}/rank{r}.json") as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
 def phase_dp(flash):
     """Phase 20: the servers' ``mesh=`` with DP_WORLD ranks sharing the one
     card under gloo (NCCL refuses two ranks on one device), each with
@@ -5224,35 +5318,7 @@ def phase_dp(flash):
                              for a in sessions]}
         torch.save({"cfg": cfg, "inputs": host, "plan": plan},
                    f"{workdir}/job.pt")
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
-             "--dp-world", str(DP_WORLD), "--dp-dir", workdir],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            for r in range(DP_WORLD)]
-        deadline = time.monotonic() + DP_TIMEOUT_S
-        logs = []
-        try:
-            for p in procs:
-                out, _ = p.communicate(
-                    timeout=max(1.0, deadline - time.monotonic()))
-                logs.append(out.decode(errors="replace"))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            print(f"  [dp] rank {r} exited {p.returncode}; its output:",
-                  flush=True)
-            print("\n".join("    " + line for line in
-                            log.strip().splitlines()[-20:]), flush=True)
-        if any(p.returncode for p in procs):
-            raise AssertionError(f"dp: rank exit codes "
-                                 f"{[p.returncode for p in procs]}")
-        ranks = []
-        for r in range(DP_WORLD):
-            with open(f"{workdir}/rank{r}.json") as f:
-                ranks.append(json.load(f))
+        ranks = run_ranks("dp", DP_WORLD, workdir, DP_TIMEOUT_S)
         gathered = torch.load(f"{workdir}/gathered.pt")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -5273,6 +5339,367 @@ def phase_dp(flash):
                              f"{errs}")
     return {"one_process": recs, "ranks": ranks, "max_err": errs,
             "world": DP_WORLD, "s": time.perf_counter() - t_start}
+
+
+SP_WORLD = 2  # ranks sharing the one card
+SP_CANVAS = 1024  # the SD VAE's image side (latent 128^2)
+SP_ITERS = 3  # timed forwards per model and mode, after one warm-up
+SP_TIMEOUT_S = 600
+SP_FORWARDS = ("decoder_dense", "encoder_dense", "decoder_full")
+
+
+def sp_inputs():
+    """Phase 21's inputs: ``SDVAEConfig(resolution=1024)``, a latent of
+    128^2 (seed 40), the 1.2% compact edit of the SD phases' first session
+    at 1024^2 (``sd_session_masks``: the decoder's pyramid) with noise
+    inside it (seed 41), and a 1024^2 image for the encoder (seed 42)."""
+    from sige_torch.models.sd import SDVAEConfig
+
+    cfg = SDVAEConfig(resolution=SP_CANVAS)
+    masks = sd_session_masks(SP_CANVAS, 1)[0][1]
+    L = SP_CANVAS // 2 ** (len(cfg.ch_mult) - 1)
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    z0 = torch.randn(1, 1, L, L, cfg.z_channels, generator=gen, device="cuda")
+    z1 = latent_edits(z0, [masks], seed=41)[0]
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    x = torch.rand(1, SP_CANVAS, SP_CANVAS, cfg.in_channels, generator=gen,
+                   device="cuda") * 2 - 1
+    return cfg, z0[0], z1, x, masks
+
+
+def sp_calls(module, world: int):
+    """The flash calls of one encoder or decoder forward, dense or full,
+    on one of ``world`` ranks: the mid attention's local queries over the
+    gathered keys."""
+    cfg = module.cfg
+    res = cfg.resolution // 2 ** (len(cfg.ch_mult) - 1)
+    return [(1, res * res // world, res * res, 1, module.mid_attn.channels)]
+
+
+def cache_mb(caches) -> float:
+    return sum(t.numel() * t.element_size() for slots in caches.values()
+               for d in slots for t in d.values()) / 2**20
+
+
+def sp_one_process(flash, cfg, z0, z1, x, masks):
+    """Phase 21's reference in one process: the decoder dense and full,
+    the encoder dense (each :func:`forward_stats`, one warm-up), then the
+    edit planned and one sparse forward, with the attention entry
+    recording each distinct flash call (:func:`record_calls`); returns
+    (outputs on the host, the full pass's metadata, record, the recorded
+    calls)."""
+    from sige_torch.models.sd import SIGEDecoder, SIGEEncoder
+    from sige_torch.nn import SIGEModel
+
+    seen, flash_calls = set(), {}
+
+    def recorded(where, fn):
+        out, new = record_calls(fn, seen, f"one process, {where}")
+        flash_calls.update(new)
+        return out
+
+    def stats(where, fn, calls, reset=None):
+        return recorded(where, lambda: forward_stats(
+            flash, f"sp one process {where}", fn, calls, SP_ITERS,
+            warmups=0, reset=reset))
+
+    dec = SIGEModel(SIGEDecoder(cfg), layout="window", device="cuda")
+    dec.init(0)
+    calls = sd_vae_calls(dec, "full")
+    out, rec = {}, {}
+    y, rec["decoder_dense"] = stats("decoder dense", lambda: dec.dense(z0),
+                                    calls)
+    out["decoder_dense"] = y.cpu()
+    y, rec["decoder_full"] = stats("decoder full", lambda: dec.full(z0),
+                                   calls, reset=dec.clear_cache)
+    out["decoder_full"] = y.cpu()
+    rec["cache_mb"] = cache_mb(dec.state.caches)
+    dec.set_masks(masks)
+    want = expected_counts(flash, sd_vae_calls(dec, "sparse"))
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    out["sparse"] = recorded("decoder sparse", lambda: dec.sparse(z1)).cpu()
+    got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+    if got != want:
+        raise AssertionError(f"sp one-process sparse: flash launches {got}, "
+                             f"expected {want}")
+    meta = dec.meta
+    del dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc = SIGEModel(SIGEEncoder(cfg), layout="window", device="cuda")
+    enc.init(1)
+    y, rec["encoder_dense"] = stats("encoder dense", lambda: enc.dense(x),
+                                    sd_vae_calls(enc, "full"))
+    out["encoder_dense"] = y.cpu()
+    del enc, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, meta, rec, flash_calls
+
+
+def _same_bias(a, b) -> bool:
+    """Whether two recorded flash biases (None or tensors) are equal."""
+    if a is None or b is None:
+        return a is b
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def _max_rel(got, ref) -> float:
+    """max|got - ref| over max(1, max|ref|)."""
+    return ((got - ref).abs().max() / ref.abs().max().clamp(min=1)).item()
+
+
+def meta_equal(got, want):
+    """(entries, whether all are equal) of two planning metadata trees
+    (by Gather path, each entry a tuple of integer arrays)."""
+    if set(got) != set(want):
+        return 0, False
+    n, same = 0, True
+    for k, w in want.items():
+        if isinstance(w, dict):
+            m, s = meta_equal(got[k], w)
+        else:
+            m, s = 1, len(got[k]) == len(w) and all(
+                np.array_equal(a, b) for a, b in zip(got[k], w))
+        n, same = n + m, same and s
+    return n, same
+
+
+def sp_rank_main(rank: int, world: int, workdir: str) -> int:
+    """One rank of phase 21 (``--sp-rank``): joins the gloo group through
+    a file in ``workdir``, loads the kernels' libraries (found built by
+    the parent), takes rank 0's weights (from seeds 0 and 1, broadcast)
+    and runs on the ("sp",) mesh: ``spatial_apply`` of the decoder and
+    the encoder and ``spatial_full_apply`` of the decoder, each timed
+    (:func:`forward_stats`, its flash calls recorded), the outputs
+    gathered onto rank 0, the caches
+    gathered onto rank 0 (ms and MB). Rank 0 then holds the gathered
+    caches and metadata against a one-process full pass of its own key
+    by key (the metadata also against the parent's exactly), adopts them
+    on one card (``SIGEModel.adopt_full``), plans the edit and runs
+    sparse. Writes its record, and on rank 0 the gathered outputs and the
+    distinct flash calls (with the biases the model built), to
+    ``workdir``."""
+    import torch.distributed as dist
+
+    from sige_torch.models.sd import SIGEDecoder, SIGEEncoder
+    from sige_torch.nn import SIGEModel
+    from sige_torch.ops import flash
+    from sige_torch.parallel import (gather_caches, gather_rows,
+                                     make_spatial_mesh, replicate,
+                                     spatial_apply, spatial_full_apply)
+
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/init",
+                            rank=rank, world_size=world)
+    try:
+        job = torch.load(f"{workdir}/job.pt", weights_only=False)
+        mesh = make_spatial_mesh()
+        cfg = job["cfg"]
+        z0, z1, x = (job[k].to(mesh.device) for k in ("z0", "z1", "x"))
+        modules = {}
+        for name, cls, seed in (("decoder", SIGEDecoder, 0),
+                                ("encoder", SIGEEncoder, 1)):
+            model = SIGEModel(cls(cfg), device=mesh.device)
+            if rank == 0:
+                model.init(seed)
+            model.module.load_state_dict(replicate(
+                mesh, model.module.state_dict()))
+            modules[name] = model.module
+        dec, enc = modules["decoder"], modules["encoder"]
+        rec = {"mesh": {"sp": mesh.size, "rank": rank,
+                        "device": str(mesh.device)}}
+        out, seen, flash_calls = {}, set(), {}
+
+        def stats(name, fn, calls):
+            (y, r), new = record_calls(lambda: forward_stats(
+                flash, f"sp rank {rank} {name}", fn, calls, SP_ITERS,
+                warmups=0, mesh=mesh), seen, f"rank {rank} of {world}, {name}")
+            flash_calls.update(new)
+            return y, r
+
+        calls = sp_calls(dec, world)
+        y, rec["decoder_dense"] = stats(
+            "decoder dense", lambda: spatial_apply(mesh, dec, z0), calls)
+        out["decoder_dense"] = gather_rows(mesh, y, dst=0)
+        y, rec["encoder_dense"] = stats(
+            "encoder dense", lambda: spatial_apply(mesh, enc, x),
+            sp_calls(enc, world))
+        out["encoder_dense"] = gather_rows(mesh, y, dst=0)
+        (y, caches, meta), rec["decoder_full"] = stats(
+            "decoder full", lambda: spatial_full_apply(mesh, dec, z0), calls)
+        out["decoder_full"] = gather_rows(mesh, y, dst=0)
+        rec["cache_mb"] = cache_mb(caches)
+        rec["banded_caches"] = len(caches.rows)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        whole = gather_caches(mesh, caches, dst=0)
+        torch.cuda.synchronize()
+        rec["gather_caches_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["gather_caches_sent_mb"] = sum(
+            caches[p][s][k].numel() * caches[p][s][k].element_size()
+            for p, s, k in caches.rows) / 2**20
+        del caches, y
+        gc.collect()
+        if rank == 0:
+            rec.update(sp_adopt(flash, cfg, dec, whole, meta, job, z0, z1))
+            out["sparse"] = rec.pop("sparse_out")
+            flash_calls.update(rec.pop("flash_calls"))
+            torch.save({"out": {k: v.cpu() for k, v in out.items()},
+                        "flash_calls": {
+                            k: (where, None if b is None else b.cpu())
+                            for k, (where, b) in flash_calls.items()}},
+                       f"{workdir}/gathered.pt")
+        with open(f"{workdir}/rank{rank}.json", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sp_adopt(flash, cfg, dec, whole, meta, job, z0, z1):
+    """Rank 0 of phase 21 after the gather: the gathered caches against a
+    one-process full pass key by key (the largest error over max(1,
+    max|cache|) of each), the sharded metadata against the parent's
+    exactly, then ``adopt_full`` of the gathered caches on one card, the
+    edit planned and one sparse forward (flash launches held, its flash
+    calls recorded)."""
+    from sige_torch.models.sd import SIGEDecoder
+    from sige_torch.nn import SIGEModel
+
+    one = SIGEModel(SIGEDecoder(cfg), layout="window", device="cuda")
+    one.module.load_state_dict(dec.state_dict())
+    one.full(z0)
+    errs = {}
+    for path, slots in one.state.caches.items():
+        for s, d in enumerate(slots):
+            if set(d) != set(whole[path][s]):
+                raise AssertionError(f"sp: cache keys of {path}: "
+                                     f"{sorted(whole[path][s])}, one "
+                                     f"process {sorted(d)}")
+            for k, t in d.items():
+                errs[f"{path}/{k}"] = _max_rel(whole[path][s][k], t)
+    meta_entries, meta_same = meta_equal(meta, job["meta"])
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    adopted = SIGEModel(SIGEDecoder(cfg), layout="window", device="cuda")
+    adopted.module.load_state_dict(dec.state_dict())
+    t0 = time.perf_counter()
+    adopted.adopt_full(whole, meta, z0)
+    adopt_ms = (time.perf_counter() - t0) * 1e3
+    adopted.set_masks(job["masks"])
+    want = expected_counts(flash, sd_vae_calls(adopted, "sparse"))
+    flash.flash_mha.launches = flash.flash_mha.combine_launches = 0
+    y, flash_calls = record_calls(lambda: adopted.sparse(z1), set(),
+                                  "rank 0, decoder sparse after adopt_full")
+    got = (flash.flash_mha.launches, flash.flash_mha.combine_launches)
+    if got != want:
+        raise AssertionError(f"sp adopted sparse: flash launches {got}, "
+                             f"expected {want}")
+    return {"cache_errors": errs, "cache_keys": len(errs),
+            "cache_max_rel_err": max(errs.values()),
+            "meta_entries": meta_entries, "meta_equal": meta_same,
+            "adopt_ms": adopt_ms, "layout": adopted.active_layout,
+            "sparse_launches": got, "sparse_out": y,
+            "flash_calls": flash_calls}
+
+
+def phase_sp(flash):
+    """Phase 21: ``sige_torch.parallel.spatial`` on the SD VAE at its
+    published widths (``SDVAEConfig(resolution=1024)``, random weights
+    from seeds) at a 1024^2 canvas (latent 128^2), SP_WORLD ranks sharing
+    the one card under gloo (NCCL refuses two ranks on one device). The
+    reference runs in this process first (:func:`sp_one_process`) and is
+    freed; then the ranks (:func:`sp_rank_main`). Their gathered outputs
+    (decoder and encoder dense, decoder full, the sparse forward after
+    adopting the gathered caches) equal the reference within 1e-4 *
+    max(1, max|ref|), and so does every gathered cache; the metadata
+    exactly. A rank's failure or time-out fails the phase. Then the flash
+    kernel against its plain version at every distinct call the phase
+    drove, with the bias the model built: the one process's dense and
+    sparse calls, the ranks' local queries over the gathered keys and
+    the sparse forward after ``adopt_full`` where its call differs. The
+    times are two processes sharing one card, not a scaling number.
+    Returns (record, kernel rows)."""
+    import shutil
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    cfg, z0, z1, x, masks = sp_inputs()
+    ref, meta, one, flash_calls = sp_one_process(flash, cfg, z0, z1, x,
+                                                 masks)
+    print(f"  [sp] one process: decoder caches {one['cache_mb']:.1f} MB",
+          flush=True)
+    workdir = tempfile.mkdtemp(prefix="sige-sp-")
+    try:
+        torch.save({"cfg": cfg, "z0": z0.cpu(), "z1": z1.cpu(),
+                    "x": x.cpu(), "masks": masks, "meta": meta},
+                   f"{workdir}/job.pt")
+        del z0, z1, x
+        ranks = run_ranks("sp", SP_WORLD, workdir, SP_TIMEOUT_S)
+        saved = torch.load(f"{workdir}/gathered.pt")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    gathered = saved["out"]
+    errs = {k: _max_rel(gathered[k], ref[k]) for k in ref}
+    finite = all(torch.isfinite(v).all().item() for v in gathered.values())
+    r0 = ranks[0]
+    for r, rr in enumerate(ranks):
+        for name in SP_FORWARDS:
+            x = rr[name]
+            c = x["collectives"]
+            print(f"  [sp] rank {r} of {SP_WORLD} on one card, {name}: "
+                  f"{x['latency_ms']:.2f} ms median of {SP_ITERS} (p90 "
+                  f"{x['latency_p90_ms']:.2f}); flash {x['launches']} + "
+                  f"{x['combine_launches']} combine a forward "
+                  f"(held); per forward {c['halo']:g} halo exchanges, "
+                  f"{c['all_reduce']:g} all-reduces, {c['gather_rows']:g} "
+                  f"row gathers, {c['bytes'] / 2**20:.1f} MB sent; peak "
+                  f"{x['peak_mb']:.1f} MB ({x['peak_above_start_mb']:.1f} "
+                  f"above its start; one process "
+                  f"{one[name]['peak_above_start_mb']:.1f})", flush=True)
+        print(f"  [sp] rank {r}: {rr['banded_caches']} banded caches, "
+              f"{rr['cache_mb']:.1f} MB of caches (one process "
+              f"{one['cache_mb']:.1f}); gather_caches onto rank 0 "
+              f"{rr['gather_caches_ms']:.1f} ms, "
+              f"{rr['gather_caches_sent_mb']:.1f} MB of bands", flush=True)
+    print(f"  [sp] rank 0: {r0['cache_keys']} gathered caches against one "
+          f"process, largest error over max(1, max|cache|) "
+          f"{r0['cache_max_rel_err']:.3e}; metadata {r0['meta_entries']} "
+          f"entries, equal: {r0['meta_equal']}; adopt_full "
+          f"{r0['adopt_ms']:.1f} ms; sparse ({r0['layout']}) flash "
+          f"{r0['sparse_launches'][0]} + {r0['sparse_launches'][1]} combine "
+          f"(held)", flush=True)
+    print(f"  [sp] gathered outputs against one process, error over max(1, "
+          f"max|ref|): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+          flush=True)
+    if not (all(e <= TOL for e in errs.values()) and finite
+            and r0["cache_max_rel_err"] <= TOL and r0["meta_equal"]):
+        raise AssertionError(f"sp: gathered outputs {errs} (finite: "
+                             f"{finite}), caches "
+                             f"{r0['cache_max_rel_err']:.3e}, meta equal "
+                             f"{r0['meta_equal']}")
+    calls = list(flash_calls.items())
+    for key, (where, bias) in saved["flash_calls"].items():
+        if key in flash_calls and _same_bias(flash_calls[key][1], bias):
+            continue  # the one process's call, already held
+        calls.append((key, (where, None if bias is None else bias.cuda())))
+    rows = []
+    with fp32_scope():
+        for (B, N, M, H, D, masked), (where, bias) in calls:
+            label = (f"sp: {where}, {'masked stale/fresh ' if masked else ''}"
+                     f"mid attention, {SP_CANVAS}^2 canvas (B {B}, N {N}, "
+                     f"M {M}, H {H}, D {D})")
+            rows.append(kernel_row(flash, label, B, N, M, H, D, bias))
+    for rr in ranks:
+        rr.pop("cache_errors", None)
+    return {"one_process": one, "ranks": ranks, "max_err": errs,
+            "world": SP_WORLD, "canvas": SP_CANVAS,
+            "s": time.perf_counter() - t_start}, rows
 
 
 def one_phase(flash, name: str) -> dict:
@@ -5300,6 +5727,9 @@ def one_phase(flash, name: str) -> dict:
         return {"adopt": phase_adopt(flash)}
     if name == "dp":
         return {"dp": phase_dp(flash)}
+    if name == "sp":
+        result, rows = phase_sp(flash)
+        return {"sp": result, "rows": rows}
     return {"quality": phase_quality(flash)}
 
 
@@ -5365,17 +5795,20 @@ def main(argv=None) -> int:
                                 "NVIDIA GPU (every phase, or one).")
     p.add_argument("--phase", choices=("checkpoints", "sd_text",
                                        "engine_options", "quality", "twin",
-                                       "sessions", "adopt", "dp"))
-    # one rank of phase 20, started by it
-    p.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
-    p.add_argument("--dp-world", type=int, help=argparse.SUPPRESS)
-    p.add_argument("--dp-dir", help=argparse.SUPPRESS)
+                                       "sessions", "adopt", "dp", "sp"))
+    # one rank of phase 20 or 21, started by it
+    for kind in ("dp", "sp"):
+        p.add_argument(f"--{kind}-rank", type=int, help=argparse.SUPPRESS)
+        p.add_argument(f"--{kind}-world", type=int, help=argparse.SUPPRESS)
+        p.add_argument(f"--{kind}-dir", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if args.dp_rank is not None:
         return dp_rank_main(args.dp_rank, args.dp_world, args.dp_dir)
+    if args.sp_rank is not None:
+        return sp_rank_main(args.sp_rank, args.sp_world, args.sp_dir)
     if args.phase:
         from sige_torch.ops import flash
 
@@ -5491,6 +5924,11 @@ def main(argv=None) -> int:
           f"ranks sharing the card under gloo: church256 at full width):",
           flush=True)
     dp = phase_dp(flash)
+    print(f"sp (spatial_apply and spatial_full_apply: the SD VAE at full "
+          f"width, a {SP_CANVAS}^2 canvas, the rows of one request over "
+          f"{SP_WORLD} ranks sharing the card under gloo):", flush=True)
+    sp, sp_rows = phase_sp(flash)
+    rows += sp_rows
     if precision_flags() != defaults:
         raise AssertionError(f"precision flags {precision_flags()} after the "
                              f"run, {defaults} before it")
@@ -5532,7 +5970,11 @@ def main(argv=None) -> int:
             adopt_sd_decoder_sparse=adopt["launches"],
             **{f"dp_rank{r}_{name}_{DP_STEPS}_steps":
                dp["ranks"][r][name]["flash_launches"]
-               for r in range(DP_WORLD) for name in ("twin", "sessions")}),
+               for r in range(DP_WORLD) for name in ("twin", "sessions")},
+            **{f"sp_rank{r}_{name}_per_forward":
+               sp["ranks"][r][name]["launches"]
+               for r in range(SP_WORLD) for name in SP_FORWARDS},
+            sp_adopted_sparse=sp["ranks"][0]["sparse_launches"][0]),
         "combine_launches_by_path": dict(
             {n: p["combine_launches"] for n, p in paths.items()},
             sd_sdedit=sd["combine_launches"],
@@ -5552,7 +5994,11 @@ def main(argv=None) -> int:
             adopt_sd_decoder_sparse=adopt["combine_launches"],
             **{f"dp_rank{r}_{name}_{DP_STEPS}_steps":
                dp["ranks"][r][name]["combine_launches"]
-               for r in range(DP_WORLD) for name in ("twin", "sessions")}),
+               for r in range(DP_WORLD) for name in ("twin", "sessions")},
+            **{f"sp_rank{r}_{name}_per_forward":
+               sp["ranks"][r][name]["combine_launches"]
+               for r in range(SP_WORLD) for name in SP_FORWARDS},
+            sp_adopted_sparse=sp["ranks"][0]["sparse_launches"][1]),
         "splits": main_row["splits"],
         "max_abs_err": max([r["max_err"] for r in rows]
                            + [f["max_err"] for f in forced.values()]
@@ -5576,6 +6022,7 @@ def main(argv=None) -> int:
                       "sd_text": sd_text, "options": options,
                       "quality": quality, "twin": twin,
                       "sessions": sessions, "adopt": adopt, "dp": dp,
+                      "sp": sp,
                       "native": native_rec,
                       "card": card}),
           flush=True)

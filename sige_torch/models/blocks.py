@@ -84,7 +84,8 @@ class FoldedGroupNorm(SIGEModule):
         epilogues instead of touching x."""
         if ctx.mode in ("dense", "full"):
             xn, scale, shift = group_norm_with_affine(
-                x, self.num_groups, self.weight, self.bias, eps=1e-6)
+                x, self.num_groups, self.weight, self.bias, eps=1e-6,
+                band=ctx.band)
             if ctx.mode == "full":
                 if pre_shift is not None:
                     shift = pre_shift * scale + shift
@@ -112,7 +113,7 @@ class FoldedNormAffine(SIGEModule):
     def forward(self, x, w, b, ctx: SIGECtx):
         if ctx.mode in ("dense", "full"):
             xn, sc, sh = group_norm_with_affine(x, self.num_groups, w, b,
-                                                eps=1e-6)
+                                                eps=1e-6, band=ctx.band)
             if ctx.mode == "full":
                 self.cache["scale"], self.cache["shift"] = sc, sh
             return xn, None, None
@@ -513,5 +514,5 @@ class SIGEUNetEnds(SIGEModule):
             return self.out_scatter(out, ctx)
         h, _, _ = group_norm_with_affine(
             to_map(h), self.cfg.num_groups, self.norm_out_scale,
-            self.norm_out_bias, eps=1e-6)
+            self.norm_out_bias, eps=1e-6, band=ctx.band)
         return self.conv_out(swish(h), ctx)

@@ -151,8 +151,12 @@ class SIGEAttnBlock(SIGEModule):
         B, H, W, _ = qkv.shape
         inner = self.heads * self.head_dim
         q, k, v = qkv.reshape(B, H * W, 3 * inner).split(inner, dim=-1)
+        if ctx.band is not None:
+            # rows sharded over ranks: this rank's queries attend over
+            # every rank's K/V tokens (row-major, so in rank order)
+            k, v = ctx.band.gather_rows(k), ctx.band.gather_rows(v)
         out = mha(q, k, v, self.heads, self.head_dim)
-        add_macs(ctx, 2 * B * H * W * H * W * inner)
+        add_macs(ctx, 2 * B * q.shape[1] * k.shape[1] * inner)
         return out.reshape(B, H, W, inner)
 
     def forward(self, x, ctx: SIGECtx):

@@ -43,7 +43,8 @@ from torch import nn
 
 from ...nn.module import (Gather, Scatter, ScatterGather,
                           ScatterWithBlockResidual, SIGECtx, SIGEConv2d,
-                          SIGEModule, WindowState, chain_rel, share)
+                          SIGEModule, WindowState, chain_rel, map_res,
+                          share)
 from ...nn.norm import batch_norm_affine
 from ...ops.sessions import cov_where
 from ...ops.window import (scale_origin, sub_origin, window_extent,
@@ -81,12 +82,25 @@ class SPADEGenConfig:
         return sh, sw
 
 
-def nearest_resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+def nearest_resize(x: torch.Tensor, out_hw: Tuple[int, int],
+                   band=None) -> torch.Tensor:
     """Torch-convention nearest resize of NHWC ``x``: src = floor(dst * in
     / out). An integer downsample is a strided view; any other ratio
-    indexes rows and columns."""
+    indexes rows and columns.
+
+    ``band``: this rank's row band (``SIGECtx.band``) when ``x`` is its
+    band of a map sharded by rows: ``out_hw`` is the whole output's, and
+    the result is this rank's band of it. Its source rows lie in the
+    band when the whole map's rows are a whole multiple of the output's
+    (every SPADE level's); any other row ratio raises."""
     H, W = x.shape[1:3]
     oh, ow = out_hw
+    if band is not None:
+        n, Hg = band.height(1), band.height(H)
+        if Hg % oh or oh % n:
+            raise ValueError(f"a nearest resize of {Hg} rows to {oh} over "
+                             f"{n} row bands: the bands do not line up")
+        oh //= n
     if H % oh == 0 and W % ow == 0:
         return x[:, ::H // oh, ::W // ow]
     rows = torch.arange(oh, device=x.device) * H // oh
@@ -321,7 +335,7 @@ class SIGEFusedSPADEResnetBlock(SIGEModule):
         sparse = ctx.mode == "sparse"
         conv_0, conv_1 = self.conv
         norm_0, norm_1 = self.norm
-        seg_r = nearest_resize(seg, x.shape[1:3])
+        seg_r = nearest_resize(seg, map_res(x, ctx), ctx.band)
         if self.main_sparse:
             seg_r = self.seg_gather(seg_r, ctx)  # tiles in sparse mode
         actvs = torch.relu(self.mlp_shared(seg_r, ctx))
@@ -395,7 +409,7 @@ class SIGEFusedSPADEGenerator(SIGEModule):
 
     def forward(self, seg, ctx: SIGECtx):
         cfg = self.cfg
-        x = self.fc(nearest_resize(seg, cfg.latent_hw), ctx)
+        x = self.fc(nearest_resize(seg, cfg.latent_hw, ctx.band), ctx)
         x = self.head[0](x, seg, ctx)
         x = _chain_up2(x)
         x = self.G_middle[0](x, seg, ctx)

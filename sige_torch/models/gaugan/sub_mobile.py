@@ -25,7 +25,7 @@ from torch import nn
 
 from ...nn.module import (Gather, Scatter, ScatterGather,
                           ScatterWithBlockResidual, SIGECtx, SIGEConv2d,
-                          SIGEModule, share)
+                          SIGEModule, map_res, share)
 from ...nn.norm import batch_norm_affine, instance_norm_stats
 from ..blocks import up2
 from .spade import SPADEGenConfig, _leaky, nearest_resize
@@ -55,7 +55,7 @@ class SIGESeparableConv2d(SIGEModule):
     def forward(self, x, ctx: SIGECtx):
         h = self.dw(x, ctx)
         if ctx.mode in ("dense", "full"):
-            mean, rstd = instance_norm_stats(h, eps=1e-5)
+            mean, rstd = instance_norm_stats(h, eps=1e-5, band=ctx.band)
             if ctx.mode == "full":
                 self.cache["in_mean"], self.cache["in_rstd"] = mean, rstd
         else:
@@ -173,7 +173,7 @@ class SIGESubMobileSPADEResnetBlock(SIGEModule):
         sparse = ctx.mode == "sparse"
         conv_0, conv_1 = self.conv
         norm_0, norm_1 = self.norm
-        seg_r = nearest_resize(seg, x.shape[1:3])
+        seg_r = nearest_resize(seg, map_res(x, ctx), ctx.band)
         if self.main_sparse:
             seg_r = self.seg_gather(seg_r, ctx)
         actvs = torch.relu(self.mlp_shared(seg_r, ctx))
@@ -246,7 +246,7 @@ class SIGESubMobileSPADEGenerator(SIGEModule):
 
     def forward(self, seg, ctx: SIGECtx):
         cfg = self.cfg
-        x = self.fc(nearest_resize(seg, cfg.latent_hw), ctx)
+        x = self.fc(nearest_resize(seg, cfg.latent_hw, ctx.band), ctx)
         x = self.head[0](x, seg, ctx)
         x = up2(x)
         x = self.G_middle[0](x, seg, ctx)

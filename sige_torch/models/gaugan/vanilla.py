@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...nn.module import SIGECtx, SIGEConv2d
+from ...nn.module import SIGECtx, SIGEConv2d, map_res
 from ..blocks import up2
 from .spade import SPADEGenConfig, _leaky, nearest_resize
 
@@ -66,7 +66,7 @@ class VanillaSPADEResnetBlock(nn.Module):
                                            cfg.bn_eps)
 
     def forward(self, x, seg, ctx: SIGECtx):
-        seg_r = nearest_resize(seg, x.shape[1:3])
+        seg_r = nearest_resize(seg, map_res(x, ctx), ctx.band)
         x_s = x
         if self.learned_shortcut:
             x_s = self.conv_s(self.norm_s(x, seg_r, ctx), ctx)
@@ -98,7 +98,7 @@ class VanillaSPADEGenerator(nn.Module):
 
     def forward(self, seg, ctx: SIGECtx = DENSE):
         cfg = self.cfg
-        x = self.fc(nearest_resize(seg, cfg.latent_hw), ctx)
+        x = self.fc(nearest_resize(seg, cfg.latent_hw, ctx.band), ctx)
         x = self.head[0](x, seg, ctx)
         x = up2(x)
         x = self.G_middle[0](x, seg, ctx)

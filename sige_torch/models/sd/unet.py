@@ -60,7 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...nn.module import (Gather, Scatter, SIGECtx, SIGEConv2d, SIGEModule,
-                          WindowState, add_dense_macs, add_macs)
+                          WindowState, add_dense_macs, add_macs, map_res)
 from ...nn.norm import group_norm_with_affine
 from ...ops.attention import masked_mha, mha, stale_fresh_biases
 from ...ops.sessions import cov_where
@@ -206,7 +206,11 @@ class _SelfAttention(nn.Module):
         return self.to_out(out)
 
     def attend(self, x, k, v, ctx: SIGECtx):
-        """Multi-head attention of ``x`` queries over (k, v) tokens."""
+        """Multi-head attention of ``x`` queries over (k, v) tokens; under
+        a row band over every rank's (k, v) tokens (row-major: in rank
+        order)."""
+        if ctx.band is not None:
+            k, v = ctx.band.gather_rows(k), ctx.band.gather_rows(v)
         q = self._q(x, ctx)
         B, N, inner = q.shape
         out = mha(q, k, v, self.heads, self.dim_head)
@@ -327,7 +331,9 @@ class SIGESpatialTransformer(SIGEModule):
         # tile layout: [B*K, bs, bs, C]; window: [B, WH, WW, C]
         tok = h.reshape(B, -1, self.inner)
 
-        kv_cached = self.sparse_ok and H * W >= self.cfg.kv_cache_min_tokens
+        gh, gw = map_res(x, ctx)  # under a row band, the whole map's
+        kv_cached = (self.sparse_ok
+                     and gh * gw >= self.cfg.kv_cache_min_tokens)
         full_tok = None
         if self.sparse_ok and not kv_cached and ctx.mode != "dense":
             # one feature scatter; K/V reprojected from the full map
@@ -341,6 +347,9 @@ class SIGESpatialTransformer(SIGEModule):
                 # projections are per-token)
                 kv1 = block.attn1.kv(block.norm1(tok), ctx)
                 self.cache[f"k1_{i}"], self.cache[f"v1_{i}"] = kv1
+                if ctx.band is not None:  # this rank's band of tokens
+                    ctx.band.cache_rows(self.cache, f"k1_{i}")
+                    ctx.band.cache_rows(self.cache, f"v1_{i}")
             elif kv_cached and ctx.mode != "dense":
                 # K/V over the full token map from the K/V caches: the
                 # full pass projects every token and caches the maps, a
@@ -537,5 +546,5 @@ class SIGESDUNet(SIGEModule):
 
         h, _, _ = group_norm_with_affine(
             to_map(h), cfg.num_groups, self.out_norm_scale,
-            self.out_norm_bias, eps=1e-6)
+            self.out_norm_bias, eps=1e-6, band=ctx.band)
         return self.conv_out(swish(h), ctx)

@@ -33,7 +33,8 @@ import torch
 from torch import nn
 
 from ...nn.module import (Gather, Scatter, SIGECtx, SIGEConv2d, SIGEModule,
-                          TileState, WindowState, add_macs, chain_rel)
+                          TileState, WindowState, add_macs, chain_rel,
+                          map_res)
 from ...nn.norm import group_norm_with_affine
 from ...ops import gather_tiles, scatter_gather_residual_tiles
 from ...ops.attention import masked_mha, mha, stale_fresh_biases
@@ -97,8 +98,9 @@ class SIGEVAEResnetBlock(ResBlock):
         out = self._run(x, ctx)
         if self._chainable and ctx.mode == "full":
             # plan products for the tile-resident sparse path
-            self.main_gather.request_sg(out.shape[1:3])
-            self.main_gather.request_pixsrc(out.shape[1:3])
+            res = map_res(out, ctx)
+            self.main_gather.request_sg(res)
+            self.main_gather.request_pixsrc(res)
         return out
 
     def _chain_sparse(self, x, ctx: SIGECtx) -> TileState:
@@ -175,6 +177,10 @@ class SIGEVAEAttnBlock(SIGEModule):
         if self.sparse_ok:
             k = self.k_scatter(k, ctx)  # full map (cached in full mode)
             v = self.v_scatter(v, ctx)
+        if ctx.band is not None:
+            # rows sharded over ranks: this rank's queries attend over
+            # every rank's K/V rows (the scatters cached this rank's band)
+            k, v = ctx.band.gather_rows(k), ctx.band.gather_rows(v)
         # tile layout: [B*K, bs, bs, C]; window / full: [B, H, W, C]
         qt = q.reshape(B, -1, C)
         kt, vt = k.reshape(B, -1, C), v.reshape(B, -1, C)
@@ -313,7 +319,7 @@ class SIGEEncoder(SIGEModule):
         h = self.mid_block2(h, ctx)
         h, _, _ = group_norm_with_affine(
             to_map(h), cfg.num_groups, self.norm_out_scale,
-            self.norm_out_bias, eps=1e-6)
+            self.norm_out_bias, eps=1e-6, band=ctx.band)
         return self.conv_out(swish(h), ctx)
 
 
@@ -372,7 +378,7 @@ class SIGEDecoder(SIGEModule):
         if not self._tail_sparse or ctx.mode == "dense":
             h, _, _ = group_norm_with_affine(
                 to_map(h), cfg.num_groups, self.norm_out_scale,
-                self.norm_out_bias, eps=1e-6)
+                self.norm_out_bias, eps=1e-6, band=ctx.band)
             return self.conv_out(swish(h), ctx)
         if ctx.mode == "full":
             h = to_map(h)

@@ -349,10 +349,12 @@ class SIGEModel:
 
     @torch.inference_mode()
     @fp32_scope()
-    def full(self, *args, cache_id: int = 0, **kwargs):
+    def full(self, *args, cache_id: int = 0, band=None, **kwargs):
         """Dense pass on the original input: refreshes every scatter cache
         of slot ``cache_id`` and the planning metadata. A new input shape
-        drops the stale plan and pins."""
+        drops the stale plan and pins. ``band``: this rank's row band
+        when the input is its band of a request sharded by rows
+        (``sige_torch.parallel.spatial``, which hands the caches on)."""
         sig = tuple(tuple(a.shape) if hasattr(a, "shape") else a
                     for a in args)
         if sig != self._input_sig:
@@ -362,7 +364,8 @@ class SIGEModel:
             self._input_sig = sig
             self.meta = None
         y = self._run(args, kwargs, SIGECtx(mode="full", cache_id=cache_id,
-                                            cache_dtype=self.cache_dtype))
+                                            cache_dtype=self.cache_dtype,
+                                            band=band))
         if self.meta is None:
             self.meta = self._gathers_meta()
         return y
@@ -483,9 +486,11 @@ class SIGEModel:
 
     @torch.inference_mode()
     @fp32_scope()
-    def dense(self, *args, **kwargs):
-        """Plain dense inference (the baseline), no caching."""
-        return self.module(*args, ctx=SIGECtx(mode="dense"), **kwargs)
+    def dense(self, *args, band=None, **kwargs):
+        """Plain dense inference (the baseline), no caching; ``band`` as
+        for :meth:`full`."""
+        return self.module(*args, ctx=SIGECtx(mode="dense", band=band),
+                           **kwargs)
 
     def clear_cache(self) -> None:
         """Empty every slot of the current state."""

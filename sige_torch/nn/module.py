@@ -72,6 +72,12 @@ class SIGECtx:
     projections keep the compute dtype. ``macs``, when a list, collects
     the analytic MACs of every layer the call runs (the port of the
     ``"profile"`` collection).
+
+    ``band``, in a forward whose rows are sharded over ranks
+    (``sige_torch.parallel.spatial``), is this rank's row band: the layers
+    reach the other ranks only through its methods (``halo``,
+    ``all_reduce``, ``gather_rows``, ``height``, ``cache_rows``); None on
+    one card. Sparse mode runs on one card and refuses a band.
     """
 
     mode: str = "full"
@@ -79,12 +85,26 @@ class SIGECtx:
     sparse_update: bool = False
     cache_dtype: Optional[torch.dtype] = None
     macs: Optional[List[float]] = None
+    band: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.mode == "sparse" and self.band is not None:
+            raise ValueError("sparse mode runs on one card: a sharded full "
+                             "pass hands its caches to one card "
+                             "(parallel/spatial.py)")
 
 
 def _pair(v) -> IntPair:
     if isinstance(v, int):
         return (v, v)
     return (int(v[0]), int(v[1]))
+
+
+def map_res(x: torch.Tensor, ctx: SIGECtx) -> IntPair:
+    """The (H, W) of NHWC map ``x`` as the whole canvas has it: under a
+    row band, the global height."""
+    h, w = x.shape[1:3]
+    return (h if ctx.band is None else ctx.band.height(h), w)
 
 
 def add_macs(ctx: SIGECtx, n: float) -> None:
@@ -117,10 +137,13 @@ class SIGEModule(nn.Module):
 
     def store(self, name: str, value: torch.Tensor, ctx: SIGECtx) -> None:
         """Write a scatter cache at the call's storage dtype (the tensor
-        itself when it already has that dtype)."""
+        itself when it already has that dtype); under a row band it is
+        the band's rows."""
         dtype = ctx.cache_dtype
         self.cache[name] = (value if dtype is None or value.dtype == dtype
                             else value.to(dtype))
+        if ctx.band is not None:
+            ctx.band.cache_rows(self.cache, name)
 
 
 class WindowState:
@@ -219,7 +242,7 @@ class Gather(SIGEModule):
                     "full mode never fuses epilogues; apply the norm densely")
             g = self.geom
             self.meta = {
-                "input_res": (np.array(x.shape[1:3], np.int32),),
+                "input_res": (np.array(map_res(x, ctx), np.int32),),
                 "geom": (np.array([*g.block_size, *g.block_stride, *g.offset,
                                    *g.kernel_size, *g.conv_stride], np.int32),),
             }
@@ -322,7 +345,7 @@ class Scatter(SIGEModule):
             return x if residual is None else x + residual
         if ctx.mode == "full":
             out = x if residual is None else x + residual
-            self.gather.request_src_map(out.shape[1:3])
+            self.gather.request_src_map(map_res(out, ctx))
             self.store("original", out, ctx)
             return out
         if ctx.mode == "sparse":
@@ -354,8 +377,9 @@ class ScatterGather(SIGEModule):
         if ctx.mode == "dense":
             return x
         if ctx.mode == "full":
-            self.gather.request_src_map(x.shape[1:3])
-            self.gather.request_sg(x.shape[1:3])
+            res = map_res(x, ctx)
+            self.gather.request_src_map(res)
+            self.gather.request_sg(res)
             self.store("original", x, ctx)
             return x
         if ctx.mode == "sparse":
@@ -397,8 +421,9 @@ class ScatterWithBlockResidual(SIGEModule):
             return x + residual
         if ctx.mode == "full":
             out = x + residual
-            self.main_gather.request_src_map(out.shape[1:3])
-            self.shortcut_gather.request_src_map(out.shape[1:3])
+            res = map_res(out, ctx)
+            self.main_gather.request_src_map(res)
+            self.shortcut_gather.request_src_map(res)
             self.store("original", out, ctx)
             self.store("residual", residual, ctx)
             return out
@@ -441,7 +466,8 @@ class SIGEConv2d(SIGEModule):
     stem conv, or resblock convs at non-sparse levels) so it keeps its
     padding in sparse mode. ``groups`` is flax's ``feature_group_count``
     (``in_channels`` for a depthwise conv); ``use_bias=False`` drops the
-    bias (GauGAN's shortcut convs).
+    bias (GauGAN's shortcut convs). Under a row band (dense and full
+    mode) the conv exchanges its halo rows with the neighbouring ranks.
     """
 
     def __init__(self, in_channels: int, features: int,
@@ -465,7 +491,7 @@ class SIGEConv2d(SIGEModule):
         else:
             padding = 0
         out = conv2d_nhwc(x, self.weight, self.bias, stride=self.stride,
-                          padding=padding, groups=self.groups)
+                          padding=padding, groups=self.groups, band=ctx.band)
         # per output element, kh * kw * (C_in / groups) multiply-adds
         _, cin, kh, kw = self.weight.shape
         add_macs(ctx, out.numel() * kh * kw * cin)

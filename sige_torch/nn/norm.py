@@ -23,17 +23,30 @@ def group_norm_with_affine(
     weight: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     eps: float = 1e-6,
+    band=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """GroupNorm over NHWC returning (normalized x, scale[B, C], shift[B, C])
     such that ``scale * raw_x + shift == normalized x``
-    (reference: diffusion/models/common.py:37-57)."""
+    (reference: diffusion/models/common.py:37-57).
+
+    ``band``: this rank's row band (``SIGECtx.band``) when ``x`` is its
+    band of a map sharded by rows: the statistics are the whole map's,
+    two passes as on one card (the mean from the all-reduced fp32 sums,
+    then the variance from the all-reduced sums of squared deviations),
+    the same bits on every rank."""
     B, H, W, C = x.shape
     gs = C // num_groups
     in_dtype = x.dtype
     # statistics always in fp32
     xg = x.to(torch.float32).reshape(B, H, W, num_groups, gs)
-    mean = xg.mean(dim=(1, 2, 4), keepdim=True)                 # [B,1,1,G,1]
-    var = (xg - mean).square().mean(dim=(1, 2, 4), keepdim=True)
+    if band is None:
+        mean = xg.mean(dim=(1, 2, 4), keepdim=True)             # [B,1,1,G,1]
+        var = (xg - mean).square().mean(dim=(1, 2, 4), keepdim=True)
+    else:
+        n = band.height(H) * W * gs
+        mean = band.all_reduce(xg.sum(dim=(1, 2, 4), keepdim=True)) / n
+        var = band.all_reduce(
+            (xg - mean).square().sum(dim=(1, 2, 4), keepdim=True)) / n
     std = torch.sqrt(var + eps)
     xn = ((xg - mean) / std).reshape(B, H, W, C).to(in_dtype)
     scale = (1.0 / std)[:, 0, 0, :, 0]                          # [B, G]
@@ -51,7 +64,7 @@ def group_norm_with_affine(
 
 
 def instance_norm_stats(
-    x: torch.Tensor, eps: float = 1e-5
+    x: torch.Tensor, eps: float = 1e-5, band=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """InstanceNorm statistics of NHWC ``x``, per (batch, channel), in
     fp32: (mean, rstd), each [B, 1, 1, C], with ``(x - mean) * rstd`` the
@@ -63,10 +76,17 @@ def instance_norm_stats(
     variance has rstd up to 1/sqrt(eps), and ``x * scale + shift`` turns
     the rounding of its two large terms into noise of that size, which
     differs between the full and the sparse pass; ``x - mean`` is exact
-    there."""
+    there. ``band``: as for :func:`group_norm_with_affine`, the whole
+    map's statistics from a row band's, the same bits on every rank."""
     xf = x.to(torch.float32)
-    mean = xf.mean(dim=(1, 2), keepdim=True)
-    var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
+    if band is None:
+        mean = xf.mean(dim=(1, 2), keepdim=True)
+        var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
+    else:
+        n = band.height(xf.shape[1]) * xf.shape[2]
+        mean = band.all_reduce(xf.sum(dim=(1, 2), keepdim=True)) / n
+        var = band.all_reduce(
+            (xf - mean).square().sum(dim=(1, 2), keepdim=True)) / n
     return mean, torch.rsqrt(var + eps)
 
 

@@ -9,6 +9,10 @@ layout (the weight bridge converts flax HWIO kernels).
 Tile convs run with VALID padding — gathered blocks carry their own halo,
 which is why the reference forces padding to zero in sparse mode
 (reference: sige/nn/base.py:80-92).
+
+Under a row band (rows of one map sharded over ranks,
+``sige_torch.parallel.spatial``) a conv takes the rows its kernel reaches
+beyond the band from the neighbouring ranks (:func:`band_halo`).
 """
 
 from __future__ import annotations
@@ -42,6 +46,30 @@ def _pads(padding) -> Tuple[IntPair, IntPair]:
     return ((ph, ph), (pw, pw))
 
 
+def band_halo(x: torch.Tensor, kh: int, stride: int, pads: IntPair,
+              band) -> torch.Tensor:
+    """This rank's band ``x`` [B, h, W, C] with the rows a conv of kernel
+    height ``kh``, row stride ``stride`` and row padding ``pads`` = (top,
+    bottom) reads beyond it: ``top`` rows from the rank above and ``kh -
+    stride - top`` from the rank below, zeros beyond the canvas (its
+    padding). The conv then runs with no row padding and gives this
+    rank's band of its output, h / stride rows. ValueError where the
+    bands do not line up: a band height not divisible by the stride (its
+    first row would fall between output rows), or a conv whose output is
+    not the input's height over its stride."""
+    h = x.shape[1]
+    H = band.height(h)
+    top, bottom = pads
+    if h % stride:
+        raise ValueError(f"a band of {h} rows under a stride-{stride} conv: "
+                         f"an odd band at this level (H={H} over "
+                         f"{H // h} ranks)")
+    if (H + top + bottom - kh) // stride + 1 != H // stride:
+        raise ValueError(f"a {kh}-row conv with stride {stride} and row "
+                         f"padding {pads} does not keep H={H} in bands")
+    return band.halo(x, top, max(kh - stride - top, 0))
+
+
 def conv2d_nhwc(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -49,13 +77,21 @@ def conv2d_nhwc(
     stride: Union[int, IntPair] = 1,
     padding=0,
     groups: int = 1,
+    band=None,
 ) -> torch.Tensor:
     """Dense conv of NHWC ``x`` with OIHW ``w`` ([O, I / groups, kh, kw];
     ``groups`` is flax's ``feature_group_count``, C_in for a depthwise
     conv). ``padding`` is symmetric int(s), explicit ((top, bottom),
     (left, right)) pairs (asymmetric padding, e.g. DDPM's Downsample), or
-    "VALID". Returns NHWC."""
+    "VALID". ``band``: this rank's row band (``SIGECtx.band``) when the
+    map's rows are sharded over ranks: ``x`` is the band, and so is the
+    output (:func:`band_halo`). Returns NHWC."""
     (pt, pb), (pl, pr) = _pads(padding)
+    if band is not None:
+        kh, sh = w.shape[2], _pair(stride)[0]
+        if kh > 1 or sh > 1 or pt or pb:
+            x = band_halo(x, kh, sh, (pt, pb), band)
+        pt = pb = 0
     xc = x.permute(0, 3, 1, 2)
     if pt == pb and pl == pr:
         pad_arg = (pt, pl)

@@ -5,13 +5,20 @@ shared shape pins) and ``upload_reuse``: ports of
 ``sige_tpu.parallel.serving``; and the (dp, tp) mesh both servers take
 (``make_mesh``, ``replicate``, ``shard_batch``, ``shard_cache``,
 ``gather_batch``): the port of ``sige_tpu.parallel.mesh`` over
-``torch.distributed`` ranks, one process per card. ``parallel/spatial.py``
-(rows of one request sharded over cards) is not ported yet."""
+``torch.distributed`` ranks, one process per card; and spatial
+parallelism (``make_spatial_mesh``, ``row_sharding``, ``spatial_apply``,
+``spatial_full_apply``, ``gather_rows``, ``gather_caches``): the port of
+``sige_tpu.parallel.spatial``, the rows of one big request over ranks."""
 
 from .mesh import (Mesh, gather_batch, make_mesh, replicate, shard_batch,
                    shard_cache)
 from .serving import PlanStack, SessionServer, TwinStepServer, upload_reuse
+from .spatial import (BandCaches, RowBand, SpatialMesh, gather_caches,
+                      gather_rows, make_spatial_mesh, row_sharding,
+                      spatial_apply, spatial_full_apply)
 
-__all__ = ["Mesh", "PlanStack", "SessionServer", "TwinStepServer",
-           "gather_batch", "make_mesh", "replicate", "shard_batch",
-           "shard_cache", "upload_reuse"]
+__all__ = ["BandCaches", "Mesh", "PlanStack", "RowBand", "SessionServer",
+           "SpatialMesh", "TwinStepServer", "gather_batch", "gather_caches",
+           "gather_rows", "make_mesh", "make_spatial_mesh", "replicate",
+           "row_sharding", "shard_batch", "shard_cache", "spatial_apply",
+           "spatial_full_apply", "upload_reuse"]

@@ -95,16 +95,29 @@ def make_mesh(n_devices: Optional[int] = None, tp: int = 1, group=None,
                          f"port runs one process per card")
     if tp < 1 or n % tp:
         raise ValueError(f"{n} ranks do not split into tp={tp}")
+    return Mesh(n // tp, tp, rank // tp, rank % tp, group,
+                rank_device(rank, world, device))
+
+
+def rank_device(rank: int, world: int, device=None) -> torch.device:
+    """A rank's device: ``device`` where given; else on several ranks
+    ``cuda:<local rank>`` (``LOCAL_RANK`` as ``torchrun`` sets it, else
+    the rank modulo the visible cards), and on one the current CUDA
+    device."""
     if device is None and world > 1 and torch.cuda.is_available():
         local = int(os.environ.get("LOCAL_RANK",
                                    rank % torch.cuda.device_count()))
         device = f"cuda:{local}"
-    return Mesh(n // tp, tp, rank // tp, rank % tp, group,
-                resolve_device(device))
+    return resolve_device(device)
 
 
-def _gloo(mesh: Mesh) -> bool:
-    return dist.get_backend(mesh.group) == dist.Backend.GLOO
+def staging(mesh) -> torch.device:
+    """Where a collective of ``mesh``'s group takes its tensors: the host
+    under gloo (CUDA tensors are staged through it), else the rank's
+    device."""
+    if dist.get_backend(mesh.group) == dist.Backend.GLOO:
+        return torch.device("cpu")
+    return mesh.device
 
 
 def replicate(mesh: Mesh, state_dict: Mapping[str, torch.Tensor]
@@ -116,7 +129,7 @@ def replicate(mesh: Mesh, state_dict: Mapping[str, torch.Tensor]
     shapes and dtypes must agree."""
     if mesh.size == 1:
         return dict(state_dict)
-    via = "cpu" if _gloo(mesh) else mesh.device
+    via = staging(mesh)
     keys = sorted(state_dict)
     ts = [state_dict[k].detach().to(via).contiguous() for k in keys]
     sizes = [t.numel() * t.element_size() for t in ts]
@@ -164,8 +177,23 @@ def gather_batch(mesh: Mesh, y: torch.Tensor) -> torch.Tensor:
     rows; the first of each is taken."""
     if mesh.size == 1:
         return y
-    via = "cpu" if _gloo(mesh) else mesh.device
-    part = y.detach().to(via).contiguous()
-    parts = [torch.empty_like(part) for _ in range(mesh.size)]
-    dist.all_gather(parts, part, group=mesh.group)
-    return torch.cat(parts[::mesh.tp]).to(y.device)
+    whole = all_gather_cat(mesh, y)
+    return whole.unflatten(0, (mesh.size, -1))[::mesh.tp].flatten(0, 1)
+
+
+def all_gather_cat(mesh, t: torch.Tensor, dim: int = 0,
+                   dst: Optional[int] = None) -> Optional[torch.Tensor]:
+    """Every rank's ``t`` (all of one shape) concatenated along ``dim`` in
+    the rank order of ``mesh``'s group, on ``t``'s device: on every rank
+    (``dst`` None, one all-gather) or on the group's rank ``dst`` alone
+    (one gather; None on the others)."""
+    part = t.detach().to(staging(mesh)).contiguous()
+    here = dst is None or dist.get_rank(mesh.group) == dst
+    parts = [torch.empty_like(part) for _ in range(mesh.size)] if here \
+        else None
+    if dst is None:
+        dist.all_gather(parts, part, group=mesh.group)
+    else:
+        root = dist.get_global_rank(mesh.group, dst) if mesh.group else dst
+        dist.gather(part, parts, dst=root, group=mesh.group)
+    return None if parts is None else torch.cat(parts, dim).to(t.device)

@@ -1237,3 +1237,84 @@ def test_session_kernels_refuse_what_they_do_not_take(op):
     assert err == -1
     torch.cuda.synchronize()
     assert getattr(ss, op).launches == before
+
+
+class TwoBands:
+    """The row bands of one map held in one process: the stand-in for
+    ``sige_torch.parallel.RowBand`` that ``conv2d_nhwc`` takes, rank
+    ``index`` of ``n`` reading its halo rows from the whole map ``full``
+    (zeros beyond it) where the real band receives them from its
+    neighbours."""
+
+    def __init__(self, full: torch.Tensor, index: int, n: int = 2):
+        self.full, self.index, self.n = full, index, n
+
+    def height(self, h: int) -> int:
+        return h * self.n
+
+    def band(self) -> torch.Tensor:
+        h = self.full.shape[1] // self.n
+        return self.full[:, self.index * h:(self.index + 1) * h]
+
+    def halo(self, x, above: int, below: int) -> torch.Tensor:
+        h = x.shape[1]
+        pad = torch.nn.functional.pad(self.full, (0, 0, 0, 0, above, below))
+        start = self.index * h
+        return pad[:, start:start + above + h + below]
+
+
+# the conv shapes of the sharded paths: (kernel, stride, padding)
+BAND_CONVS = {"3x3": (3, 1, 1),
+              "down (0, 1)": (3, 2, ((0, 1), (0, 1))),
+              "down pad 1": (3, 2, 1)}
+
+
+def band_conv_error(device: str, kernel: int, stride: int, padding) -> float:
+    """The largest difference, over max(1, max|ref|), between the whole
+    map's conv and the concatenation of its two bands' convs, each band
+    with its halo rows (:class:`TwoBands`)."""
+    from sige_torch.ops.conv import conv2d_nhwc
+
+    gen = torch.Generator().manual_seed(kernel + stride)
+    x = torch.randn(2, 12, 10, 8, generator=gen).to(device)
+    w = torch.randn(16, 8, kernel, kernel, generator=gen).to(device)
+    b = torch.randn(16, generator=gen).to(device)
+    with fp32_scope():
+        ref = conv2d_nhwc(x, w, b, stride=stride, padding=padding)
+        bands = [TwoBands(x, r) for r in range(2)]
+        got = torch.cat([conv2d_nhwc(t.band(), w, b, stride=stride,
+                                     padding=padding, band=t)
+                         for t in bands], dim=1)
+    assert got.shape == ref.shape
+    return ((got - ref).abs().max() / ref.abs().max().clamp(min=1)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(BAND_CONVS))
+def test_band_conv_matches_the_whole_map_on_card(shape):
+    """The halo form of ``conv2d_nhwc`` (two row bands of one map,
+    simulated in one process) on the card equals the conv of the whole
+    map within 1e-4 * max(1, max|ref|), for the 3x3 conv, the DDPM and VAE
+    downsample's (0, 1) pad at stride 2, and the SD U-Net's stride 2 with
+    padding 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("the card's convs run only on a CUDA device")
+    assert band_conv_error("cuda", *BAND_CONVS[shape]) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,M", [(128, 256), (512, 1024)])
+def test_local_queries_over_gathered_keys_on_card(N, M):
+    """The sharded mid attention's call shape at a small size: one rank's
+    queries (N = M / 2) over every rank's keys, D = 512; the kernel equals
+    its plain version within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("the flash kernel runs only on a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(N)
+    q, k, v = (torch.randn(1, n, 1, 512, generator=gen, device="cuda")
+               for n in (N, M, M))
+    got = flash.flash_mha(q, k, v, 512 ** -0.5)
+    torch.cuda.synchronize()
+    with fp32_scope():
+        want = flash.flash_mha_plain(q, k, v, 512 ** -0.5)
+    assert (got - want).abs().max().item() <= 1e-4
