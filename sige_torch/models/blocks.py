@@ -26,6 +26,7 @@ from ..ops.window import (is_fast_meta, scale_origin, sub_origin,
                           window_chain_extend, window_chain_extend_up2,
                           window_epilogue, window_extent, window_gather,
                           window_slice)
+from ..utils import trace
 
 RESAMPLES = (None, "down", "up")
 
@@ -97,7 +98,8 @@ class FoldedGroupNorm(SIGEModule):
                 self.cache["scale"], self.cache["shift"] = scale, shift
             return xn, None, None
         if ctx.mode == "sparse":
-            return None, self.cache["scale"], self.cache["shift"]
+            with trace.span("sige.op.norm"):
+                return None, self.cache["scale"], self.cache["shift"]
         raise ValueError(ctx.mode)
 
 
@@ -117,7 +119,8 @@ class FoldedNormAffine(SIGEModule):
             if ctx.mode == "full":
                 self.cache["scale"], self.cache["shift"] = sc, sh
             return xn, None, None
-        return None, self.cache["scale"], self.cache["shift"]
+        with trace.span("sige.op.norm"):
+            return None, self.cache["scale"], self.cache["shift"]
 
 
 class ResBlock(SIGEModule):
@@ -216,7 +219,8 @@ class ResBlock(SIGEModule):
                 and self.window_chain and not ctx.sparse_update
                 and self.main_gather.planned_window()
                 and self._chains_across_resample(x)):
-            return self._chain_window(x, ctx)
+            with trace.span("sige.op.chain"):
+                return self._chain_window(x, ctx)
         if isinstance(x, tuple):
             x = torch.cat([to_map(a) for a in x], dim=-1)
         else:
@@ -382,16 +386,18 @@ class SIGEDownsample(SIGEModule):
             # extraction window spans ~2x the coarse canonical window,
             # which the planner's nesting makes cover the carried fine
             # window
-            meta, edge = self.g.read_window()
-            if isinstance(x, WindowState):
-                ext = window_chain_extend(x.win, x.org, x.cache, meta, edge)
-            else:
-                ext = window_gather(x, meta, edge)
-            h = conv(ext, ctx)
-            cache = self.s.cache["original"]
-            org, cov = self.g.read_wsc(cache.shape[1:3])
-            y0w = window_slice(cache, org, window_extent(cov))
-            return WindowState(cov_where(cov, h, y0w), cache, org)
+            with trace.span("sige.op.chain"):
+                meta, edge = self.g.read_window()
+                if isinstance(x, WindowState):
+                    ext = window_chain_extend(x.win, x.org, x.cache, meta,
+                                              edge)
+                else:
+                    ext = window_gather(x, meta, edge)
+                h = conv(ext, ctx)
+                cache = self.s.cache["original"]
+                org, cov = self.g.read_wsc(cache.shape[1:3])
+                y0w = window_slice(cache, org, window_extent(cov))
+                return WindowState(cov_where(cov, h, y0w), cache, org)
         x = to_map(x)
         if self.sparse_ok:
             x = self.g(x, ctx)
@@ -421,15 +427,16 @@ class SIGEUpsample(SIGEModule):
                 and "wup_ok" in self.g.plan_host):
             # window-resident across the resample: the doubled carried
             # window covers the extraction window
-            meta, edge = self.g.read_window()
-            ext = window_chain_extend_up2(
-                up2(x.win), scale_origin(x.org, 2), meta, edge)
-            h = self.conv(ext, ctx)
-            cache = self.s.cache["original"]
-            org = self.g.window_origin()
-            _, cov = self.g.read_wsc(cache.shape[1:3])
-            y0w = window_slice(cache, org, window_extent(cov))
-            return WindowState(cov_where(cov, h, y0w), cache, org)
+            with trace.span("sige.op.chain"):
+                meta, edge = self.g.read_window()
+                ext = window_chain_extend_up2(
+                    up2(x.win), scale_origin(x.org, 2), meta, edge)
+                h = self.conv(ext, ctx)
+                cache = self.s.cache["original"]
+                org = self.g.window_origin()
+                _, cov = self.g.read_wsc(cache.shape[1:3])
+                y0w = window_slice(cache, org, window_extent(cov))
+                return WindowState(cov_where(cov, h, y0w), cache, org)
         x = up2(to_map(x))
         if self.sparse_ok:
             x = self.g(x, ctx)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import trace
 from .module import Gather, SIGECtx, SIGEModule
 from .planner import build_plan, choose_layout, plan_pins, plan_stats
 
@@ -112,9 +113,11 @@ def fp32_scope():
     (PERF.md section 5)."""
     saved = precision_flags()
     set_precision_flags(("ieee", "ieee", True, BENCHMARK_LIMIT))
+    trace.engine_scopes += 1
     try:
         yield
     finally:
+        trace.engine_scopes -= 1
         set_precision_flags(saved)
 
 
@@ -476,13 +479,14 @@ class SIGEModel:
         aside for it, since a chain never forms the scattered maps)."""
         if not self.plan:
             raise RuntimeError("call set_masks() before sparse()")
-        S = plan_sessions(self.plan_host)
-        if S and args[0].shape[0] % S:
-            raise ValueError(f"batch {args[0].shape[0]} is not a multiple of "
-                             f"the plan's {S} sessions")
-        return self._run(args, kwargs, SIGECtx(
-            mode="sparse", cache_id=cache_id, sparse_update=sparse_update,
-            cache_dtype=self.cache_dtype))
+        with trace.span("sige.engine.sparse"):
+            S = plan_sessions(self.plan_host)
+            if S and args[0].shape[0] % S:
+                raise ValueError(f"batch {args[0].shape[0]} is not a "
+                                 f"multiple of the plan's {S} sessions")
+            return self._run(args, kwargs, SIGECtx(
+                mode="sparse", cache_id=cache_id,
+                sparse_update=sparse_update, cache_dtype=self.cache_dtype))
 
     @torch.inference_mode()
     @fp32_scope()

@@ -46,6 +46,7 @@ from ..ops import (conv2d_nhwc, gather_tiles, materialize_tiles_box,
                    window_gather, window_scatter,
                    window_scatter_block_residual, window_scatter_gather,
                    window_state_materialize)
+from ..utils import trace
 
 IntPair = Tuple[int, int]
 
@@ -250,12 +251,14 @@ class Gather(SIGEModule):
                 self.meta["prepool"] = (np.int32(1),)
             return x
         if ctx.mode == "sparse":
-            if self.planned_window():
-                meta, edge = self.read_window()
-                return window_gather(x, meta, edge, scale, shift,
-                                     self.activation)
-            return gather_tiles(x, self.plan["indices"], self.plan["count"],
-                                self.geom, scale, shift, self.activation)
+            with trace.span("sige.op.gather"):
+                if self.planned_window():
+                    meta, edge = self.read_window()
+                    return window_gather(x, meta, edge, scale, shift,
+                                         self.activation)
+                return gather_tiles(x, self.plan["indices"],
+                                    self.plan["count"], self.geom, scale,
+                                    shift, self.activation)
         raise ValueError(f"unknown mode {ctx.mode}")
 
     # --- services for paired scatters --------------------------------------
@@ -349,17 +352,18 @@ class Scatter(SIGEModule):
             self.store("original", out, ctx)
             return out
         if ctx.mode == "sparse":
-            y = self.cache["original"]
-            if self.gather.planned_window():
-                org, cov = self.gather.read_wsc(y.shape[1:3])
-                out = window_scatter(x, y, org, cov, residual)
-            else:
-                box, org = self.gather.read_src_map(y.shape[1:3])
-                out = scatter_tiles_box(x, y, box, org, self.gather.geom,
-                                        residual)
-            if ctx.sparse_update:
-                self.store("original", out, ctx)
-            return out
+            with trace.span("sige.op.scatter"):
+                y = self.cache["original"]
+                if self.gather.planned_window():
+                    org, cov = self.gather.read_wsc(y.shape[1:3])
+                    out = window_scatter(x, y, org, cov, residual)
+                else:
+                    box, org = self.gather.read_src_map(y.shape[1:3])
+                    out = scatter_tiles_box(x, y, box, org, self.gather.geom,
+                                            residual)
+                if ctx.sparse_update:
+                    self.store("original", out, ctx)
+                return out
         raise ValueError(f"unknown mode {ctx.mode}")
 
 
@@ -383,27 +387,28 @@ class ScatterGather(SIGEModule):
             self.store("original", x, ctx)
             return x
         if ctx.mode == "sparse":
-            y = self.cache["original"]
-            res = y.shape[1:3]
-            if self.gather.planned_window():
-                meta, edge, cov = self.gather.read_wsg(res)
-                out = window_scatter_gather(
-                    x, y, meta, edge, cov, self.gather.geom.offset, scale,
-                    shift, self.activation)
-                if ctx.sparse_update:  # the fused op never forms the map
-                    org, wcov = self.gather.read_wsc(res)
-                    self.store("original", window_scatter(x, y, org, wcov),
-                               ctx)
+            with trace.span("sige.op.scatter_gather"):
+                y = self.cache["original"]
+                res = y.shape[1:3]
+                if self.gather.planned_window():
+                    meta, edge, cov = self.gather.read_wsg(res)
+                    out = window_scatter_gather(
+                        x, y, meta, edge, cov, self.gather.geom.offset, scale,
+                        shift, self.activation)
+                    if ctx.sparse_update:  # the fused op never forms the map
+                        org, wcov = self.gather.read_wsc(res)
+                        self.store("original", window_scatter(x, y, org, wcov),
+                                   ctx)
+                    return out
+                sg_src, sg_flat = self.gather.read_sg(res)
+                out = scatter_gather_tiles(
+                    x, y, sg_src, sg_flat, self.gather.geom, scale, shift,
+                    self.activation)
+                if ctx.sparse_update:
+                    box, org = self.gather.read_src_map(res)
+                    self.store("original", scatter_tiles_box(
+                        x, y, box, org, self.gather.geom), ctx)
                 return out
-            sg_src, sg_flat = self.gather.read_sg(res)
-            out = scatter_gather_tiles(
-                x, y, sg_src, sg_flat, self.gather.geom, scale, shift,
-                self.activation)
-            if ctx.sparse_update:
-                box, org = self.gather.read_src_map(res)
-                self.store("original", scatter_tiles_box(
-                    x, y, box, org, self.gather.geom), ctx)
-            return out
         raise ValueError(f"unknown mode {ctx.mode}")
 
 
@@ -428,31 +433,32 @@ class ScatterWithBlockResidual(SIGEModule):
             self.store("residual", residual, ctx)
             return out
         if ctx.mode == "sparse":
-            y0 = self.cache["original"]
-            y1 = self.cache["residual"]
-            res = y0.shape[1:3]
-            if self.main_gather.planned_window():
-                org, cov_m = self.main_gather.read_wsc(res)
-                _, cov_s = self.shortcut_gather.read_wsc(res)
-                out = window_scatter_block_residual(
-                    x, y0, residual, y1, org, cov_m, cov_s)
+            with trace.span("sige.op.block_residual"):
+                y0 = self.cache["original"]
+                y1 = self.cache["residual"]
+                res = y0.shape[1:3]
+                if self.main_gather.planned_window():
+                    org, cov_m = self.main_gather.read_wsc(res)
+                    _, cov_s = self.shortcut_gather.read_wsc(res)
+                    out = window_scatter_block_residual(
+                        x, y0, residual, y1, org, cov_m, cov_s)
+                    if ctx.sparse_update:
+                        self.store("original", out, ctx)
+                        self.store("residual", window_scatter(
+                            residual, y1, org, cov_s), ctx)
+                    return out
+                m_box, m_org = self.main_gather.read_src_map(res)
+                s_box, s_org = self.shortcut_gather.read_src_map(res)
+                out = scatter_with_block_residual_box(
+                    x, y0, residual, y1,
+                    m_box, m_org, self.main_gather.geom,
+                    s_box, s_org, self.shortcut_gather.geom)
                 if ctx.sparse_update:
                     self.store("original", out, ctx)
-                    self.store("residual", window_scatter(
-                        residual, y1, org, cov_s), ctx)
+                    self.store("residual", scatter_tiles_box(
+                        residual, y1, s_box, s_org, self.shortcut_gather.geom),
+                        ctx)
                 return out
-            m_box, m_org = self.main_gather.read_src_map(res)
-            s_box, s_org = self.shortcut_gather.read_src_map(res)
-            out = scatter_with_block_residual_box(
-                x, y0, residual, y1,
-                m_box, m_org, self.main_gather.geom,
-                s_box, s_org, self.shortcut_gather.geom)
-            if ctx.sparse_update:
-                self.store("original", out, ctx)
-                self.store("residual", scatter_tiles_box(
-                    residual, y1, s_box, s_org, self.shortcut_gather.geom),
-                    ctx)
-            return out
         raise ValueError(f"unknown mode {ctx.mode}")
 
 
@@ -490,8 +496,11 @@ class SIGEConv2d(SIGEModule):
             padding = self.padding
         else:
             padding = 0
-        out = conv2d_nhwc(x, self.weight, self.bias, stride=self.stride,
-                          padding=padding, groups=self.groups, band=ctx.band)
+        with (trace.span("sige.op.conv") if ctx.mode == "sparse"
+              else trace.OFF):
+            out = conv2d_nhwc(x, self.weight, self.bias, stride=self.stride,
+                              padding=padding, groups=self.groups,
+                              band=ctx.band)
         # per output element, kh * kw * (C_in / groups) multiply-adds
         _, cin, kh, kw = self.weight.shape
         add_macs(ctx, out.numel() * kh * kw * cin)

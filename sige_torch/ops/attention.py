@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .flash import flash_mha
 from .sessions import _clamp, _per_session, _rows, is_sessions
 from .window import window_extent
@@ -36,13 +37,14 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
 
     q: [B, N, heads*dim_head]; k/v: [B, M, heads*dim_head], same dtype
     as q. Returns [B, N, heads*dim_head]."""
-    B, N, _ = q.shape
-    M = k.shape[1]
-    qh = q.reshape(B, N, heads, dim_head)
-    kh = k.reshape(B, M, heads, dim_head)
-    vh = v.reshape(B, M, heads, dim_head)
-    out = flash_mha(qh, kh, vh, dim_head ** -0.5)
-    return out.reshape(B, N, heads * dim_head)
+    with trace.span("sige.op.attention"):
+        B, N, _ = q.shape
+        M = k.shape[1]
+        qh = q.reshape(B, N, heads, dim_head)
+        kh = k.reshape(B, M, heads, dim_head)
+        vh = v.reshape(B, M, heads, dim_head)
+        out = flash_mha(qh, kh, vh, dim_head ** -0.5)
+        return out.reshape(B, N, heads * dim_head)
 
 
 def stale_fresh_biases(cov: torch.Tensor, org, res):
@@ -104,14 +106,17 @@ def masked_mha(q: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
     dtype, cast to q's); kf/vf: [B, Mf, inner]; bias_s/bias_f: [Ms]/[Mf]
     float32, or [S, Ms]/[S, Mf] with one row per session of a batch
     stacked over S sessions (:func:`stale_fresh_biases`)."""
-    B, N, _ = q.shape
-    Ms, Mf = ks.shape[1], kf.shape[1]
-    qh = q.reshape(B, N, heads, dim_head)
-    # the concatenation promotes a narrow stale map as it copies it
-    kh = torch.cat([ks.reshape(B, Ms, heads, dim_head),
-                    kf.reshape(B, Mf, heads, dim_head)], dim=1).to(q.dtype)
-    vh = torch.cat([vs.reshape(B, Ms, heads, dim_head),
-                    vf.reshape(B, Mf, heads, dim_head)], dim=1).to(q.dtype)
-    bias = torch.cat([bias_s, bias_f], dim=-1).to(torch.float32)
-    out = flash_mha(qh, kh, vh, dim_head ** -0.5, bias=bias)
-    return out.reshape(B, N, heads * dim_head)
+    with trace.span("sige.op.attention"):
+        B, N, _ = q.shape
+        Ms, Mf = ks.shape[1], kf.shape[1]
+        qh = q.reshape(B, N, heads, dim_head)
+        # the concatenation promotes a narrow stale map as it copies it
+        kh = torch.cat([ks.reshape(B, Ms, heads, dim_head),
+                        kf.reshape(B, Mf, heads, dim_head)],
+                       dim=1).to(q.dtype)
+        vh = torch.cat([vs.reshape(B, Ms, heads, dim_head),
+                        vf.reshape(B, Mf, heads, dim_head)],
+                       dim=1).to(q.dtype)
+        bias = torch.cat([bias_s, bias_f], dim=-1).to(torch.float32)
+        out = flash_mha(qh, kh, vh, dim_head ** -0.5, bias=bias)
+        return out.reshape(B, N, heads * dim_head)

@@ -22,6 +22,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
+
 IntPair = Tuple[int, int]
 
 
@@ -85,7 +87,10 @@ def conv2d_nhwc(
     (left, right)) pairs (asymmetric padding, e.g. DDPM's Downsample), or
     "VALID". ``band``: this rank's row band (``SIGECtx.band``) when the
     map's rows are sharded over ranks: ``x`` is the band, and so is the
-    output (:func:`band_halo`). Returns NHWC."""
+    output (:func:`band_halo`). Returns NHWC. Inside the engine's
+    ``fp32_scope`` a conv new to the process counts toward
+    ``conv_new_shapes`` (:mod:`sige_torch.utils.trace`; channels last
+    reads as a unit channel stride)."""
     (pt, pb), (pl, pr) = _pads(padding)
     if band is not None:
         kh, sh = w.shape[2], _pair(stride)[0]
@@ -98,8 +103,12 @@ def conv2d_nhwc(
     else:
         xc = F.pad(xc, (pl, pr, pt, pb))
         pad_arg = 0
+    stride = _pair(stride)
+    if trace.engine_scopes:
+        trace.conv_key((xc.shape, xc.stride(1) == 1, w.shape, stride,
+                         pad_arg, groups, x.dtype))
     out = F.conv2d(xc, w.to(x.dtype), None if b is None else b.to(x.dtype),
-                   stride=_pair(stride), padding=pad_arg, groups=groups)
+                   stride=stride, padding=pad_arg, groups=groups)
     return out.permute(0, 2, 3, 1)
 
 

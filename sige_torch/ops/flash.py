@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import trace
 from .cuda_lib import CSRC, CudaLibrary
 
 SOURCE = CSRC / "flash_attn.cu"
@@ -195,38 +196,39 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     (None: :func:`_num_splits`'s choice). With ``splits`` > 1 the
     attention kernel writes its partials into scratch allocated with the
     output, and the combine kernel merges them into the output."""
-    B, N, H, D, M = _check(qh, kh, vh, bias)
     index = qh.device.index
     if index != torch.cuda.current_device():
         with torch.cuda.device(index):
             return _launch(qh, kh, vh, scale, bias, splits)
-    tiles = -(-M // BLOCK_K)
-    if splits is None:
-        splits = _num_splits(B * H, N, M, D, _sm_count(index))
-    elif not 1 <= splits <= tiles:
-        raise ValueError(f"splits must be in [1, {tiles}] for M = {M}, "
-                         f"got {splits}")
-    fn = LIBRARY.load().sige_flash_attn_f32
-    q, k, v = _kernel_ready(qh), _kernel_ready(kh), _kernel_ready(vh)
-    # one allocation: out [B, N, H, D], then with splits > 1 the partials
-    # o_part [S, B, H, N, D], m_part and l_part [S, B, H, N]
-    size = B * N * H * D
-    extra = 0 if splits == 1 else splits * B * H * N * (D + 2)
-    buf = torch.empty(size + extra, dtype=torch.float32, device=qh.device)
-    out = buf[:size].view(B, N, H, D)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             None if bias is None else bias.data_ptr(), buf.data_ptr(),
-             None if splits == 1 else buf.data_ptr() + 4 * size,
-             B, H, N, M, D, splits,
-             1 if bias is None else bias_rows(bias, M), float(scale),
-             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *out.stride()[:3], torch._C._cuda_getCurrentRawStream(index))
-    if err != 0:
-        raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
-    flash_mha.launches += 1
-    if splits > 1:
-        flash_mha.combine_launches += 1
-    return out
+    with trace.span("sige.kernel.flash"):
+        B, N, H, D, M = _check(qh, kh, vh, bias)
+        tiles = -(-M // BLOCK_K)
+        if splits is None:
+            splits = _num_splits(B * H, N, M, D, _sm_count(index))
+        elif not 1 <= splits <= tiles:
+            raise ValueError(f"splits must be in [1, {tiles}] for M = {M}, "
+                             f"got {splits}")
+        fn = LIBRARY.load().sige_flash_attn_f32
+        q, k, v = _kernel_ready(qh), _kernel_ready(kh), _kernel_ready(vh)
+        # one allocation: out [B, N, H, D], then with splits > 1 the partials
+        # o_part [S, B, H, N, D], m_part and l_part [S, B, H, N]
+        size = B * N * H * D
+        extra = 0 if splits == 1 else splits * B * H * N * (D + 2)
+        buf = torch.empty(size + extra, dtype=torch.float32, device=qh.device)
+        out = buf[:size].view(B, N, H, D)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if bias is None else bias.data_ptr(), buf.data_ptr(),
+                 None if splits == 1 else buf.data_ptr() + 4 * size,
+                 B, H, N, M, D, splits,
+                 1 if bias is None else bias_rows(bias, M), float(scale),
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *out.stride()[:3], torch._C._cuda_getCurrentRawStream(index))
+        if err != 0:
+            raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
+        flash_mha.launches += 1
+        if splits > 1:
+            flash_mha.combine_launches += 1
+        return out
 
 
 def flash_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,

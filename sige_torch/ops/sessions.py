@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import trace
 from .cuda_lib import CSRC, CudaLibrary
 from .gather import apply_epilogue, broadcast_param
 
@@ -311,39 +312,42 @@ def _crop_cuda(x, org, EH, EW, edge, scale, shift, activation,
         with torch.cuda.device(x.device):
             return _crop_cuda(x, org, EH, EW, edge, scale, shift,
                               activation, activation_first, clamp)
-    N, H, W, C = x.shape
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"crop_sessions takes fp32 or bf16, got {x.dtype}")
-    S = _count(org, edge)
-    B = _split(N, S)
-    epi = _has_epilogue(scale, shift, activation)
-    sc = sh = (None, 1)
-    if epi and x.dtype == torch.float32:
-        sc = _param_arg(scale, N, C, x.device)
-        sh = _param_arg(shift, N, C, x.device)
-    if epi and (x.dtype != torch.float32 or sc is False or sh is False):
-        win = _crop_cuda(x, org, EH, EW, None, None, None, "identity",
-                         False, clamp)
-        return _epilogue(win, S, edge, scale, shift, activation,
-                         activation_first)
-    o, k, r0, c0 = _origin_args(org, x.device)
-    e, per = _mask_arg(edge, S, (EH, EW), x.device)
-    out = torch.empty((N, EH, EW, C), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
+    with trace.span("sige.kernel.crop"):
+        N, H, W, C = x.shape
+        if x.dtype not in _DTYPES:
+            raise TypeError(f"crop_sessions takes fp32 or bf16, got "
+                            f"{x.dtype}")
+        S = _count(org, edge)
+        B = _split(N, S)
+        epi = _has_epilogue(scale, shift, activation)
+        sc = sh = (None, 1)
+        if epi and x.dtype == torch.float32:
+            sc = _param_arg(scale, N, C, x.device)
+            sh = _param_arg(shift, N, C, x.device)
+        if epi and (x.dtype != torch.float32 or sc is False or sh is False):
+            win = _crop_cuda(x, org, EH, EW, None, None, None, "identity",
+                             False, clamp)
+            return _epilogue(win, S, edge, scale, shift, activation,
+                             activation_first)
+        o, k, r0, c0 = _origin_args(org, x.device)
+        e, per = _mask_arg(edge, S, (EH, EW), x.device)
+        out = torch.empty((N, EH, EW, C), dtype=x.dtype, device=x.device)
+        if out.numel() == 0:
+            return out
+        vec = crop_vector_width(x, (sc[0], sh[0]))
+        chunks = row_chunks(N * EH, EW * C // vec)
+        err = LIBRARY.load().sige_crop_sessions(
+            _DTYPES[x.dtype], vec, chunks, x.data_ptr(), out.data_ptr(),
+            _ptr(o), k, r0, c0, int(clamp), N, B, H, W, C, EH, EW,
+            *x.stride(), _ptr(e), per, _ptr(sc[0]), sc[1], _ptr(sh[0]),
+            sh[1], _ACTS[activation], int(activation_first), int(epi),
+            _stream(x.device))
+        if err != 0:
+            raise RuntimeError(f"crop_sessions_f32 launch failed: CUDA error "
+                               f"{err}")
+        crop_sessions.launches += 1
+        crop_sessions.scalar_launches += int(vec == 1)
         return out
-    vec = crop_vector_width(x, (sc[0], sh[0]))
-    chunks = row_chunks(N * EH, EW * C // vec)
-    err = LIBRARY.load().sige_crop_sessions(
-        _DTYPES[x.dtype], vec, chunks, x.data_ptr(), out.data_ptr(), _ptr(o),
-        k, r0, c0, int(clamp), N, B, H, W, C, EH, EW, *x.stride(), _ptr(e),
-        per, _ptr(sc[0]), sc[1], _ptr(sh[0]), sh[1], _ACTS[activation],
-        int(activation_first), int(epi), _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"crop_sessions_f32 launch failed: CUDA error "
-                           f"{err}")
-    crop_sessions.launches += 1
-    crop_sessions.scalar_launches += int(vec == 1)
-    return out
 
 
 def _paste_cuda(base, win, org, cov, clamp):
@@ -351,38 +355,39 @@ def _paste_cuda(base, win, org, cov, clamp):
     if base.device.index != torch.cuda.current_device():
         with torch.cuda.device(base.device):
             return _paste_cuda(base, win, org, cov, clamp)
-    _same_device(win, base.device, "window")
-    N, H, W, C = base.shape
-    WH, WW = win.shape[1:3]
-    pair = (base.dtype, win.dtype)
-    if pair not in ((torch.float32, torch.float32),
-                    (torch.bfloat16, torch.float32),
-                    (torch.bfloat16, torch.bfloat16)):
-        raise TypeError(f"paste_sessions takes (base, window) dtypes fp32/"
-                        f"fp32, bf16/fp32 or bf16/bf16, got {pair}")
-    if win.shape[0] != N or win.shape[3] != C:
-        raise ValueError(f"window {tuple(win.shape)} for base "
-                         f"{tuple(base.shape)}")
-    S = _count(org, cov)
-    B = _split(N, S)
-    o, k, r0, c0 = _origin_args(org, base.device)
-    cv, per = _mask_arg(cov, S, (WH, WW), base.device)
-    out = torch.empty((N, H, W, C), dtype=win.dtype, device=base.device)
-    if out.numel() == 0:
+    with trace.span("sige.kernel.paste"):
+        _same_device(win, base.device, "window")
+        N, H, W, C = base.shape
+        WH, WW = win.shape[1:3]
+        pair = (base.dtype, win.dtype)
+        if pair not in ((torch.float32, torch.float32),
+                        (torch.bfloat16, torch.float32),
+                        (torch.bfloat16, torch.bfloat16)):
+            raise TypeError(f"paste_sessions takes (base, window) dtypes fp32/"
+                            f"fp32, bf16/fp32 or bf16/bf16, got {pair}")
+        if win.shape[0] != N or win.shape[3] != C:
+            raise ValueError(f"window {tuple(win.shape)} for base "
+                             f"{tuple(base.shape)}")
+        S = _count(org, cov)
+        B = _split(N, S)
+        o, k, r0, c0 = _origin_args(org, base.device)
+        cv, per = _mask_arg(cov, S, (WH, WW), base.device)
+        out = torch.empty((N, H, W, C), dtype=win.dtype, device=base.device)
+        if out.numel() == 0:
+            return out
+        vec = paste_vector_width(base, win)
+        chunks = row_chunks(N * H, W * C // vec)
+        err = LIBRARY.load().sige_paste_sessions(
+            _DTYPES[base.dtype], _DTYPES[win.dtype], vec, chunks,
+            base.data_ptr(), win.data_ptr(), out.data_ptr(), _ptr(o), k, r0,
+            c0, int(clamp), N, B, H, W, C, WH, WW, *base.stride(),
+            *win.stride(), _ptr(cv), per, _stream(base.device))
+        if err != 0:
+            raise RuntimeError(f"paste_sessions_f32 launch failed: CUDA error "
+                               f"{err}")
+        paste_sessions.launches += 1
+        paste_sessions.scalar_launches += int(vec == 1)
         return out
-    vec = paste_vector_width(base, win)
-    chunks = row_chunks(N * H, W * C // vec)
-    err = LIBRARY.load().sige_paste_sessions(
-        _DTYPES[base.dtype], _DTYPES[win.dtype], vec, chunks,
-        base.data_ptr(), win.data_ptr(), out.data_ptr(), _ptr(o), k, r0, c0,
-        int(clamp), N, B, H, W, C, WH, WW, *base.stride(), *win.stride(),
-        _ptr(cv), per, _stream(base.device))
-    if err != 0:
-        raise RuntimeError(f"paste_sessions_f32 launch failed: CUDA error "
-                           f"{err}")
-    paste_sessions.launches += 1
-    paste_sessions.scalar_launches += int(vec == 1)
-    return out
 
 
 def _route(t: torch.Tensor, what: str) -> bool:

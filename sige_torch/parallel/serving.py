@@ -38,6 +38,7 @@ from torch import nn
 
 from ..nn.engine import SIGEModel, _get_path, plan_leaves, upload_leaves
 from ..nn.planner import build_plan, merge_pins, plan_layout, plan_pins
+from ..utils import trace
 from .mesh import Mesh, make_mesh, replicate, shard_batch
 
 
@@ -194,6 +195,7 @@ class PlanStack:
         return caps
 
     def _build(self, masks, i=None):
+        trace.counters["plans_built"] += 1
         wins = {}
         plan = build_plan(self.meta, masks, self.bucket_min, self._caps(),
                           layout=self.layout,
@@ -236,6 +238,7 @@ class PlanStack:
         return True
 
     def set(self, i: int, masks) -> None:
+        trace.counters["edits"] += 1
         self.masks[i] = masks
         self.plans[i] = self._build(masks, i)
         self._stacked = None
@@ -254,28 +257,30 @@ class PlanStack:
     def stacked(self):
         if self._stacked is not None:
             return self._stacked
-        missing = [i for i, p in enumerate(self.plans) if p is None]
-        if missing:
-            raise RuntimeError(f"set_masks() missing for sessions {missing}")
-        # pin -> rebuild iterates: enforcing a merged window extent can
-        # re-grow a NESTED coarser window past ITS pin (border clamping
-        # differs per session), re-drifting shapes. Extents only grow and
-        # are canvas-capped, so this terminates — 2 rounds in practice.
-        for _ in range(16):
-            try:
-                self._stacked = _stack_trees(self.plans)
-                return self._stacked
-            except ValueError:
-                if self.meta_fast and self._meta_form_mismatch():
-                    # a border edit met interior ones: the uniform 4-form
-                    # for every session (re-pinning cannot fix a form)
-                    self.meta_fast = False
-                    self.plans = [self._build(m, i)
-                                  for i, m in enumerate(self.masks)]
-                else:
-                    self._repin()
-        raise RuntimeError("plan stacking failed to converge on shared "
-                           "shape pins (window nesting did not settle)")
+        with trace.span("sige.serving.stack"):
+            missing = [i for i, p in enumerate(self.plans) if p is None]
+            if missing:
+                raise RuntimeError(f"set_masks() missing for sessions "
+                                   f"{missing}")
+            # pin -> rebuild iterates: enforcing a merged window extent can
+            # re-grow a NESTED coarser window past ITS pin (border clamping
+            # differs per session), re-drifting shapes. Extents only grow and
+            # are canvas-capped, so this terminates — 2 rounds in practice.
+            for _ in range(16):
+                try:
+                    self._stacked = _stack_trees(self.plans)
+                    return self._stacked
+                except ValueError:
+                    if self.meta_fast and self._meta_form_mismatch():
+                        # a border edit met interior ones: the uniform 4-form
+                        # for every session (re-pinning cannot fix a form)
+                        self.meta_fast = False
+                        self.plans = [self._build(m, i)
+                                      for i, m in enumerate(self.masks)]
+                    else:
+                        self._repin()
+            raise RuntimeError("plan stacking failed to converge on shared "
+                               "shape pins (window nesting did not settle)")
 
     def _meta_form_mismatch(self) -> bool:
         """True when any window-meta leaf ships in the fast 2-form in one
@@ -310,33 +315,34 @@ def upload_reuse(device, prev_host: Optional[Mapping],
     it. So the kept leaves come from ONE earlier buffer, the one they keep
     most bytes of, and the others move again: over any run of edits the
     plan holds at most two packed buffers."""
-    leaves = plan_leaves(host)
-    reuse = [None] * len(leaves)
-    if prev_host is not None and prev_dev is not None:
-        prev = plan_leaves(prev_host)
-        if [p for p, _ in prev] == [p for p, _ in leaves]:
-            reuse = [_get_path(prev_dev, path)
-                     if (a.shape == b.shape and a.dtype == b.dtype
-                         and np.array_equal(a, b)) else None
-                     for (path, a), (_, b) in zip(leaves, prev)]
-    kept: Dict[int, int] = {}
-    for r in reuse:
-        if r is not None:
-            buf = r.untyped_storage().data_ptr()
-            kept[buf] = kept.get(buf, 0) + r.nbytes
-    main = max(kept, key=kept.get, default=None)
-    reuse = [r if r is not None and r.untyped_storage().data_ptr() == main
-             else None for r in reuse]
-    fresh = iter(upload_leaves(
-        [a for (_, a), r in zip(leaves, reuse) if r is None],
-        torch.device(device)))
-    out: Dict = {}
-    for (path, _), r in zip(leaves, reuse):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = r if r is not None else next(fresh)
-    return out
+    with trace.span("sige.serving.upload"):
+        leaves = plan_leaves(host)
+        reuse = [None] * len(leaves)
+        if prev_host is not None and prev_dev is not None:
+            prev = plan_leaves(prev_host)
+            if [p for p, _ in prev] == [p for p, _ in leaves]:
+                reuse = [_get_path(prev_dev, path)
+                         if (a.shape == b.shape and a.dtype == b.dtype
+                             and np.array_equal(a, b)) else None
+                         for (path, a), (_, b) in zip(leaves, prev)]
+        kept: Dict[int, int] = {}
+        for r in reuse:
+            if r is not None:
+                buf = r.untyped_storage().data_ptr()
+                kept[buf] = kept.get(buf, 0) + r.nbytes
+        main = max(kept, key=kept.get, default=None)
+        reuse = [r if r is not None and r.untyped_storage().data_ptr() == main
+                 else None for r in reuse]
+        fresh = iter(upload_leaves(
+            [a for (_, a), r in zip(leaves, reuse) if r is None],
+            torch.device(device)))
+        out: Dict = {}
+        for (path, _), r in zip(leaves, reuse):
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = r if r is not None else next(fresh)
+        return out
 
 
 def _flat(t):
@@ -416,20 +422,24 @@ class SessionServer:
         """Host planning for session ``i``'s edit mask pyramid."""
         if self._stack is None:
             raise RuntimeError("prime() before set_masks()")
-        self._stack.set(i, masks)
+        with trace.span("sige.serving.set_masks"):
+            self._stack.set(i, masks)
 
     def _install(self) -> None:
         """This rank's rows of the stacked plan on the card and in the
         model, moved again only when ``PlanStack.stacked()`` returns a new
         tree (unchanged leaves keep their device tensors)."""
-        stacked, state = self._stack.stacked(), self.model.state
-        if stacked is self._installed and state.plan:
-            return
-        host = stacked if self.mesh.dp == 1 else _session_rows(
-            stacked, self.mesh.rows(self.num_sessions))
-        self.model.set_plan(host, plan_layout(host), device_plan=upload_reuse(
-            self.model.device, state.plan_host, state.plan, host))
-        self._installed = stacked
+        with trace.span("sige.serving.install"):
+            stacked, state = self._stack.stacked(), self.model.state
+            if stacked is self._installed and state.plan:
+                return
+            host = stacked if self.mesh.dp == 1 else _session_rows(
+                stacked, self.mesh.rows(self.num_sessions))
+            self.model.set_plan(host, plan_layout(host),
+                                device_plan=upload_reuse(
+                                    self.model.device, state.plan_host,
+                                    state.plan, host))
+            self._installed = stacked
 
     def step(self, x_edit, *args, sparse_update: bool = False):
         """One sparse forward over the sessions ([S, B, ...] in; out this
@@ -438,8 +448,9 @@ class SessionServer:
         "apply")."""
         if self._stack is None:
             raise RuntimeError("prime() before step()")
-        self._install()
-        y = self.model.sparse(self._rows(x_edit),
-                              *(self._rows(a) for a in args),
-                              sparse_update=sparse_update)
-        return y.unflatten(0, (self.num_sessions // self.mesh.dp, -1))
+        with trace.span("sige.serving.step"):
+            self._install()
+            y = self.model.sparse(self._rows(x_edit),
+                                  *(self._rows(a) for a in args),
+                                  sparse_update=sparse_update)
+            return y.unflatten(0, (self.num_sessions // self.mesh.dp, -1))
