@@ -354,7 +354,7 @@ import torch
 
 from sige_torch.nn.engine import (fp32_scope, plan_leaves, precision_flags,
                                   set_precision_flags)
-from sige_torch.runners.common import storage_mb, tree_leaves
+from sige_torch.runners.common import storage_mb
 
 # H100 SXM published peaks: fp32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -4399,53 +4399,53 @@ def session_kernel_row(key, rec, calls_per_step):
     return row
 
 
-def upload_reuse_ms(server, masks, n: int = 10):
-    """What ``upload_reuse`` saves when session 0 moves its edit by 8 px
+def row_install_ms(server, masks, n: int = 10):
+    """What the resident plan saves when session 0 moves its edit by 8 px
     (its mask pyramid rolled): host ms (median of ``n``, synchronised) of
-    the stacked plan's whole upload (``upload_plan``) and of the upload
-    that reuses the unchanged leaves, the leaves kept. Then what the plan
-    holds on the card over a run of six moved edits (sessions in turn,
-    moves of 8, 2, 12, 2, 4 and 2 px), each uploaded over the last as
-    the server's ``_install`` does: the most packed buffers and device
-    bytes it held against its own leaves' bytes. All on a copy of the
-    server's ``PlanStack``: the server's plan and pins stay as they
-    were."""
+    a fresh restack moved whole (``upload_plan``) and of the row path
+    (``PlanStack.stacked`` writing the row in place, ``ResidentPlan.
+    update`` moving the whole buffer in one copy), with the leaves the
+    move changes. Then six moved edits (sessions in turn, moves of 8, 2,
+    12, 2, 4 and 2 px): the installs that took the row path and the
+    buffers the device plan ever held. All on a copy of the server's
+    ``PlanStack``: the server's plan and pins stay as they were."""
     from sige_torch.nn.engine import upload_plan
-    from sige_torch.parallel import upload_reuse
+    from sige_torch.parallel import ResidentPlan
+    from sige_torch.parallel.serving import _stack_trees
+    from sige_torch.utils import trace
 
     stack, dev = copy.deepcopy(server._stack), server.model.device
+    plan = ResidentPlan(dev, slice(0, len(masks)))
     R = max(masks[0])[0]
 
     def moved(i, px):
         return {res: np.roll(m, (px * res[0] // R, px * res[1] // R),
                              axis=(0, 1)) for res, m in masks[i].items()}
 
-    host1 = stack.stacked()
-    dev1 = upload_plan(host1, dev)
+    plan.update(stack)
+    host1 = _stack_trees(stack.plans)
     stack.set(0, moved(0, 8))
-    host2 = stack.stacked()
+    plan.update(stack)  # any re-pin happens here
+    host2 = _stack_trees(stack.plans)
     a, b = dict(plan_leaves(host1)), dict(plan_leaves(host2))
-    kept = sum(1 for k, v in b.items() if k in a and a[k].shape == v.shape
-               and a[k].dtype == v.dtype and np.array_equal(a[k], v))
-    whole = float(np.median([host_ms(lambda: upload_plan(host2, dev))[1]
-                             for _ in range(n)]))
-    reuse = float(np.median([host_ms(lambda: upload_reuse(
-        dev, host1, dev1, host2))[1] for _ in range(n)]))
-    host, plan = host1, dev1
-    buffers, ratio = 0, 0.0
+    changed = sum(1 for k, v in b.items() if k not in a
+                  or a[k].shape != v.shape or not np.array_equal(a[k], v))
+    whole = float(np.median([host_ms(lambda: upload_plan(
+        _stack_trees(stack.plans), dev))[1] for _ in range(n)]))
+    rows = []
+    for _ in range(n):
+        stack.set(0, moved(0, 8))
+        rows.append(host_ms(lambda: plan.update(stack))[1])
+    before = trace.counters["plan_row_installs"]
+    buffers = {plan.buf.data_ptr()}
     for j, px in enumerate((8, 2, 12, 2, 4, 2)):
         stack.set(j % len(masks), moved(j % len(masks), px))
-        host2 = stack.stacked()
-        host, plan = host2, upload_reuse(dev, host, plan, host2)
-        leaves = list(tree_leaves(plan))
-        held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
-                for t in leaves}
-        buffers = max(buffers, len(held))
-        ratio = max(ratio, sum(held.values())
-                    / sum(t.nbytes for t in leaves))
-    return {"leaves": len(b), "kept": kept, "upload_plan_ms": whole,
-            "upload_reuse_ms": reuse, "edits": 6, "max_buffers": buffers,
-            "max_held_over_leaf_bytes": ratio}
+        plan.update(stack)
+        buffers.add(plan.buf.data_ptr())
+    return {"leaves": len(b), "changed": changed, "upload_plan_ms": whole,
+            "row_install_ms": float(np.median(rows)), "edits": 6,
+            "row_installs": trace.counters["plan_row_installs"] - before,
+            "buffers": len(buffers)}
 
 
 def session_references(module_state, cfg, layout, x0, x1, x2, t, m1, m2,
@@ -4531,7 +4531,7 @@ def session_run(flash, module, cfg, layout, S, seen, rows_timed):
         plain_ms = events_ms(lambda: server.step(x1, t), SESSION_TRACE)[0]
         plain_busy, plain_launches = trace_stats(
             lambda: server.step(x1, t), iters=SESSION_TRACE)
-    reuse = (upload_reuse_ms(server, m1) if S == SESSION_LOOP_S
+    reuse = (row_install_ms(server, m1) if S == SESSION_LOOP_S
              else None)
     y_upd = server.step(x1, t, sparse_update=True)
     pins1 = dict(server._stack.pins)
@@ -4592,13 +4592,13 @@ def session_run(flash, module, cfg, layout, S, seen, rows_timed):
           f"{repinned}; rows vs the single-session engine under the pins: "
           f"step {errs[0]:.3e}, commit {errs[1]:.3e}, second {errs[2]:.3e}"
           + ("" if reuse is None else
-             f"; session 0's edit moved by 8 px: {reuse['kept']} of "
-             f"{reuse['leaves']} leaves unchanged, upload_plan "
-             f"{reuse['upload_plan_ms']:.3f} ms, upload_reuse "
-             f"{reuse['upload_reuse_ms']:.3f} ms (host, median of 10); "
-             f"over {reuse['edits']} moved edits the plan held at most "
-             f"{reuse['max_buffers']} buffers, "
-             f"{reuse['max_held_over_leaf_bytes']:.3f}x its leaves' bytes"),
+             f"; session 0's edit moved by 8 px: {reuse['changed']} of "
+             f"{reuse['leaves']} leaves changed, restack and upload_plan "
+             f"{reuse['upload_plan_ms']:.3f} ms, row install "
+             f"{reuse['row_install_ms']:.3f} ms (host, median of 10); "
+             f"{reuse['row_installs']} of {reuse['edits']} moved edits "
+             f"took the row path, into {reuse['buffers']} device "
+             f"buffer(s)"),
           flush=True)
     if not all(e <= TOL for e in errs):
         raise AssertionError(f"sessions {layout} S={S}: rows differ from the "

@@ -28,7 +28,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from collections.abc import Mapping
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -159,26 +160,42 @@ def plan_sessions(plan: Mapping) -> Optional[int]:
     return int(np.shape(a)[0]) if np.ndim(a) == 3 else None
 
 
+def pack_offsets(arrays: List[np.ndarray]) -> Tuple[List[int], int]:
+    """Each array's byte offset in the packing of :func:`upload_leaves`
+    (int arrays as int64, bool arrays, the window coverage and edge
+    masks, as one byte an element; each at an 8-byte offset), and the
+    packed buffer's bytes."""
+    offsets, pos = [], 0
+    for a in arrays:
+        offsets.append(pos)
+        n = a.size * (1 if a.dtype == np.bool_ else 8)
+        pos += n + (-n % 8)
+    return offsets, pos
+
+
+def packed_view(buf, a: np.ndarray, offset: int):
+    """The view of a packed byte buffer (a uint8 numpy array or tensor)
+    that holds ``a`` at ``offset``: int64, or bool, in ``a``'s shape."""
+    n = a.size * (1 if a.dtype == np.bool_ else 8)
+    part = buf[offset:offset + n]
+    if isinstance(part, np.ndarray):
+        return part.view(np.bool_ if a.dtype == np.bool_ else np.int64
+                         ).reshape(a.shape)
+    return part.view(torch.bool if a.dtype == np.bool_ else torch.int64
+                     ).view(a.shape)
+
+
 def upload_leaves(arrays: List[np.ndarray], device: torch.device
                   ) -> List[torch.Tensor]:
     """The arrays as tensors on ``device``, moved in ONE copy: packed into
-    one byte buffer (int arrays as int64, bool arrays, the window coverage
-    and edge masks, as one byte an element; each at an 8-byte offset) and
-    split into views of it on the device."""
-    parts, pos = [], 0
-    for a in arrays:
-        b = (a.astype(np.bool_) if a.dtype == np.bool_
-             else a.astype(np.int64)).reshape(-1).view(np.uint8)
-        parts += [b, np.zeros(-b.size % 8, np.uint8)]
-    buf = torch.from_numpy(np.concatenate(parts or [np.zeros(0, np.uint8)])
-                           ).to(device)
-    out = []
-    for a, b in zip(arrays, parts[::2]):
-        t = buf[pos:pos + b.size]
-        out.append(t.view(torch.bool if a.dtype == np.bool_ else torch.int64
-                          ).view(a.shape))
-        pos += b.size + (-b.size % 8)
-    return out
+    one byte buffer (:func:`pack_offsets`, the padding zero) and split
+    into views of it on the device."""
+    offsets, size = pack_offsets(arrays)
+    host = np.zeros(size, np.uint8)
+    for a, o in zip(arrays, offsets):
+        packed_view(host, a, o)[...] = a
+    buf = torch.from_numpy(host).to(device)
+    return [packed_view(buf, a, o) for a, o in zip(arrays, offsets)]
 
 
 def upload_plan(plan: Mapping, device: torch.device) -> Dict:

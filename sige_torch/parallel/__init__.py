@@ -1,8 +1,9 @@
 """Serving: ``TwinStepServer`` (B requests sharing one plan, batched twin
 steps), ``SessionServer`` (S editing sessions, each with its own plan, as
-one batched forward), ``PlanStack`` (the per-session plans stacked on
-shared shape pins) and ``upload_reuse``: ports of
-``sige_tpu.parallel.serving``; and the (dp, tp) mesh both servers take
+one batched forward) and ``PlanStack`` (the per-session plans stacked on
+shared shape pins): ports of ``sige_tpu.parallel.serving``, beside
+``ResidentPlan`` (the stacked plan kept on the card, moved row by row
+after an edit); and the (dp, tp) mesh both servers take
 (``make_mesh``, ``replicate``, ``shard_batch``, ``shard_cache``,
 ``gather_batch``): the port of ``sige_tpu.parallel.mesh`` over
 ``torch.distributed`` ranks, one process per card; and spatial
@@ -12,13 +13,13 @@ parallelism (``make_spatial_mesh``, ``row_sharding``, ``spatial_apply``,
 
 from .mesh import (Mesh, gather_batch, make_mesh, replicate, shard_batch,
                    shard_cache)
-from .serving import PlanStack, SessionServer, TwinStepServer, upload_reuse
+from .serving import PlanStack, ResidentPlan, SessionServer, TwinStepServer
 from .spatial import (BandCaches, RowBand, SpatialMesh, gather_caches,
                       gather_rows, make_spatial_mesh, row_sharding,
                       spatial_apply, spatial_full_apply)
 
-__all__ = ["BandCaches", "Mesh", "PlanStack", "RowBand", "SessionServer",
-           "SpatialMesh", "TwinStepServer", "gather_batch", "gather_caches",
-           "gather_rows", "make_mesh", "make_spatial_mesh", "replicate",
-           "row_sharding", "shard_batch", "shard_cache", "spatial_apply",
-           "spatial_full_apply", "upload_reuse"]
+__all__ = ["BandCaches", "Mesh", "PlanStack", "ResidentPlan", "RowBand",
+           "SessionServer", "SpatialMesh", "TwinStepServer", "gather_batch",
+           "gather_caches", "gather_rows", "make_mesh", "make_spatial_mesh",
+           "replicate", "row_sharding", "shard_batch", "shard_cache",
+           "spatial_apply", "spatial_full_apply"]

@@ -24,19 +24,22 @@ because their leaf shapes are pinned to be equal (``PlanStack``); the
 window origins, box origins and masks that differ between sessions are
 device data that the ops read per sample (``sige_torch/ops/sessions.py``
 and the per-session forms of ``ops/window.py``, ``ops/gather.py`` and
-``ops/scatter.py``). The stacked plan moves to the card through
-``upload_reuse``, which keeps the device tensors of unchanged leaves.
+``ops/scatter.py``). The stacked plan stays resident (``ResidentPlan``):
+after an edit only that session's row is written, on the host and in a
+pinned staging buffer, and the whole plan moves to the card in one copy.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional
+from collections.abc import Mapping
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..nn.engine import SIGEModel, _get_path, plan_leaves, upload_leaves
+from ..nn.engine import (SIGEModel, _get_path, _set_path, pack_offsets,
+                         packed_view, plan_leaves)
 from ..nn.planner import build_plan, merge_pins, plan_layout, plan_pins
 from ..utils import trace
 from .mesh import Mesh, make_mesh, replicate, shard_batch
@@ -169,8 +172,13 @@ class PlanStack:
     border edit meets an interior one) flips ``meta_fast`` off and
     rebuilds every plan in the 4-form.
 
-    ``stacked()`` returns the SAME object until a ``set()`` invalidates
-    it, so callers can key device uploads on identity."""
+    ``stacked()`` returns the resident stacked tree, whose values always
+    equal ``_stack_trees(self.plans)``. When every session set since the
+    last call has a plan of the tree's layout (its leaf paths, and each
+    leaf's per-session shape and dtype), only those sessions' rows are
+    written, in place, and ``row_versions[i]`` counts each write of row
+    i; otherwise (the first call, a re-pin, the switch to the 4-form)
+    the tree is built anew, a new object."""
 
     def __init__(self, meta_host, num_sessions: int, bucket_min: int = 2,
                  layout: str = "tiles", chain_nesting: bool = True):
@@ -186,6 +194,8 @@ class PlanStack:
         self.win_pins = None  # {res: (WH, WW)} once first merged
         self.meta_fast = True
         self._stacked = None
+        self._dirty = set()  # sessions set since the tree last took them
+        self.row_versions = [0] * num_sessions
 
     def _caps(self):
         caps = dict(self.pins)
@@ -241,12 +251,12 @@ class PlanStack:
         trace.counters["edits"] += 1
         self.masks[i] = masks
         self.plans[i] = self._build(masks, i)
-        self._stacked = None
+        self._dirty.add(i)
 
     def set_if_changed(self, i: int, masks) -> bool:
         """set(), skipped (returning False) when session ``i``'s mask
-        pyramid is unchanged: planning and the restack are pure functions
-        of the masks."""
+        pyramid is unchanged: planning and the stacked rows are pure
+        functions of the masks."""
         old = self.masks[i]
         if (old is not None and set(old) == set(masks)
                 and all(np.array_equal(old[k], masks[k]) for k in masks)):
@@ -254,14 +264,44 @@ class PlanStack:
         self.set(i, masks)
         return True
 
+    def _write_row(self, i: int) -> bool:
+        """Write session ``i``'s plan into row i of the resident tree, in
+        place; False, with the row part written, when the plan does not
+        have the tree's layout."""
+
+        def walk(node, ref) -> bool:
+            if not isinstance(node, Mapping) or node.keys() != ref.keys():
+                return False
+            for k, r in ref.items():
+                if isinstance(r, dict):
+                    if not walk(node[k], r):
+                        return False
+                    continue
+                a = np.asarray(node[k])
+                if a.shape != r.shape[1:] or (a.dtype is not r.dtype
+                                              and a.dtype != r.dtype):
+                    return False
+                r[i] = a
+            return True
+
+        return walk(self.plans[i], self._stacked)
+
     def stacked(self):
-        if self._stacked is not None:
+        if self._stacked is not None and not self._dirty:
             return self._stacked
         with trace.span("sige.serving.stack"):
             missing = [i for i, p in enumerate(self.plans) if p is None]
             if missing:
                 raise RuntimeError(f"set_masks() missing for sessions "
                                    f"{missing}")
+            # a row that does not fit is left part written: the full
+            # restack below replaces the tree
+            if self._stacked is not None and all(
+                    self._write_row(i) for i in sorted(self._dirty)):
+                for i in self._dirty:
+                    self.row_versions[i] += 1
+                self._dirty.clear()
+                return self._stacked
             # pin -> rebuild iterates: enforcing a merged window extent can
             # re-grow a NESTED coarser window past ITS pin (border clamping
             # differs per session), re-drifting shapes. Extents only grow and
@@ -269,6 +309,7 @@ class PlanStack:
             for _ in range(16):
                 try:
                     self._stacked = _stack_trees(self.plans)
+                    self._dirty.clear()
                     return self._stacked
                 except ValueError:
                     if self.meta_fast and self._meta_form_mismatch():
@@ -302,47 +343,86 @@ class PlanStack:
         return any(len(s) > 1 for s in forms.values())
 
 
-def upload_reuse(device, prev_host: Optional[Mapping],
-                 prev_dev: Optional[Mapping], host: Mapping) -> Dict:
-    """Device upload of a host plan tree that reuses the device tensors of
-    leaves whose host array is unchanged since the previous upload (same
-    shape, dtype and values) as the same objects; the changed leaves move
-    in ONE packed copy (:func:`~sige_torch.nn.engine.upload_leaves`, as
-    ``upload_plan`` moves a whole plan). A moved edit of one session
-    changes few leaves of a stacked plan.
+class ResidentPlan:
+    """``rows`` of a :class:`PlanStack`'s stacked plan, resident on
+    ``device``: the host tree (views of the stack's resident tree), a
+    staging buffer of its leaves in :func:`~sige_torch.nn.engine.
+    upload_leaves`' packing (pinned on a CUDA device) and one device
+    buffer of the same bytes, whose views are the device tree. The device
+    holds byte for byte what ``upload_plan`` of the host tree would give.
 
-    A kept leaf is a view into an earlier packed buffer and holds all of
-    it. So the kept leaves come from ONE earlier buffer, the one they keep
-    most bytes of, and the others move again: over any run of edits the
-    plan holds at most two packed buffers."""
-    with trace.span("sige.serving.upload"):
-        leaves = plan_leaves(host)
-        reuse = [None] * len(leaves)
-        if prev_host is not None and prev_dev is not None:
-            prev = plan_leaves(prev_host)
-            if [p for p, _ in prev] == [p for p, _ in leaves]:
-                reuse = [_get_path(prev_dev, path)
-                         if (a.shape == b.shape and a.dtype == b.dtype
-                             and np.array_equal(a, b)) else None
-                         for (path, a), (_, b) in zip(leaves, prev)]
-        kept: Dict[int, int] = {}
-        for r in reuse:
-            if r is not None:
-                buf = r.untyped_storage().data_ptr()
-                kept[buf] = kept.get(buf, 0) + r.nbytes
-        main = max(kept, key=kept.get, default=None)
-        reuse = [r if r is not None and r.untyped_storage().data_ptr() == main
-                 else None for r in reuse]
-        fresh = iter(upload_leaves(
-            [a for (_, a), r in zip(leaves, reuse) if r is None],
-            torch.device(device)))
-        out: Dict = {}
-        for (path, _), r in zip(leaves, reuse):
-            node = out
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = r if r is not None else next(fresh)
-        return out
+    :meth:`update` builds all three anew when the stack's tree is a new
+    object (a new layout). When the stack wrote rows in place, it writes
+    those of them in ``rows`` into the staging buffer and copies the
+    whole buffer to the device buffer, in place: one copy on the current
+    stream, after the kernels that read the plan before it. Before the
+    next write into the staging buffer it waits on the event recorded
+    after that copy."""
+
+    def __init__(self, device, rows: slice):
+        self.device = torch.device(device)
+        self.rows = rows
+        self.host: Optional[Dict] = None
+        self.tree: Optional[Dict] = None
+        self.buf: Optional[torch.Tensor] = None
+        self._source = None  # the stack's tree the layout was built from
+        self._versions: List[int] = []
+        self._staged = []  # (staging view [rows, ...], the stack's leaf)
+        self._staging: Optional[torch.Tensor] = None
+        self._copied = (torch.cuda.Event() if self.device.type == "cuda"
+                        else None)
+
+    def _copy(self) -> None:
+        self.buf.copy_(self._staging, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record(torch.cuda.current_stream(self.device))
+
+    def _build(self, stacked: Mapping) -> None:
+        self.host = _session_rows(stacked, self.rows)
+        leaves = plan_leaves(self.host)
+        offsets, size = pack_offsets([a for _, a in leaves])
+        self._staging = torch.zeros(size, dtype=torch.uint8,
+                                    pin_memory=self.device.type == "cuda")
+        staging, self._staged = self._staging.numpy(), []
+        for (path, a), o in zip(leaves, offsets):
+            view = packed_view(staging, a, o)
+            view[...] = a
+            self._staged.append((view, _get_path(stacked, path)))
+        self.buf = torch.empty(size, dtype=torch.uint8, device=self.device)
+        self._copy()
+        self.tree = {}
+        for (path, a), o in zip(leaves, offsets):
+            _set_path(self.tree, path, packed_view(self.buf, a, o))
+        self._source = stacked
+
+    def update(self, stack: PlanStack) -> bool:
+        """Bring the device up to date with ``stack.stacked()``. True when
+        the layout was built anew (:attr:`host` and :attr:`tree` are new
+        objects), False when rows moved in place or nothing changed."""
+        stacked = stack.stacked()
+        if stacked is not self._source:
+            with trace.span("sige.serving.upload"):
+                self._build(stacked)
+            self._versions = list(stack.row_versions)
+            trace.counters["plan_full_installs"] += 1
+            return True
+        moved = [i for i, (v, w) in enumerate(zip(stack.row_versions,
+                                                  self._versions)) if v != w]
+        if not moved:
+            return False
+        self._versions = list(stack.row_versions)
+        trace.counters["plan_row_installs"] += 1
+        start, stop, _ = self.rows.indices(len(self._versions))
+        mine = [i for i in moved if start <= i < stop]
+        if mine:
+            with trace.span("sige.serving.upload"):
+                if self._copied is not None:
+                    self._copied.synchronize()
+                for view, leaf in self._staged:
+                    for i in mine:
+                        view[i - start] = leaf[i]
+                self._copy()
+        return False
 
 
 def _flat(t):
@@ -352,7 +432,7 @@ def _flat(t):
 
 def _session_rows(tree: Mapping, rows: slice) -> Dict:
     """A stacked plan tree with every leaf's leading session axis cut to
-    ``rows`` (the whole tree when ``rows`` covers it)."""
+    ``rows``: views of its leaves."""
     return {k: _session_rows(v, rows) if isinstance(v, Mapping)
             else v[rows] for k, v in tree.items()}
 
@@ -395,7 +475,7 @@ class SessionServer:
         self.layout = layout
         self.num_sessions: Optional[int] = None
         self._stack: Optional[PlanStack] = None
-        self._installed = None  # the stacked host tree installed last
+        self._plan: Optional[ResidentPlan] = None
 
     def _rows(self, x):
         """This rank's sessions of an [S, ...] argument, flattened to
@@ -416,7 +496,7 @@ class SessionServer:
         self._stack = PlanStack(self.model.meta, S, self.bucket_min,
                                 layout=self.layout,
                                 chain_nesting=self.model.chain_nesting)
-        self._installed = None
+        self._plan = ResidentPlan(self.model.device, self.mesh.rows(S))
 
     def set_masks(self, i: int, masks) -> None:
         """Host planning for session ``i``'s edit mask pyramid."""
@@ -427,19 +507,14 @@ class SessionServer:
 
     def _install(self) -> None:
         """This rank's rows of the stacked plan on the card and in the
-        model, moved again only when ``PlanStack.stacked()`` returns a new
-        tree (unchanged leaves keep their device tensors)."""
+        model (:class:`ResidentPlan`): the model takes the trees again only
+        when their layout was built anew; rows written in place reach the
+        Gathers through the same tensors."""
         with trace.span("sige.serving.install"):
-            stacked, state = self._stack.stacked(), self.model.state
-            if stacked is self._installed and state.plan:
-                return
-            host = stacked if self.mesh.dp == 1 else _session_rows(
-                stacked, self.mesh.rows(self.num_sessions))
-            self.model.set_plan(host, plan_layout(host),
-                                device_plan=upload_reuse(
-                                    self.model.device, state.plan_host,
-                                    state.plan, host))
-            self._installed = stacked
+            plan = self._plan
+            if plan.update(self._stack) or self.model.plan is not plan.tree:
+                self.model.set_plan(plan.host, plan_layout(plan.host),
+                                    device_plan=plan.tree)
 
     def step(self, x_edit, *args, sparse_update: bool = False):
         """One sparse forward over the sessions ([S, B, ...] in; out this

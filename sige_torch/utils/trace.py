@@ -8,8 +8,10 @@ the work at the port's layer boundaries:
 * ``sige.serving.step``: ``SessionServer.step``, holding
   ``sige.serving.install`` (``SessionServer._install``: the stacked plan
   on the card and in the model), which holds ``sige.serving.stack``
-  (``PlanStack.stacked``, any re-pin, re-form and rebuild included) and
-  ``sige.serving.upload`` (``upload_reuse``); then ``sige.engine.sparse``
+  (``PlanStack.stacked``: the rows written in place, or a full restack
+  with any re-pin, re-form and rebuild) and ``sige.serving.upload``
+  (``ResidentPlan.update``: the rows written into the staging buffer and
+  the copy, or a new layout's buffers); then ``sige.engine.sparse``
   (``SIGEModel.sparse``: the forward's enqueue);
 * ``sige.op.<kind>``: each SIGE op's sparse-mode ``forward`` (``gather``,
   ``scatter``, ``scatter_gather``, ``block_residual``, ``conv``, ``norm``:
@@ -38,6 +40,11 @@ Counters are plain integers, always on, in :data:`counters`:
 * ``edits``: ``PlanStack.set`` calls (each plans one session's edit);
 * ``plans_built``: every plan ``PlanStack`` builds (the edit's own, the
   rebuilds of a re-pin and of the switch to the 4-form window metas);
+* ``plan_row_installs``: ``ResidentPlan.update`` calls that moved rows
+  written in place (the edited sessions' rows, one copy);
+* ``plan_full_installs``: ``ResidentPlan.update`` calls that built a
+  layout anew (the first, and those after a re-pin or the switch to the
+  4-form window metas);
 * ``conv_new_shapes``: convolutions inside the engine's ``fp32_scope``
   whose key (input shape and memory format, weight shape, stride,
   padding, groups, dtype) is new to the process; on CUDA in cuDNN's
@@ -83,6 +90,7 @@ def span(name: str):
 
 
 counters: Dict[str, int] = {"edits": 0, "plans_built": 0,
+                            "plan_row_installs": 0, "plan_full_installs": 0,
                             "conv_new_shapes": 0}
 
 #: Depth of the engine's ``fp32_scope`` (``nn/engine.py``): convolutions

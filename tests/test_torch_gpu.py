@@ -1197,6 +1197,81 @@ def test_tiny_session_server_card_matches_cpu(layout):
 
 
 @pytest.mark.gpu
+def test_row_installs_without_a_sync_on_card():
+    """Two edits whose steps follow each other with no synchronise, the
+    first plan's copy held back behind a busy stream: the second install
+    waits for that copy before it writes the staging buffer, so both
+    steps equal, bit for bit, a server that installs its plan in full
+    and synchronises every step; both edits take the row path into the
+    same device buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("the pinned staging buffer's event needs a CUDA device")
+    from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
+    from sige_torch.nn.planner import plan_layout
+    from sige_torch.parallel import SessionServer
+    from sige_torch.parallel.serving import _session_rows, _stack_trees
+    from sige_torch.utils import trace
+
+    class FullInstall(SessionServer):
+        def _install(self):
+            self._stack.stacked()
+            host = _session_rows(_stack_trees(self._stack.plans),
+                                 self.mesh.rows(self.num_sessions))
+            self.model.set_plan(host, plan_layout(host))
+
+    cfg = DDPMUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                         attn_resolutions=(8,), resolution=32,
+                         sparse_resolution_threshold=32)
+    S, R = 3, 32
+
+    def masks(box):
+        m = np.zeros((R, R), bool)
+        r0, r1, c0, c1 = box
+        m[r0:r1, c0:c1] = True
+        return downsample_mask(dilate_mask(m, 2), min_res=4)
+
+    first = [(10, 15, 10, 16), (14, 18, 14, 18), (8, 14, 14, 20)]
+    # smaller edits inside the pinned shapes: the row path
+    edits = [(0, (11, 15, 11, 16)), (1, (15, 19, 13, 17))]
+    rng = np.random.default_rng(12)
+    x0 = torch.from_numpy(rng.standard_normal((S, 1, R, R, 3)).astype(
+        np.float32)).cuda()
+    x1 = x0 + 0.5 * torch.from_numpy(rng.standard_normal(
+        (S, 1, R, R, 3)).astype(np.float32)).cuda()
+    t = torch.zeros((S, 1), device="cuda")
+    params, outs = None, {}
+    for cls in (FullInstall, SessionServer):
+        server = cls(SIGEFusedUNet(cfg), params, bucket_min=1,
+                     layout="window", device="cuda")
+        if params is None:
+            server.model.init(0)
+            params = {k: v.clone() for k, v in
+                      server.model.module.state_dict().items()}
+        server.prime(x0, t)
+        for i, box in enumerate(first):
+            server.set_masks(i, masks(box))
+        server.step(x1, t)
+        torch.cuda.synchronize()
+        ys, rows = [], trace.counters["plan_row_installs"]
+        buf = None if cls is FullInstall else server._plan.buf.data_ptr()
+        for i, box in edits:
+            if cls is FullInstall:
+                torch.cuda.synchronize()
+            else:
+                torch.cuda._sleep(100_000_000)  # hold the copy back
+            server.set_masks(i, masks(box))
+            ys.append(server.step(x1, t))
+        torch.cuda.synchronize()
+        outs[cls] = [y.cpu() for y in ys]
+        if cls is SessionServer:
+            assert trace.counters["plan_row_installs"] == rows + len(edits)
+            assert server._plan.buf.data_ptr() == buf
+    for n, (got, want) in enumerate(zip(outs[SessionServer],
+                                        outs[FullInstall])):
+        assert torch.equal(got, want), n
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("op", ["crop_sessions", "paste_sessions"])
 def test_session_kernels_refuse_what_they_do_not_take(op):
     """The wrappers raise before a launch on inputs the kernels cannot

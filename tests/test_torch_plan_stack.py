@@ -5,8 +5,11 @@ pyramids, in the window and tile layouts: the stacked trees equal leaf
 for leaf and exactly, with ``pins``, ``win_pins``, ``meta_fast`` and the
 return values of ``set_if_changed``, through compact edits, a spread
 edit that re-pins, a border edit that meets interior ones (the 4-form
-flip) and an unchanged pyramid. Also ``stacked()``'s identity and
-``upload_reuse`` on the CPU.
+flip) and an unchanged pyramid. Then, on the CPU, the resident plan
+(``ResidentPlan``): after every install the device holds byte for byte
+what ``upload_plan`` of a fresh restack gives, conforming edits write
+their rows in place and take the row path, a re-pin and the 4-form flip
+the full one, and a rank moves only its own rows.
 """
 
 import numpy as np
@@ -17,7 +20,9 @@ from sige_torch.core.masks import dilate_mask, downsample_mask
 from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
 from sige_torch.nn import SIGEModel
 from sige_torch.nn.engine import plan_leaves, upload_plan
-from sige_torch.parallel import PlanStack, upload_reuse
+from sige_torch.parallel import PlanStack, ResidentPlan
+from sige_torch.parallel.serving import _session_rows, _stack_trees
+from sige_torch.utils import trace
 from sige_tpu.parallel import PlanStack as JPlanStack
 from test_torch_demo import TINY
 
@@ -92,74 +97,152 @@ def test_plan_stack_matches_sige_tpu(meta, layout):
         assert not got.meta_fast
 
 
-def test_stacked_is_the_same_object_until_a_set(meta):
-    stack = PlanStack(meta, 2, bucket_min=1, layout="window")
-    stack.set(0, _masks(COMPACT[0]))
-    stack.set(1, _masks(COMPACT[1]))
+# moves of mixed sizes, session by session: some keep the pinned shapes
+MOVES = (4, 1, 6, 1, 2, 1)
+
+
+def _moved(n):
+    r0, r1, c0, c1 = COMPACT[n % S]
+    d = MOVES[n]
+    return n % S, _masks((r0 + d, r1 + d, c0 - d, c1 - d))
+
+
+def _buffer(t):
+    """The whole byte buffer a packed leaf is a view of."""
+    return torch.empty(0, dtype=torch.uint8).set_(t.untyped_storage())
+
+
+def _assert_installed(plan: ResidentPlan, stack: PlanStack, note):
+    """The resident trees equal a fresh restack and its ``upload_plan``:
+    the host tree leaf for leaf, the device buffer byte for byte (padding
+    included) and every device leaf in dtype, shape and value."""
+    host = _session_rows(_stack_trees(stack.plans), plan.rows)
+    got, want = dict(plan_leaves(plan.host)), dict(plan_leaves(host))
+    assert got.keys() == want.keys(), note
+    for k in want:
+        assert got[k].dtype == want[k].dtype, (note, k)
+        assert np.array_equal(got[k], want[k]), (note, k)
+    dev = upload_plan(host, torch.device("cpu"))
+    _assert_equal_upload(plan.tree, dev, note)
+    assert torch.equal(plan.buf, _buffer(next(iter(_flat(dev).values())))), \
+        note
+
+
+def _install(plan, stack):
+    """One install; which counter it moved: "row", "full" or None."""
+    before = dict(trace.counters)
+    plan.update(stack)
+    row = trace.counters["plan_row_installs"] - before["plan_row_installs"]
+    full = trace.counters["plan_full_installs"] - before["plan_full_installs"]
+    assert row + full <= 1
+    return "row" if row else "full" if full else None
+
+
+@pytest.mark.parametrize("layout", ["window", "tiles"])
+def test_row_install_equals_full_upload(meta, layout):
+    """Through the compact edits, the sequence (a spread edit, the same
+    pyramid again, a border edit, a compact one) and a run of moved
+    edits, every install leaves the device holding what ``upload_plan``
+    of a fresh restack gives, and the host tree equal to that restack."""
+    stack = PlanStack(meta, S, bucket_min=1, layout=layout)
+    plan = ResidentPlan("cpu", slice(0, S))
+    for i, box in enumerate(COMPACT):
+        stack.set(i, _masks(box))
+        if i == S - 1:
+            assert _install(plan, stack) == "full"
+    _assert_installed(plan, stack, "compact")
+    paths = set()
+    for n, (i, box) in enumerate(SEQUENCE):
+        stack.set_if_changed(i, _masks(box))
+        paths.add(_install(plan, stack))
+        _assert_installed(plan, stack, f"step {n}")
+    for n in range(len(MOVES)):
+        stack.set(*_moved(n))
+        paths.add(_install(plan, stack))
+        _assert_installed(plan, stack, f"move {n}")
+    assert {"row", "full"} <= paths
+
+
+def test_installs_count_their_path(meta):
+    """Conforming edits take the row path and keep the device buffer; an
+    edit that outgrows the pins (a re-pin) and the border edit (the
+    4-form flip) take the full path; an unchanged pyramid writes
+    nothing."""
+    stack = PlanStack(meta, S, bucket_min=1, layout="window")
+    plan = ResidentPlan("cpu", slice(0, S))
+    for i, box in enumerate(COMPACT):
+        stack.set(i, _masks(box))
+    assert _install(plan, stack) == "full"
+    buf = plan.buf.untyped_storage().data_ptr()
+    tree = plan.tree
+    stack.set(0, _masks((11, 15, 11, 16)))  # a smaller edit: same shapes
+    assert _install(plan, stack) == "row"
+    stack.set(1, _masks((15, 19, 13, 17)))
+    assert _install(plan, stack) == "row"
+    assert plan.buf.untyped_storage().data_ptr() == buf
+    assert plan.tree is tree
+    assert all(t.untyped_storage().data_ptr() == buf
+               for t in _flat(plan.tree).values())
+    assert _install(plan, stack) is None  # nothing set since
+    versions = list(stack.row_versions)
+    assert not stack.set_if_changed(1, _masks((15, 19, 13, 17)))
+    assert _install(plan, stack) is None
+    assert stack.row_versions == versions
+    pins = dict(stack.pins)
+    stack.set(1, _masks((10, 17, 10, 18)))  # outgrows the pins: re-pin
+    assert _install(plan, stack) == "full"
+    assert stack.pins != pins
+    assert stack.meta_fast
+    stack.set(*SEQUENCE[2][:1], _masks(SEQUENCE[2][1]))  # border: 4-form
+    assert _install(plan, stack) == "full"
+    assert not stack.meta_fast
+    _assert_installed(plan, stack, "after the flip")
+
+
+def test_stacked_follows_edits_in_place(meta):
+    """``stacked()`` is one tree across conforming edits, its rows
+    rewritten in place to equal ``_stack_trees(plans)``; only the edited
+    session's row version moves."""
+    stack = PlanStack(meta, S, bucket_min=1, layout="window")
+    for i, box in enumerate(COMPACT):
+        stack.set(i, _masks(box))
     first = stack.stacked()
+    held = dict(plan_leaves(first))
     assert stack.stacked() is first
-    assert not stack.set_if_changed(0, _masks(COMPACT[0]))
+    stack.set(2, _masks((9, 14, 15, 20)))
     assert stack.stacked() is first
-    stack.set(0, _masks(COMPACT[0]))  # a set restacks, even unchanged
-    assert stack.stacked() is not first
+    assert stack.row_versions == [0, 0, 1]
+    want = dict(plan_leaves(_stack_trees(stack.plans)))
+    assert held.keys() == want.keys()
+    changed = 0
+    for k, a in dict(plan_leaves(first)).items():
+        assert a is held[k]  # the same arrays, written in place
+        assert np.array_equal(a, want[k]), k
+        changed += not np.array_equal(a[2], a[0])
+    assert changed
+    stack.set(2, _masks((9, 14, 15, 20)))  # a set rewrites, even unchanged
+    assert stack.stacked() is first and stack.row_versions == [0, 0, 2]
 
 
-def test_upload_reuse_keeps_unchanged_leaves(meta):
+def test_rank_rows_move_only_their_own(meta):
+    """A rank's resident plan holds its rows alone (``mesh.rows``): an
+    edit outside them is written into the host tree and moves nothing to
+    the device; an edit inside moves its row."""
     stack = PlanStack(meta, S, bucket_min=1, layout="window")
     for i, box in enumerate(COMPACT):
         stack.set(i, _masks(box))
-    host1 = stack.stacked()
-    dev1 = upload_reuse("cpu", None, None, host1)
-    _assert_equal_upload(dev1, host1)
-    # session 2 moves its edit by a few pixels: few leaves change
-    stack.set(2, _masks((11, 16, 20, 26)))
-    host2 = stack.stacked()
-    dev2 = upload_reuse("cpu", host1, dev1, host2)
-    _assert_equal_upload(dev2, host2)
-    old, new = _flat(dev1), _flat(dev2)
-    a, b = dict(plan_leaves(host1)), dict(plan_leaves(host2))
-    kept = 0
-    for k in b:
-        same = (a[k].shape == b[k].shape and a[k].dtype == b[k].dtype
-                and np.array_equal(a[k], b[k]))
-        assert (new[k] is old[k]) == same, k
-        kept += same
-    assert 0 < kept < len(b)
-    # another tree structure uploads everything afresh
-    dev3 = upload_reuse("cpu", {"x": np.zeros(2)}, {"x": torch.zeros(2)},
-                        host2)
-    assert not any(v is new[k] for k, v in _flat(dev3).items())
-
-
-def test_upload_reuse_holds_at_most_two_buffers(meta):
-    """Over a run of moved edits, every upload equals ``upload_plan``'s,
-    keeps only unchanged leaves (some on every upload) and leaves the
-    plan in at most two packed buffers: a kept leaf pins its whole
-    buffer."""
-    stack = PlanStack(meta, S, bucket_min=1, layout="window")
-    for i, box in enumerate(COMPACT):
-        stack.set(i, _masks(box))
-    host = stack.stacked()
-    dev = upload_reuse("cpu", None, None, host)
-    # moves of mixed sizes: a big move changes leaves that a small one
-    # after it keeps, so kept leaves come from more than one earlier upload
-    for n, d in enumerate((4, 1, 6, 1, 2, 1)):
-        r0, r1, c0, c1 = COMPACT[n % S]
-        stack.set(n % S, _masks((r0 + d, r1 + d, c0 - d, c1 - d)))
-        host2 = stack.stacked()
-        dev2 = upload_reuse("cpu", host, dev, host2)
-        _assert_equal_upload(dev2, host2)
-        old, new = _flat(dev), _flat(dev2)
-        a, b = dict(plan_leaves(host)), dict(plan_leaves(host2))
-        kept = 0
-        for k, t in new.items():
-            if t is old.get(k):
-                assert np.array_equal(a[k], b[k]), k
-                kept += 1
-        assert kept > 0, n
-        bufs = {t.untyped_storage().data_ptr() for t in new.values()}
-        assert len(bufs) <= 2, (n, len(bufs))
-        host, dev = host2, dev2
+    plan = ResidentPlan("cpu", slice(1, 2))
+    assert _install(plan, stack) == "full"
+    before = plan.buf.clone()
+    stack.set(0, _masks((11, 15, 11, 16)))
+    assert _install(plan, stack) == "row"
+    assert torch.equal(plan.buf, before)
+    _assert_installed(plan, stack, "outside")
+    stack.set(1, _masks((15, 19, 13, 17)))
+    assert _install(plan, stack) == "row"
+    assert not torch.equal(plan.buf, before)
+    _assert_installed(plan, stack, "inside")
+    assert all(a.shape[0] == 1 for _, a in plan_leaves(plan.host))
 
 
 @pytest.mark.parametrize("layout", ["window", "tiles"])
@@ -181,8 +264,9 @@ def test_upload_plan_is_one_buffer_of_the_leaves(meta, layout):
     assert leaf_bytes <= sum(bufs.values()) < leaf_bytes + 8 * len(dev)
 
 
-def _assert_equal_upload(dev, host):
-    got, want = _flat(dev), _flat(upload_plan(host, torch.device("cpu")))
-    assert got.keys() == want.keys()
+def _assert_equal_upload(dev, want, note=None):
+    got, want = _flat(dev), _flat(want)
+    assert got.keys() == want.keys(), note
     for k in want:
-        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+        assert got[k].dtype == want[k].dtype, (note, k)
+        assert torch.equal(got[k], want[k]), (note, k)

@@ -15,7 +15,10 @@ sige_tpu's, at ``tests/test_demo.py``'s TINY, with weights bridged by
     pinned shapes and vmaps one program over the sessions), and each
     session's row equals the port's single-session engine planned under
     the server's merged pins; the window layout keeps its windows through
-    the merge, and a step is one forward at batch S * B for every S.
+    the merge, and a step is one forward at batch S * B for every S;
+  * the resident plan's row installs: steps over edits in both layouts
+    equal, bit for bit, those of a server that installs in full every
+    step.
 """
 
 import functools
@@ -404,3 +407,62 @@ def test_session_server_on_other_families(family, layout):
             want = single.sparse(*(a[i] for a in args1), sparse_update=upd)
             np.testing.assert_allclose(got[i], want, atol=ATOL, rtol=0,
                                        err_msg=f"session {i} commit {upd}")
+
+
+class _FullInstallServer(SessionServer):
+    """A SessionServer whose every step installs its plan in full: a
+    fresh restack of the sessions' plans moved by ``upload_plan``."""
+
+    def _install(self):
+        from sige_torch.nn.planner import plan_layout
+        from sige_torch.parallel.serving import _session_rows, _stack_trees
+
+        self._stack.stacked()  # re-pins and re-forms as the server does
+        host = _session_rows(_stack_trees(self._stack.plans),
+                             self.mesh.rows(self.num_sessions))
+        self.model.set_plan(host, plan_layout(host))
+
+
+@pytest.mark.parametrize("layout", ["window", "tiles"])
+def test_row_installs_match_full_installs(layout):
+    """Steps over edits in both layouts (every session's first edit, a
+    commit, the second edits, then one session at a time moving its edit)
+    give outputs bit for bit equal to a server that installs in full
+    every step; the moved edits take the row path."""
+    from sige_torch.nn import SIGEModel
+    from sige_torch.utils import trace
+
+    rng = np.random.default_rng(5)
+    x0 = rng.standard_normal((S, 1, R, R, 3)).astype(np.float32)
+    x1, masks1 = _session_edits(rng, x0, BOXES[layout])
+    x2, masks2 = _session_edits(rng, x1, SECOND)
+    moves = [(n % S, _session_edits(rng, x2, [
+        (r0 + d, r1 + d, c0 + d, c1 + d) for r0, r1, c0, c1 in SECOND])[1])
+        for n, d in enumerate((1, -1, 2, 1, -2, 1))]
+    t = torch.from_numpy
+    tb = t(np.zeros((S, 1), np.float32))
+    single = SIGEModel(SIGEFusedUNet(DDPMUNetConfig(**TINY)), device="cpu")
+    single.init(0)
+    outs, rows = [], []
+    for cls in (SessionServer, _FullInstallServer):
+        server = cls(SIGEFusedUNet(DDPMUNetConfig(**TINY)),
+                     single.module.state_dict(), bucket_min=1,
+                     layout=layout, device="cpu")
+        server.prime(t(x0), tb)
+        ys = []
+        for i in range(S):
+            server.set_masks(i, masks1[i])
+        ys += [server.step(t(x1), tb),
+               server.step(t(x1), tb, sparse_update=True)]
+        for i in range(S):
+            server.set_masks(i, masks2[i])
+        ys.append(server.step(t(x2), tb))
+        before = trace.counters["plan_row_installs"]
+        for i, masks in moves:
+            server.set_masks(i, masks[i])
+            ys.append(server.step(t(x2), tb))
+        rows.append(trace.counters["plan_row_installs"] - before)
+        outs.append(ys)
+    assert rows[0] > 0 and rows[1] == 0
+    for n, (got, want) in enumerate(zip(*outs)):
+        assert torch.equal(got, want), n
