@@ -22,6 +22,14 @@ from . import Prepared, linear_alphas_cumprod, tuples
 
 PARTS = ("unet",)
 
+#: The CPU tests' cut: a few channels at a 32 px image (merged into a
+#: configuration's file, group by group).
+TINY = {"model": {"unet": dict(ch=16, ch_mult=[1, 2, 2], num_res_blocks=1,
+                               attn_resolutions=[8], resolution=32,
+                               num_groups=8,
+                               sparse_resolution_threshold=16)},
+        "image": 32, "mask": {"dilate": 2, "min_res": 4}}
+
 
 def timestep_sequence(sampling: Mapping):
     step = int(sampling["noise_level"]) // int(sampling["sample_steps"])

@@ -30,6 +30,17 @@ from . import Prepared, tuples
 
 PARTS = ("unet", "decoder")
 
+#: The CPU tests' cut: a few channels at a 256 px image, 32 px latent
+#: (merged into a configuration's file, group by group).
+TINY = {"model": {"unet": dict(model_channels=32, num_res_blocks=1,
+                               attention_resolutions=[1, 2],
+                               channel_mult=[1, 2], num_heads=4,
+                               context_dim=16, num_groups=8),
+                  "decoder": dict(ch=16, ch_mult=[1, 2], num_res_blocks=1,
+                                  resolution=64, num_groups=8)},
+        "image": 256, "latent": 32, "context": [7, 16],
+        "mask": {"dilate": 2, "decoder_dilate": 4, "min_res": 4}}
+
 
 def ddim_timesteps(sampling: Mapping):
     """The DDIM sequence's first ``strength`` share: 1, 1 + c, ... with c =

@@ -116,6 +116,8 @@ class Record:
     cache_bytes: int = 0
     trace: Optional[tracing.Trace] = None
     trace_steps: int = 0
+    # the program's counters over the timed window; None where it has none
+    counters: Optional[Dict[str, int]] = None
 
     def needed_flops(self) -> float:
         return sum(self.flops[i][e] for entries in self.step_entries
@@ -279,6 +281,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     rec = Record(sessions=S)
     reservoir = Reservoir(int(mix["compared_steps"]), seed)
+    counted = tracing.counters_now()
     t0 = time.perf_counter()
     setup_s = t0 - t_start
     due, k = t0, 0
@@ -294,6 +297,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                                  "events": len(loop.events)})
         due = end
     rec.steps, rec.window_s = k, due - t0
+    rec.counters = tracing.counter_deltas(counted, tracing.counters_now())
 
     if trace:
         rec.trace, rec.trace_steps = _traced(loop, k, int(mix["trace_steps"]),

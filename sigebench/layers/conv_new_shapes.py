@@ -4,7 +4,7 @@ mode, each one a timing of cuDNN's algorithms inside a step)."""
 
 
 def read(rec):
-    c = getattr(rec, "counters", None)
+    c = rec.counters
     if c is None or "conv_new_shapes" not in c or not rec.steps:
         return None
     return 1e3 * c["conv_new_shapes"] / rec.steps

@@ -6,7 +6,6 @@ Python."""
 
 def read(rec):
     t = rec.trace
-    spans = getattr(t, "spans", None)
-    if not spans or "sige.engine.sparse" not in spans:
+    if t is None or "sige.engine.sparse" not in t.spans:
         return None
     return 1e3 * t.forward_idle_s / rec.trace_steps

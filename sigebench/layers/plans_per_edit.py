@@ -4,7 +4,7 @@
 
 
 def read(rec):
-    c = getattr(rec, "counters", None)
+    c = rec.counters
     if not c or not c.get("edits"):
         return None
     return c["plans_built"] / c["edits"]

@@ -7,7 +7,7 @@ NAMES = ("sige.kernel.crop", "sige.kernel.paste")
 
 
 def read(rec):
-    spans = getattr(rec.trace, "spans", None) or {}
+    spans = {} if rec.trace is None else rec.trace.spans
     rows = [spans[n] for n in NAMES if n in spans]
     calls = sum(r[0] for r in rows)
     if not calls:

@@ -7,10 +7,11 @@ From the root of a checkout: the cell's configuration and traffic are
 found by the names in ``BENCHMARK.json``. With ``--trace 0`` the line's
 metrics are the cell's end-to-end metrics, with ``--trace 1`` its
 per-layer metrics (the window, then ``trace_steps`` steps under the
-profiler). The last lines on standard error, and the line's last key,
-give each number compared with the reference beside its limit. Exits
-non-zero, printing no result, without a CUDA device, when the outputs
-cannot be checked, or when a JAX module was loaded.
+profiler), and standard error gets the program's ten spans of largest
+self time a traced step. The last lines on standard error, and the
+line's last key, give each number compared with the reference beside its
+limit. Exits non-zero, printing no result, without a CUDA device, when
+the outputs cannot be checked, or when a JAX module was loaded.
 """
 
 from __future__ import annotations
@@ -107,6 +108,11 @@ def main(argv=None) -> int:
     if args.trace and rec.trace is not None:
         device["busy_s"] = rec.trace.busy_s
         device["window_s"] = rec.trace.window_s
+        top = sorted(((n, v[2]) for n, v in rec.trace.spans.items()
+                      if n.startswith("sige.")), key=lambda kv: -kv[1])
+        print("sigebench: program spans, self ms a traced step: " + ", ".join(
+            f"{n} {1e3 * own / rec.trace_steps:.3f}" for n, own in top[:10]),
+            file=sys.stderr, flush=True)
 
     limit = float(cell.config["limit"]["max_rel_err"])
     errs = out["compared"]["errs"]

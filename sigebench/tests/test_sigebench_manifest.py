@@ -83,3 +83,12 @@ def test_every_cell_reports_setup_and_another_end_to_end_metric():
         layers = [m for m in B["per_layer"]
                   if w["name"] in m.get("workloads", [w["name"]])]
         assert layers
+
+
+@pytest.mark.parametrize("m", B["per_layer"], ids=lambda m: m["name"])
+def test_each_per_layer_metric_moves_a_metric_its_cells_report(m):
+    e2e = {e["name"]: e for e in B["end_to_end"]}
+    cells = [w["name"] for w in B["workloads"]]
+    moved = e2e[m["moves"]]
+    for cell in m.get("workloads", cells):
+        assert cell in moved.get("workloads", cells), (m["name"], cell)

@@ -9,7 +9,7 @@ import torch
 from sigebench import metrics
 from sigebench.harness import Record, Reservoir, verdict
 from sigebench.layers import reader
-from sigebench.trace import CallLog, Trace
+from sigebench.trace import CallLog, Trace, reduce, span_table
 
 
 def test_p95_is_over_every_step_and_rate_over_the_whole_window():
@@ -103,3 +103,49 @@ def test_reservoir_is_seeded_and_keeps_its_size():
         return sorted(r.kept)
     assert draw(5) == draw(5) and draw(5) != draw(6)
     assert len(draw(5)) == 4
+
+
+class _Event:
+    def __init__(self, name, a, b, cuda=False):
+        self.name, self.kernels = name, []
+        self.device_type = (torch.autograd.DeviceType.CUDA if cuda
+                            else torch.autograd.DeviceType.CPU)
+        self.time_range = type("Range", (), {"start": a, "end": b})()
+
+
+def test_reduce_carries_the_program_spans_and_labels_gaps_by_the_innermost():
+    host = [("sigebench.window", 0, 1000), ("sigebench.step", 100, 400),
+            ("sige.serving.step", 110, 390),
+            ("sige.serving.install", 110, 150),
+            ("sige.engine.sparse", 150, 380), ("sige.op.conv", 200, 250),
+            ("sigebench.set_masks", 500, 700),
+            ("sige.serving.set_masks", 510, 690),
+            ("sigebench.step", 800, 990),
+            ("sige.serving.step", -50, -10)]  # before the window
+    dev = [(0, 160), (180, 300), (320, 500), (720, 950), (960, 1000)]
+    events = [_Event(*h) for h in host] + [
+        _Event("kernel", a, b, cuda=True) for a, b in dev] + [
+        _Event("sigebench.step", 100, 400, cuda=True)]  # a mirrored range
+    prof = type("Prof", (), {"events": lambda self: events})()
+    t = reduce(prof, CallLog())
+    assert t.window_s == pytest.approx(1e-3)
+    assert t.busy_s == pytest.approx(730e-6)
+    # the gaps inside sige.engine.sparse: 160-180 and 300-320
+    assert t.forward_idle_s == pytest.approx(40e-6)
+    assert [g[0] for g in t.idle_gaps] == [
+        "sige.serving.set_masks", "sige.engine.sparse", "sige.engine.sparse",
+        "step"]  # the last under sigebench.step alone
+    assert [g[1] for g in t.idle_gaps] == pytest.approx(
+        [220e-6, 20e-6, 20e-6, 10e-6])
+    table = t.spans
+    assert table["sige.serving.step"] == [1, pytest.approx(280e-6),
+                                          pytest.approx(10e-6)]
+    assert table["sige.engine.sparse"] == [1, pytest.approx(230e-6),
+                                           pytest.approx(180e-6)]
+    assert table["sigebench.step"] == [2, pytest.approx(490e-6),
+                                       pytest.approx(210e-6)]
+    # the program's rows are its spans' own table: no harness span nests
+    # inside a program span
+    program = [h for h in host if h[0].startswith("sige.") and h[1] >= 0]
+    assert {n: v for n, v in table.items() if n.startswith("sige.")} == \
+        span_table(program)

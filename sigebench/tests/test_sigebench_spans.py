@@ -1,20 +1,28 @@
-"""The reductions of ``sigebench/spans.py`` and the five readers of the
+"""The span reductions of ``sigebench/trace.py`` and the readers of the
 port's spans and counters, on synthetic spans and records; then a tiny
-DDPM cell run on the CPU with the spans on its trace."""
+DDPM cell run on the CPU with the program's spans and counters on its
+record."""
 
+import json
 import time
-import types
+from pathlib import Path
 
 import pytest
 import torch
 
-from sigebench import harness, spans
+from sigebench import harness, spans, trace
 from sigebench.layers import reader
 from tiny import cell
 
+ROOT = Path(__file__).resolve().parents[2]
+#: the per-layer metrics that read what the program records
+PROGRAM_READ = [m["name"] for m in json.loads(
+    (ROOT / "BENCHMARK.json").read_text())["per_layer"]
+    if m["source"] in ("program_span", "program_counter")]
+
 
 def test_span_table_counts_calls_total_and_self():
-    table = spans.span_table([
+    table = trace.span_table([
         ("sige.serving.step", 0, 100),
         ("sige.serving.install", 0, 30),
         ("sige.serving.stack", 5, 15),
@@ -36,10 +44,10 @@ def test_idle_inside_spans_is_an_intersection():
     gaps = [(0, 10), (20, 40), (50, 55)]
     sparse = [(5, 25), (35, 60)]
     # 5 of the first gap, 5 + 5 of the second, all 5 of the third
-    assert spans.overlap_s(gaps, sparse) == pytest.approx(20e-6)
-    assert spans.overlap_s(gaps, []) == 0.0
+    assert trace.overlap_s(gaps, sparse) == pytest.approx(20e-6)
+    assert trace.overlap_s(gaps, []) == 0.0
     # overlapping intervals count once
-    assert spans.overlap_s([(0, 10)], [(0, 6), (4, 8)]) == pytest.approx(
+    assert trace.overlap_s([(0, 10)], [(0, 6), (4, 8)]) == pytest.approx(
         8e-6)
 
 
@@ -47,21 +55,21 @@ def test_gap_label_is_the_innermost_span():
     host = [("sigebench.step", 0, 100), ("sige.serving.step", 1, 99),
             ("sige.serving.install", 2, 40), ("sigebench.set_masks",
                                               110, 130)]
-    assert spans.label(spans.innermost(20, host)) == "sige.serving.install"
-    assert spans.label(spans.innermost(60, host)) == "sige.serving.step"
+    assert trace.label(trace.innermost(20, host)) == "sige.serving.install"
+    assert trace.label(trace.innermost(60, host)) == "sige.serving.step"
     # under the harness's span alone the label stays as it was
-    assert spans.label(spans.innermost(99.5, host)) == "step"
-    assert spans.label(spans.innermost(120, host)) == "set_masks"
-    assert spans.label(spans.innermost(105, host)) == "other"
+    assert trace.label(trace.innermost(99.5, host)) == "step"
+    assert trace.label(trace.innermost(120, host)) == "set_masks"
+    assert trace.label(trace.innermost(105, host)) == "other"
 
 
 def _record(span_rows=None, forward_idle_s=0.0, counters=None, steps=200):
-    trace = types.SimpleNamespace(spans=span_rows,
-                                  forward_idle_s=forward_idle_s)
-    rec = harness.Record(sessions=8, steps=steps, trace=trace,
-                         trace_steps=25)
-    rec.counters = counters
-    return rec
+    t = trace.Trace(window_s=1.0, busy_s=1.0, conv_s=0, flash_s=0,
+                    session_s=0, flash_bound_s=0, session_bytes=0,
+                    device_ops=[], idle_gaps=[], spans=span_rows or {},
+                    forward_idle_s=forward_idle_s)
+    return harness.Record(sessions=8, steps=steps, trace=t, trace_steps=25,
+                          counters=counters)
 
 
 def test_the_five_readers():
@@ -80,14 +88,18 @@ def test_the_five_readers():
     assert reader("forward_idle_ms")(_record(rows, 0.0)) == 0.0
 
 
-@pytest.mark.parametrize("name", spans.PROGRAM_METRICS)
+@pytest.mark.parametrize("name", PROGRAM_READ)
 def test_readers_find_nothing_without_spans_or_counters(name):
-    """The harness's own Record and Trace (no ``spans``, ``counters``),
-    and a program that records none."""
+    """A record of an untraced run against a program without counters,
+    and a traced one against a program that records nothing."""
     bare = harness.Record(sessions=8, steps=200, trace_steps=25)
-    bare.trace = types.SimpleNamespace()
     assert reader(name)(bare) is None
     assert reader(name)(_record({}, 0.0, None)) is None
+
+
+def test_program_readers_are_in_the_manifest():
+    assert {"install_ms", "forward_idle_ms", "sessions_launch_us",
+            "plans_per_edit", "conv_new_shapes"} <= set(PROGRAM_READ)
 
 
 def test_a_tiny_cell_carries_the_program_spans_on_the_cpu():
@@ -95,13 +107,14 @@ def test_a_tiny_cell_carries_the_program_spans_on_the_cpu():
     torch.set_num_threads(2)
     try:
         c_ = cell("ddpm_church256", "window_s8")
-        out = spans.run_with_spans(c_, 2**31 + 5, 0.3, "cpu",
-                                   time.perf_counter())
+        out = harness.run_cell(c_, 2**31 + 5, 0.3, True, "cpu",
+                               time.perf_counter(), cache_dir=None)
     finally:
         torch.set_num_threads(n)
     rec = out["record"]
     c = rec.counters
-    assert c is not None and c["edits"] > 0
+    # the timed window's counters, and each of its sends one edit
+    assert c is not None and c["edits"] == len(rec.plan_s) > 0
     assert c["plans_built"] >= c["edits"]
     table = rec.trace.spans
     steps = table["sige.serving.step"][0]
@@ -115,11 +128,11 @@ def test_a_tiny_cell_carries_the_program_spans_on_the_cpu():
     assert reader("sessions_launch_us")(rec) is None
     line = spans.result_line(c_, out)
     assert line["correct"]
-    assert set(line["metrics"]) >= {"install_ms", "forward_idle_ms",
-                                     "plans_per_edit", "conv_new_shapes",
-                                     "enqueue_ms", "plan_ms"}
+    # DDPM's cell reads the step's tail and what moves it as host-paced
+    assert set(line["metrics"]) >= {
+        "install_ms.host_paced", "forward_idle_ms",
+        "plans_per_edit.host_paced", "conv_new_shapes.host_paced",
+        "enqueue_ms", "plan_ms.host_paced", "step_ms_p95.host_paced"}
     means = line["step_mean_ms"]
     assert means["sige.serving.step"] <= means["sigebench.step"]
     assert line["spans"]["sige.serving.step"][0] == 1.0
-    # the harness's own classes are back
-    assert harness.Record is not type(rec)

@@ -1,21 +1,23 @@
 """The traced steps: the harness's spans, the shapes of the flash and
-session kernels' calls, and the reduction of a ``torch.profiler`` trace
-to what the per-layer readers take.
+session kernels' calls, the program's counters, and the reduction of a
+``torch.profiler`` trace to what the per-layer readers take.
 
 Spans are ``torch.profiler.record_function`` ranges named
 ``sigebench.<name>`` around each call into the program (``set_masks``,
 ``input``, ``step``, ``sync``) and around the traced steps
-(``window``); outside a traced run they cost nothing. The hand-written
-kernels launch through ctypes, so the profiler sees their names but not
-their shapes: while tracing, the port's launch wrappers are wrapped to
-log each call's shapes.
+(``window``); outside a traced run they cost nothing. The program's own
+spans are host ranges named ``sige.<layer>.<name>``
+(``sige_torch/utils/trace.py``), its counters plain integers read by
+:func:`counters_now`. The hand-written kernels launch through ctypes, so
+the profiler sees their names but not their shapes: while tracing, the
+port's launch wrappers are wrapped to log each call's shapes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +29,8 @@ CONV_OPS = ("aten::cudnn_convolution", "aten::_convolution",
             "aten::cudnn_convolution_add_relu", "aten::cudnn_convolution_relu")
 FLASH_KERNELS = ("flash_fwd_f32", "flash_combine_f32")
 SESSION_KERNELS = ("crop_sessions_f32", "paste_sessions_f32")
+
+Span = Tuple[str, float, float]  # (name, start, end), profiler us
 
 
 class Spans:
@@ -134,8 +138,10 @@ def profile(device):
 class Trace:
     """A traced window reduced: seconds busy (the union of device
     intervals), the window's length, device seconds of the conv, flash
-    and session kernels, the calls' bounds, the top kernels and the
-    longest idle gaps labelled by the host's span at their middle."""
+    and session kernels, the calls' bounds, the top kernels, the longest
+    idle gaps labelled by the innermost span open at their middle, the
+    host spans' table (:func:`span_table`) and the device-idle seconds
+    inside the program's ``sige.engine.sparse``."""
 
     window_s: float
     busy_s: float
@@ -146,6 +152,84 @@ class Trace:
     session_bytes: float
     device_ops: List[List]
     idle_gaps: List[List]
+    spans: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
+    forward_idle_s: float = 0.0
+
+
+def counters_now() -> Optional[Dict[str, int]]:
+    """The program's counters, None where it has none."""
+    try:
+        from sige_torch.utils.trace import snapshot
+    except ImportError:
+        return None
+    return snapshot()
+
+
+def counter_deltas(start: Optional[Dict[str, int]],
+                   end: Optional[Dict[str, int]]) -> Optional[Dict[str, int]]:
+    if start is None or end is None:
+        return None
+    return {key: end[key] - start[key] for key in end}
+
+
+def span_table(spans: Iterable[Span]) -> Dict[str, List[float]]:
+    """``{name: [calls, total_s, self_s]}`` of ranges that nest as a call
+    stack (one thread's): a span's self time is its length less the
+    lengths of the spans directly inside it."""
+    out: Dict[str, List[float]] = {}
+    stack: List[List] = []  # [name, (start, end), us of direct children]
+
+    def close(entry):
+        name, (a, b), child = entry[0], entry[1], entry[2]
+        row = out.setdefault(name, [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += (b - a) / 1e6
+        row[2] += (b - a - child) / 1e6
+
+    for name, a, b in sorted(spans, key=lambda s: (s[1], -s[2])):
+        while stack and stack[-1][1][1] <= a:
+            close(stack.pop())
+        if stack:
+            stack[-1][2] += b - a
+        stack.append([name, (a, b), 0.0])
+    while stack:
+        close(stack.pop())
+    return out
+
+
+def overlap_s(gaps: Iterable[Tuple[float, float]],
+              intervals: Iterable[Tuple[float, float]]) -> float:
+    """Seconds of the gaps ([a, b], us) that lie inside the union of
+    ``intervals``: the intersection, not a midpoint test."""
+    merged: List[List[float]] = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = 0.0
+    for ga, gb in gaps:
+        for a, b in merged:
+            total += max(0.0, min(gb, b) - max(ga, a))
+    return total / 1e6
+
+
+def innermost(t: float, spans: Iterable[Span]) -> Optional[str]:
+    """The name of the innermost span open at ``t`` (the latest to start
+    of those holding it), None where none is."""
+    best = None
+    for name, a, b in spans:
+        if a <= t < b and (best is None or a >= best[1]):
+            best = (name, a)
+    return None if best is None else best[0]
+
+
+def label(name: Optional[str]) -> str:
+    """A gap's label: a program span by its whole name, a harness span
+    without ``sigebench.``."""
+    if name is None:
+        return "other"
+    return name.split(".", 1)[1] if name.startswith("sigebench.") else name
 
 
 def _is_device(e) -> bool:
@@ -155,12 +239,16 @@ def _is_device(e) -> bool:
             and not e.name.startswith("sigebench."))
 
 
+def _is_span(e) -> bool:
+    """A host range of the program (``sige.``) or of the harness."""
+    return (e.device_type != torch.autograd.DeviceType.CUDA
+            and e.name.startswith(("sige.", "sigebench.")))
+
+
 def reduce(prof, calls: CallLog) -> Optional[Trace]:
     events = list(prof.events())
-    spans = [e for e in events if e.device_type
-             != torch.autograd.DeviceType.CUDA
-             and e.name.startswith("sigebench.")]
-    window = [e for e in spans if e.name == "sigebench.window"]
+    window = [e for e in events
+              if _is_span(e) and e.name == "sigebench.window"]
     if not window:
         return None
     lo, hi = window[0].time_range.start, window[0].time_range.end
@@ -181,19 +269,13 @@ def reduce(prof, calls: CallLog) -> Optional[Trace]:
     def named(keys):
         return sum(v for n, v in by_name.items() if any(k in n for k in keys))
 
-    gaps = sorted(metrics.gaps(ivals, lo, hi), key=lambda g: g[0] - g[1])[:10]
-    inner = sorted((e for e in spans if e.name != "sigebench.window"),
-                   key=lambda e: e.time_range.start)
-
-    def label(t):
-        best = "other"
-        for e in inner:
-            if e.time_range.start <= t < e.time_range.end:
-                best = e.name.split(".", 1)[1]
-            elif e.time_range.start > t:
-                break
-        return best
-
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end)
+                    for e in host if _is_span(e)
+                    and lo <= e.time_range.start < hi),
+                   key=lambda s: (s[1], -s[2]))
+    inner = [s for s in spans if s[0] != "sigebench.window"]
+    gaps = metrics.gaps(ivals, lo, hi)
+    longest = sorted(gaps, key=lambda g: g[0] - g[1])[:10]
     return Trace(
         window_s=(hi - lo) / 1e6, busy_s=busy, conv_s=conv,
         flash_s=named(FLASH_KERNELS), session_s=named(SESSION_KERNELS),
@@ -201,4 +283,8 @@ def reduce(prof, calls: CallLog) -> Optional[Trace]:
         session_bytes=calls.session_bytes(),
         device_ops=[[n, v] for n, v in sorted(by_name.items(),
                                               key=lambda x: -x[1])[:10]],
-        idle_gaps=[[label((a + b) / 2), (b - a) / 1e6] for a, b in gaps])
+        idle_gaps=[[label(innermost((a + b) / 2, inner)), (b - a) / 1e6]
+                   for a, b in longest],
+        spans=span_table(spans),
+        forward_idle_s=overlap_s(gaps, [(a, b) for n, a, b in spans
+                                        if n == "sige.engine.sparse"]))
