@@ -31,11 +31,24 @@ level whose map has at least that many tokens, the full pass caches each
 block's projected K/V token maps through a pair of scatters, and a sparse
 pass projects only the edited tokens and scatters them over those caches
 (exact: LayerNorm and the projections are per-token), in place of
-scattering the features once and reprojecting the whole map. For depth
-> 1 the deeper blocks' K/V of unedited tokens are the full pass's, as in
-``sige_tpu`` (the reference's stale full map makes the same
-approximation). Such a level writes no ``k1_*`` caches, so in the window
-layout it takes the non-chain path.
+scattering the features once and reprojecting the whole map. Such a level
+writes no ``k1_*`` caches, so in the window layout it takes the non-chain
+path. At depth > 1 every level's blocks past the first take their K/V so
+on the non-chain path: block i's keys and values are those of block i's
+own input, fresh where the step recomputes and the original's block-i
+maps elsewhere (the chain path's masked stale-K/V attention reads the
+same maps from the ``k1_i`` caches, which share the scatters' storage).
+Here the port departs from ``sige_tpu`` on purpose: on its non-chain
+path every block takes the K/V of block 0's scattered map, which is not
+block i's input; the plain reference (``sigebench/reference/
+sdxl_unet.py``) defines block i's keys by its own input, and at depth 1
+the two agree.
+
+SDXL's base U-Net (``SDUNetConfig`` with ``transformer_depth`` per level,
+``num_head_channels`` 64 and ``adm_in_channels`` 2816) adds the label
+embedding of ``y`` (pooled text and size conditioning) to the time
+embedding; its 1x1 ``proj_in``/``proj_out`` are SDXL's linear ones in
+conv form.
 
 Cache slots and ``sparse_update``: every cache is per slot (the engine
 binds it), the text and ``k1_*`` K/V caches too; under ``sparse_update``
@@ -53,7 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +78,7 @@ from ...nn.norm import group_norm_with_affine
 from ...ops.attention import masked_mha, mha, stale_fresh_biases
 from ...ops.sessions import cov_where
 from ...ops.window import window_extent, window_slice
+from ...utils import trace
 from ..blocks import (FoldedGroupNorm, ResBlock, SIGEDownsample, SIGEUpsample,
                       affine, swish, to_map)
 
@@ -72,7 +86,12 @@ from ..blocks import (FoldedGroupNorm, ResBlock, SIGEDownsample, SIGEUpsample,
 @dataclasses.dataclass(frozen=True)
 class SDUNetConfig:
     """SD v1 defaults (reference: stable-diffusion/configs/sige.yaml:50-66).
-    The fields and defaults are ``sige_tpu``'s."""
+    The fields and defaults up to ``cache_slots`` are ``sige_tpu``'s; the
+    last two and a per-level ``transformer_depth`` widen the U-Net to
+    SDXL's base model (generative-models ``configs/inference/
+    sd_xl_base.yaml``: 64-channel heads, the label embedding of the pooled
+    text and size vector), each defaulting to SD v1's behaviour. The
+    middle transformer takes the last level's depth, as in openaimodel."""
 
     in_channels: int = 4
     model_channels: int = 320
@@ -81,7 +100,8 @@ class SDUNetConfig:
     attention_resolutions: Tuple[int, ...] = (4, 2, 1)  # downsample factors
     channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
     num_heads: int = 8
-    transformer_depth: int = 1
+    #: blocks a transformer: one for every level, or one per level
+    transformer_depth: Union[int, Tuple[int, ...]] = 1
     context_dim: int = 768
     num_groups: int = 32
     main_block_size: Optional[int] = 6
@@ -98,6 +118,21 @@ class SDUNetConfig:
     #: resamples and transformers (masked stale-K/V attention)
     window_chain: bool = True
     cache_slots: int = 1
+    #: channels a head, heads = channels / this (-1: ``num_heads`` heads)
+    num_head_channels: int = -1
+    #: width of the label vector ``y`` (0: no label embedding)
+    adm_in_channels: int = 0
+
+    def depth_at(self, level: int) -> int:
+        d = self.transformer_depth
+        return d if isinstance(d, int) else d[level]
+
+    def heads(self, channels: int) -> Tuple[int, int]:
+        """(heads, channels a head) of a transformer over ``channels``
+        (openaimodel's rule)."""
+        if self.num_head_channels == -1:
+            return self.num_heads, channels // self.num_heads
+        return channels // self.num_head_channels, self.num_head_channels
 
 
 def sd_timestep_embedding(t: torch.Tensor, dim: int,
@@ -310,10 +345,19 @@ class SIGESpatialTransformer(SIGEModule):
             self.scatter2 = Scatter(self.gather)
 
     def forward(self, x, ctx: SIGECtx, context=None):
-        if (ctx.mode == "sparse" and self.sparse_ok and self.cfg.window_chain
-                and not ctx.sparse_update and self.gather.planned_window()
-                and "k1_0" in self.cache):
-            return self._chain_window(x, ctx, context)
+        if ctx.mode != "sparse":
+            return self._run(x, ctx, context)
+        with trace.span("sige.op.transformer"):
+            if (self.sparse_ok and self.cfg.window_chain
+                    and not ctx.sparse_update and self.gather.planned_window()
+                    and "k1_0" in self.cache):
+                trace.counters["transformer_chain_blocks"] += len(self.blocks)
+                with trace.span("sige.op.chain"):
+                    return self._chain_window(x, ctx, context)
+            trace.counters["transformer_dense_blocks"] += len(self.blocks)
+            return self._run(x, ctx, context)
+
+    def _run(self, x, ctx: SIGECtx, context):
         x = to_map(x)
         B, H, W, _ = x.shape
         x_in = x
@@ -339,32 +383,34 @@ class SIGESpatialTransformer(SIGEModule):
             # one feature scatter; K/V reprojected from the full map
             full_tok = self.scatter1(h, ctx).reshape(B, H * W, self.inner)
 
+        # the chain path's masked stale-K/V attention reads each block's
+        # K/V token maps of the full pass (LayerNorm and the projections
+        # are per-token)
+        chain_caches = (self.sparse_ok and self.cfg.window_chain
+                        and not kv_cached and ctx.mode == "full")
         for i, block in enumerate(self.blocks):
-            if (self.sparse_ok and self.cfg.window_chain and not kv_cached
-                    and ctx.mode == "full"):
-                # cache this block's K/V token maps for the chain path's
-                # masked stale-K/V attention (LayerNorm and the
-                # projections are per-token)
-                kv1 = block.attn1.kv(block.norm1(tok), ctx)
-                self.cache[f"k1_{i}"], self.cache[f"v1_{i}"] = kv1
-                if ctx.band is not None:  # this rank's band of tokens
-                    ctx.band.cache_rows(self.cache, f"k1_{i}")
-                    ctx.band.cache_rows(self.cache, f"v1_{i}")
-            elif kv_cached and ctx.mode != "dense":
+            kv1 = None
+            if self.sparse_ok and ctx.mode != "dense" and (kv_cached or i):
                 # K/V over the full token map from the K/V caches: the
                 # full pass projects every token and caches the maps, a
-                # sparse pass projects the edited tokens only and scatters
-                # them over the caches
+                # sparse pass projects the fresh tokens only and scatters
+                # them over the caches. Past block 0 every level does so:
+                # block i's keys are its own input's, the original's
+                # where the step does not recompute
                 kt, vt = block.attn1.kv(block.norm1(tok), ctx)
+                if chain_caches:
+                    self._cache_kv1(i, kt, vt, ctx)
                 sc_k, sc_v = self.kv_scatters[i]
                 kv1 = tuple(
                     sc(t.reshape(*h_shape[:-1], self.inner), ctx).reshape(
                         B, H * W, self.inner)
                     for sc, t in ((sc_k, kt), (sc_v, vt)))
+            elif chain_caches:
+                kv1 = block.attn1.kv(block.norm1(tok), ctx)
+                self._cache_kv1(i, *kv1, ctx)
             elif full_tok is not None and sparse:
+                # block 0: K/V reprojected from the scattered features
                 kv1 = block.attn1.kv(block.norm1(full_tok), ctx)
-            else:
-                kv1 = None
             tok = block(tok, ctx, kv1=kv1, context=context)
 
         h = tok.reshape(h_shape)
@@ -372,6 +418,12 @@ class SIGESpatialTransformer(SIGEModule):
         if self.sparse_ok:
             return self.scatter2(h, ctx, residual=x_in)
         return h + x_in
+
+    def _cache_kv1(self, i: int, k, v, ctx: SIGECtx) -> None:
+        self.cache[f"k1_{i}"], self.cache[f"v1_{i}"] = k, v
+        if ctx.band is not None:  # this rank's band of tokens
+            ctx.band.cache_rows(self.cache, f"k1_{i}")
+            ctx.band.cache_rows(self.cache, f"v1_{i}")
 
     def _chain_window(self, x, ctx: SIGECtx, context) -> WindowState:
         """Window-resident sparse path: per-token ops run on the carried
@@ -430,9 +482,11 @@ class SIGESDUpsample(SIGEUpsample):
 
 class SIGESDUNet(SIGEModule):
     """Reference: sige_openaimodel.py:226-451 (structure mirrors
-    openaimodel.UNetModel). ``forward(x, t, context, ctx)`` with x
-    [B, H, W, in_channels] latents, t [B] timesteps and context
-    [B, seq, context_dim] text embeddings."""
+    openaimodel.UNetModel). ``forward(x, t, context, y=None, *, ctx)``
+    with x [B, H, W, in_channels] latents, t [B] timesteps, context
+    [B, seq, context_dim] text embeddings and, with ``adm_in_channels``,
+    y [B, adm_in_channels] the label vector (SDXL: the pooled text
+    embedding and the size conditioning)."""
 
     def __init__(self, cfg: SDUNetConfig = SDUNetConfig()):
         super().__init__()
@@ -444,10 +498,13 @@ class SIGESDUNet(SIGEModule):
         self.conv_in = SIGEConv2d(cfg.in_channels, mc, kernel_size=3,
                                   padding=1, tile_input=False)
 
-        def transformer(ch, sparse=True):
-            nh = cfg.num_heads
-            return SIGESpatialTransformer(cfg, ch, nh, ch // nh,
-                                          cfg.transformer_depth, sparse)
+        if cfg.adm_in_channels:
+            self.label_dense0 = nn.Linear(cfg.adm_in_channels, ted)
+            self.label_dense1 = nn.Linear(ted, ted)
+
+        def transformer(ch, depth, sparse=True):
+            return SIGESpatialTransformer(cfg, ch, *cfg.heads(ch), depth,
+                                          sparse)
 
         latent_res = 64  # canonical SD v1 latent; only the ds ratio matters
 
@@ -463,7 +520,8 @@ class SIGESDUNet(SIGEModule):
                 kinds = ["res"]
                 ch = mult * mc
                 if ds in cfg.attention_resolutions:
-                    mods.append(transformer(ch, sparse_at(ds)))
+                    mods.append(transformer(ch, cfg.depth_at(level),
+                                            sparse_at(ds)))
                     kinds.append("attn")
                 in_blocks.append(nn.ModuleList(mods))
                 in_kinds.append(kinds)
@@ -479,7 +537,8 @@ class SIGESDUNet(SIGEModule):
 
         self.mid_block1 = SIGESDResBlock(cfg, ch, ch, support_sparse=False,
                                          live_dense=True)
-        self.mid_attn = transformer(ch, sparse=False)
+        # the last level's depth (openaimodel's default middle)
+        self.mid_attn = transformer(ch, cfg.depth_at(level), sparse=False)
         self.mid_block2 = SIGESDResBlock(cfg, ch, ch, support_sparse=False,
                                          live_dense=True)
 
@@ -493,7 +552,8 @@ class SIGESDUNet(SIGEModule):
                 kinds = ["res"]
                 ch = mult * mc
                 if ds in cfg.attention_resolutions:
-                    mods.append(transformer(ch, sparse_at(ds)))
+                    mods.append(transformer(ch, cfg.depth_at(level),
+                                            sparse_at(ds)))
                     kinds.append("attn")
                 if level and i == cfg.num_res_blocks:
                     mods.append(SIGESDUpsample(cfg, ch, sparse_at(ds)))
@@ -520,16 +580,26 @@ class SIGESDUNet(SIGEModule):
                 h = mod(h, ctx)
         return h
 
-    def forward(self, x, t, context, ctx: SIGECtx):
+    def forward(self, x, t, context, y=None, *, ctx: SIGECtx):
         cfg = self.cfg
+        if (y is None) != (not cfg.adm_in_channels):
+            raise ValueError("y is the label vector of a U-Net with "
+                             "adm_in_channels, and only of one")
         # the time embedding is needed in every mode: the live middle
         # resblocks add it in sparse mode too (reference:
         # openaimodel.py:715-730)
+        ted = 4 * cfg.model_channels
         emb = sd_timestep_embedding(t, cfg.model_channels)
-        add_dense_macs(ctx, emb, 4 * cfg.model_channels)
+        add_dense_macs(ctx, emb, ted)
         emb = self.time_dense0(emb)
-        add_dense_macs(ctx, emb, 4 * cfg.model_channels)
-        emb = self.time_dense1(swish(emb)).to(x.dtype)
+        add_dense_macs(ctx, emb, ted)
+        emb = self.time_dense1(swish(emb))
+        if y is not None:  # generative-models openaimodel.py label_emb
+            add_dense_macs(ctx, y, ted)
+            lab = self.label_dense0(y)
+            add_dense_macs(ctx, lab, ted)
+            emb = emb + self.label_dense1(swish(lab))
+        emb = emb.to(x.dtype)
 
         hs = [self.conv_in(x, ctx)]
         for mods, kinds in zip(self.in_blocks, self._in_kinds):

@@ -18,6 +18,11 @@ the work at the port's layer boundaries:
   the folded norms), the window-resident chain steps of the blocks
   (``chain``), and every call of the attention entries ``mha`` /
   ``masked_mha`` (``attention``);
+* ``sige.op.transformer``: each SD spatial transformer's sparse-mode
+  ``forward`` (``models/sd/unet.py SIGESpatialTransformer``), on the
+  window chain, off it and in the dense middle, holding the
+  ``sige.op.chain`` (its window chain), ``attention`` and other op spans
+  inside it;
 * ``sige.kernel.flash``, ``sige.kernel.crop``, ``sige.kernel.paste``: the
   host work of one launch of a hand-written kernel through ctypes.
 
@@ -48,7 +53,11 @@ Counters are plain integers, always on, in :data:`counters`:
 * ``conv_new_shapes``: convolutions inside the engine's ``fp32_scope``
   whose key (input shape and memory format, weight shape, stride,
   padding, groups, dtype) is new to the process; on CUDA in cuDNN's
-  benchmark mode each is one timing of cuDNN's algorithms.
+  benchmark mode each is one timing of cuDNN's algorithms;
+* ``transformer_chain_blocks``: transformer blocks a sparse-mode forward
+  ran on the window chain's masked stale-K/V path;
+* ``transformer_dense_blocks``: transformer blocks a sparse-mode forward
+  ran any other way (the dense middle, the non-chain sparse path).
 
 :func:`snapshot` returns them beside the kernel wrappers' launch counters
 (``flash_mha.launches`` and the others, which stay where they are), so a
@@ -91,7 +100,9 @@ def span(name: str):
 
 counters: Dict[str, int] = {"edits": 0, "plans_built": 0,
                             "plan_row_installs": 0, "plan_full_installs": 0,
-                            "conv_new_shapes": 0}
+                            "conv_new_shapes": 0,
+                            "transformer_chain_blocks": 0,
+                            "transformer_dense_blocks": 0}
 
 #: Depth of the engine's ``fp32_scope`` (``nn/engine.py``): convolutions
 #: count toward ``conv_new_shapes`` only inside it.
