@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase {checkpoints,sd_text,engine_options,quality,
-                                   twin,sessions,adopt,dp,sp}
+                                   twin,sessions,adopt,dp,sp,flash}
 
 With ``--phase`` it builds the kernels and the native planner and runs
 that phase alone (13, 14 with phase 13's SD checkpoint, 15, 16, 17, 18,
-19, 20 or 21),
+19, 20 or 21; ``flash``: the attention kernels at the U-Nets' measured
+shapes, :func:`phase_flash`),
 printing the card first and the phase's record as one JSON line last.
 
 Phases (any failure raises and the script exits non-zero):
@@ -356,8 +357,11 @@ from sige_torch.nn.engine import (fp32_scope, plan_leaves, precision_flags,
                                   set_precision_flags)
 from sige_torch.runners.common import storage_mb
 
-# H100 SXM published peaks: fp32 outside the tensor cores, HBM3 bandwidth
-PEAK_FP32_FLOPS = 67e12
+# H100 SXM published peaks: dense TF32 on the tensor cores, HBM3 bandwidth;
+# the split-TF32 (3xTF32) attention kernel takes three TF32 products for
+# each fp32 one, so a third of the TF32 peak is its ceiling
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES_PER_S = 3.35e12
 TOL = 1e-4
 FLASH_SOURCE = "sige_torch/csrc/flash_attn.cu"
@@ -425,14 +429,16 @@ def time_ms(fn, warmup: int = 5, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(B, N, M, H, D, bias_rows: int):
+def attention_bound(B, N, M, H, D, bias_rows: int,
+                    flops_per_s: float = PEAK_TF32_FLOPS):
     """Least time for one attention call: bytes (q, k, v and the
     ``bias_rows`` x M key bias read once, out written once) over HBM
-    bandwidth vs 4*N*M*D flops per head over the fp32 rate."""
+    bandwidth vs 4*N*M*D flops per head over ``flops_per_s`` (the
+    benchmark's 495 TFLOP/s, or the 3xTF32 ceiling of 165)."""
     nbytes = 4 * (2 * B * N * H * D + 2 * B * M * H * D + bias_rows * M)
     flops = 4.0 * B * H * N * M * D
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -471,10 +477,11 @@ def bias_rows(bias) -> int:
 
 def kernel_row(flash, label, B, N, M, H, D, bias):
     """Hold the flash kernel against its plain twin at one shape (random
-    q, k, v; ``bias`` None, [M] or one row per session [R, M]) and time
-    it, the plain version and SDPA (given the same additive bias as a
-    float ``attn_mask``, broadcast to [B, 1, 1, M] for per-session
-    rows)."""
+    q, k, v; ``bias`` None, [M] or one row per session [R, M]), report
+    its error against the plain version in fp64 (max |kernel - fp64| /
+    max |fp64|), and time it, the plain version and SDPA (given the same
+    additive bias as a float ``attn_mask``, broadcast to [B, 1, 1, M] for
+    per-session rows)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(N + M + D)
@@ -483,12 +490,18 @@ def kernel_row(flash, label, B, N, M, H, D, bias):
     scale = D ** -0.5
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     splits = flash._num_splits(B * H, N, M, D, sms)
+    tc = flash.flash_mha.tc_launches
     out = flash.flash_mha(q, k, v, scale, bias)
     torch.cuda.synchronize()
+    tc = flash.flash_mha.tc_launches - tc
     ref = flash.flash_mha_plain(q, k, v, scale, bias)
     err = (out - ref).abs().max().item()
     if not (err <= TOL):
         raise AssertionError(f"{label}: kernel vs plain max err {err:.3e}")
+    ref = flash.flash_mha_plain(q.double(), k.double(), v.double(), scale,
+                                None if bias is None else bias.double())
+    rel64 = ((out.double() - ref).abs().max() / ref.abs().max()).item()
+    del ref
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     rows = bias_rows(bias)
     mask = bias if rows <= 1 else bias.repeat_interleave(B // rows, 0)[
@@ -500,17 +513,21 @@ def kernel_row(flash, label, B, N, M, H, D, bias):
     call = {n: time_ms(fn) for n, fn in fns.items()}
     dev = {n: device_ms(fn, required=False)[0] for n, fn in fns.items()}
     bound_ms, bound_by = attention_bound(B, N, M, H, D, rows)
+    bound_3x_ms = attention_bound(B, N, M, H, D, rows, PEAK_3XTF32_FLOPS)[0]
 
     def fmt(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
 
-    print(f"  {label}: S={splits}  max err {err:.3e}  ms (events): "
-          f"kernel {call['kernel']:.4f}  plain {call['plain']:.4f}  sdpa "
-          f"{call['library']:.4f}  bound {bound_ms:.5f} ({bound_by}); "
-          f"device ms (profiler): kernel {fmt(dev['kernel'])}  plain "
+    print(f"  {label}: S={splits} tc={tc}  max err {err:.3e}  rel. err vs "
+          f"fp64 {rel64:.3e}  ms (events): kernel {call['kernel']:.4f}  "
+          f"plain {call['plain']:.4f}  sdpa {call['library']:.4f}  bound "
+          f"{bound_ms:.5f} ({bound_by}; 3xTF32 {bound_3x_ms:.5f}); device ms "
+          f"(profiler): kernel {fmt(dev['kernel'])}  plain "
           f"{fmt(dev['plain'])}  sdpa {fmt(dev['library'])}", flush=True)
     return {"shape": label, "B": B, "N": N, "M": M, "H": H, "D": D,
             "bias": bias is not None, "bias_rows": rows, "splits": splits,
+            "tc_launches": tc, "rel_err_fp64": rel64,
+            "bound_3xtf32_ms": bound_3x_ms,
             "max_err": err, "kernel_ms": call["kernel"],
             "plain_ms": call["plain"], "library_ms": call["library"],
             "kernel_device_ms": dev["kernel"],
@@ -531,7 +548,7 @@ def phase_forced_splits(flash):
     scale = D ** -0.5
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     chosen = flash._num_splits(B * H, N, M, D, sms)
-    tiles = -(-M // flash.BLOCK_K)
+    tiles = -(-M // flash.block_k(D))
     ref = flash.flash_mha_plain(q, k, v, scale)
     forced = {}
     for splits in sorted({1, chosen, tiles}):
@@ -564,6 +581,43 @@ def phase_forced_splits(flash):
           f"{plain_ms:.4f}  bound {combine['bound_ms']:.5f} (bytes)",
           flush=True)
     return forced, combine
+
+
+# (label, B, N, M, H, D, key bias rows): the attention calls that carry
+# the U-Net cells' flash time (PERF.md section 6's letters), then the SIMT
+# kernel's main-path shape
+FLASH_SHAPES = [
+    ("c: SD 64x64 self-attention", 2, 4096, 4096, 8, 40, 0),
+    ("w: PD 32x32 self, 4 heads", 1, 1024, 1024, 4, 64, 0),
+    ("z: K/V-cached sparse self 64x64, 14x14", 2, 196, 4096, 8, 40, 0),
+    ("ac: 3% edit, masked 64x64, 30x30", 2, 900, 4996, 8, 40, 1),
+    ("ay: stacked S=4, masked 64x64, 30x30", 8, 900, 4996, 8, 40, 4),
+    ("stacked S=4, masked 32x32, 18x18", 8, 324, 1348, 8, 80, 4),
+    ("stacked S=4, masked 16x16, 14x14", 8, 196, 452, 8, 160, 4),
+    ("SDXL dense middle 32x32", 8, 1024, 1024, 20, 64, 0),
+    ("SDXL masked 64x64, 30x30, S=4", 8, 900, 4996, 10, 64, 4),
+    ("SDXL masked 32x32, 18x18, S=4", 8, 324, 1348, 20, 64, 4),
+    ("SDXL cross-attention 64x64", 8, 900, 77, 10, 64, 0),
+    ("a: DDPM 16px attention", 1, 256, 256, 1, 512, 0),
+]
+
+
+def phase_flash(flash):
+    """The attention kernels at :data:`FLASH_SHAPES` (random q, k, v; a
+    0 / -1e9 key bias of the given rows), each through
+    :func:`kernel_row`, inside the engine's fp32 scope."""
+    rows = []
+    with fp32_scope():
+        for label, B, N, M, H, D, R in FLASH_SHAPES:
+            gen = torch.Generator(device="cuda").manual_seed(B + N + M + D)
+            bias = None
+            if R:
+                bias = torch.where(torch.rand(R, M, generator=gen,
+                                              device="cuda") < 0.3, -1e9, 0.0)
+                bias = bias[0] if R == 1 else bias
+            rows.append(kernel_row(flash, label, B, N, M, H, D, bias))
+            torch.cuda.empty_cache()
+    return rows
 
 
 def edit_pair(R: int, frac: float = 0.012, at=None, seed: int = 0):
@@ -5730,6 +5784,8 @@ def one_phase(flash, name: str) -> dict:
     if name == "sp":
         result, rows = phase_sp(flash)
         return {"sp": result, "rows": rows}
+    if name == "flash":
+        return {"flash": phase_flash(flash)}
     return {"quality": phase_quality(flash)}
 
 
@@ -5795,7 +5851,8 @@ def main(argv=None) -> int:
                                 "NVIDIA GPU (every phase, or one).")
     p.add_argument("--phase", choices=("checkpoints", "sd_text",
                                        "engine_options", "quality", "twin",
-                                       "sessions", "adopt", "dp", "sp"))
+                                       "sessions", "adopt", "dp", "sp",
+                                       "flash"))
     # one rank of phase 20 or 21, started by it
     for kind in ("dp", "sp"):
         p.add_argument(f"--{kind}-rank", type=int, help=argparse.SUPPRESS)

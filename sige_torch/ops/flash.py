@@ -10,19 +10,25 @@ kernel ``sige_tpu/ops/flash.py:_fwd_kernel`` (launched by
 per (batch, head), online softmax with fp32 running max and sum, fp32
 data. The key bias has R rows: one shared by every batch row, or one per
 session of a batch stacked over R sessions, batch row b reading row
-``r(b) = b // (B / R)`` (:func:`bias_rows`). ``flash_fwd_f32`` walks the key range in 32-key tiles staged with
-``cp.async``; when the grid of query blocks is smaller than the card's
-SM count, :func:`_num_splits` cuts the key range into ``splits`` runs of
-whole tiles (split-KV), each block writes an unnormalised partial, and
-``flash_combine_f32`` merges the partials. What bounds the kernels on
-the H100 and how the design addresses that is in the header of the CUDA
-source.
+``r(b) = b // (B / R)`` (:func:`bias_rows`). The head dim picks the
+attention kernel (:func:`tensor_core_head`): ``flash_fwd_f32_tc`` takes
+both inner products on the tensor cores in split TF32 (3xTF32, fp32's
+accuracy) for every D that is a multiple of 8 up to 256;
+``flash_fwd_f32`` computes them on the SIMT units for the rest (D = 512).
+Each walks the key range in tiles of :func:`block_k` keys staged with
+``cp.async``; when the grid of query blocks (:func:`block_q` rows each) is
+smaller than the card's SM count, :func:`_num_splits` cuts the key range
+into ``splits`` runs of whole tiles (split-KV), each block writes an
+unnormalised partial, and ``flash_combine_f32`` merges the partials. What
+bounds the kernels on the H100 and how the design addresses that is in
+the header of the CUDA source.
 
 The shared library is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/sige_torch/`` (beside the package) on first use and loaded with
 ctypes (:class:`~sige_torch.ops.cuda_lib.CudaLibrary`). ``flash_mha`` on CPU tensors runs :func:`flash_mha_plain`; on
 CUDA tensors it launches the kernels or raises. ``flash_mha.launches``
-counts launches of the attention kernel (one per call),
+counts launches of an attention kernel (one per call),
+``flash_mha.tc_launches`` those of the tensor-core kernel and
 ``flash_mha.combine_launches`` those of the combine kernel (one per call
 whose key range is split).
 """
@@ -40,7 +46,6 @@ from .cuda_lib import CSRC, CudaLibrary
 
 SOURCE = CSRC / "flash_attn.cu"
 MAX_HEAD_DIM = 512
-BLOCK_K = 32  # keys per tile: must match kBK in the CUDA source
 
 LIBRARY = CudaLibrary(SOURCE, "sige_flash", {"sige_flash_attn_f32": (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float]
@@ -70,31 +75,50 @@ def flash_mha_plain(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     return torch.einsum("bhnm,bmhd->bnhd", p, vh)
 
 
+def tensor_core_head(D: int) -> bool:
+    """Whether head dim D takes the tensor-core kernel (``tc_head`` in the
+    CUDA source): a multiple of 8 (whole k8 steps of the m16n8k8 product)
+    up to 256 (its O accumulators in registers)."""
+    return D % 8 == 0 and D <= 256
+
+
 def block_q(D: int) -> int:
-    """Query rows per block of the attention kernel (must match
-    ``block_q`` in the CUDA source): wider blocks for narrower heads."""
-    return 64 if D <= 64 else (32 if D <= 128 else 16)
+    """Query rows per block of the attention kernel that D takes (must
+    match ``tc_block_q`` and ``kBQ`` in the CUDA source): four warps of
+    two 16-row tiles at D <= 64, of one above; 16 on the SIMT kernel."""
+    if not tensor_core_head(D):
+        return 16
+    return 128 if D <= 64 else 64
+
+
+def block_k(D: int) -> int:
+    """Keys per tile of the attention kernel that D takes (must match
+    ``tc_block_k`` and ``kBK`` in the CUDA source): 16 on the tensor-core
+    kernel above D = 160, where its split q, K and V take the shared
+    memory, else 32."""
+    return 16 if tensor_core_head(D) and D > 160 else 32
 
 
 def _num_splits(G: int, N: int, M: int, D: int, sms: int) -> int:
     """How many key ranges the kernel splits M into: enough blocks to
     cover the SMs when the query blocks alone do not, never more ranges
-    than 32-key tiles (so none is empty), 1 when the grid fills the card."""
+    than key tiles (so none is empty), 1 when the grid fills the card."""
     blocks = -(-N // block_q(D)) * G
     if blocks >= sms:
         return 1
-    return min(-(-M // BLOCK_K), -(-sms // blocks))
+    return min(-(-M // block_k(D)), -(-sms // blocks))
 
 
-def _split_bounds(M: int, splits: int):
-    """[(first key, end key)] of each split: whole 32-key tiles, split s
-    taking tiles [s*T//splits, (s+1)*T//splits) as the kernel does."""
-    tiles = -(-M // BLOCK_K)
+def _split_bounds(M: int, D: int, splits: int):
+    """[(first key, end key)] of each split: whole key tiles of head dim
+    D's kernel, split s taking tiles [s*T//splits, (s+1)*T//splits) as
+    the kernel does."""
+    bk = block_k(D)
+    tiles = -(-M // bk)
     if not 1 <= splits <= tiles:
         raise ValueError(f"splits must be in [1, {tiles}] for M = {M}, "
                          f"got {splits}")
-    return [(s * tiles // splits * BLOCK_K,
-             min((s + 1) * tiles // splits * BLOCK_K, M))
+    return [(s * tiles // splits * bk, min((s + 1) * tiles // splits * bk, M))
             for s in range(splits)]
 
 
@@ -117,7 +141,7 @@ def flash_partials_plain(qh: torch.Tensor, kh: torch.Tensor,
     [S, B, H, N])."""
     s = _add_bias(torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale, bias)
     o, m, l = [], [], []
-    for kb, ke in _split_bounds(kh.shape[1], splits):
+    for kb, ke in _split_bounds(kh.shape[1], kh.shape[-1], splits):
         ss = s[..., kb:ke]
         mx = ss.amax(dim=-1)
         p = torch.exp(ss - mx[..., None])
@@ -202,7 +226,7 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
             return _launch(qh, kh, vh, scale, bias, splits)
     with trace.span("sige.kernel.flash"):
         B, N, H, D, M = _check(qh, kh, vh, bias)
-        tiles = -(-M // BLOCK_K)
+        tiles = -(-M // block_k(D))
         if splits is None:
             splits = _num_splits(B * H, N, M, D, _sm_count(index))
         elif not 1 <= splits <= tiles:
@@ -226,6 +250,8 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
         if err != 0:
             raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
         flash_mha.launches += 1
+        if tensor_core_head(D):
+            flash_mha.tc_launches += 1
         if splits > 1:
             flash_mha.combine_launches += 1
         return out
@@ -248,4 +274,5 @@ def flash_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
 
 
 flash_mha.launches = 0
+flash_mha.tc_launches = 0
 flash_mha.combine_launches = 0

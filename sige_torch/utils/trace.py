@@ -126,6 +126,7 @@ def snapshot() -> Dict[str, int]:
 
     return {**counters,
             "flash_launches": flash_mha.launches,
+            "flash_tc_launches": flash_mha.tc_launches,
             "flash_combine_launches": flash_mha.combine_launches,
             "crop_launches": crop_sessions.launches,
             "crop_scalar_launches": crop_sessions.scalar_launches,

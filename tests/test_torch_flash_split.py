@@ -6,8 +6,10 @@
 * ``flash_mha_plain_split`` against the Pallas kernel
   (``sige_tpu.ops.flash.flash_mha``) in TPU interpret mode, atol 1e-5 as
   in tests/test_torch_attention.py.
-* ``_num_splits``, the wrapper's choice of splits, at the shapes
-  ``chip_smoke.py`` measures.
+* ``_num_splits``, the wrapper's choice of splits, and
+  ``_split_bounds``, the key range of each split, for both attention
+  kernels (their query blocks and key tiles differ: ``block_q``,
+  ``block_k``), at the shapes ``chip_smoke.py`` measures.
 
 The kernels themselves run only on the card: tests/test_torch_gpu.py.
 """
@@ -46,12 +48,12 @@ def test_plain_split_equals_plain(rng, M, splits, with_bias):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("D", [40, 512])
+@pytest.mark.parametrize("D", [40, 256, 512])
 def test_split_whose_keys_are_all_masked_gets_no_weight(rng, D):
     B, N, M, H, splits = 1, 20, 256, 1, 8
     q, k, v = _qkv(rng, B, N, M, H, D)
     bias = torch.zeros(M)
-    kb, ke = tflash._split_bounds(M, splits)[1]
+    kb, ke = tflash._split_bounds(M, D, splits)[1]
     bias[kb:ke] = -1e9
     o_part, m_part, l_part = tflash.flash_partials_plain(
         q, k, v, D ** -0.5, bias, splits)
@@ -96,7 +98,17 @@ def test_plain_split_matches_pallas_kernel(rng, N, M, H, D, splits,
     (1, 64, 64, 512, 2),        # (b) DDPM 8 px mid block: 2 tiles
     (16, 4096, 4096, 40, 1),    # (c) SD 64x64 self-attention
     (16, 1024, 77, 80, 1),      # (d) SD text cross-attention
-    (16, 1024, 5120, 40, 1),    # (e) SD masked stale/fresh
+    # (e) SD masked stale/fresh: 8 blocks of 128 rows x 16 = 128 (it was
+    # 1 with the SIMT kernel's 64-row blocks at D = 40)
+    (16, 1024, 5120, 40, 2),
+    # (z) K/V-cached sparse self 64^2: 2 blocks x 16 = 32, 5 splits (3
+    # with the SIMT kernel's 64-row blocks)
+    (16, 196, 4096, 40, 5),
+    (80, 900, 4996, 64, 1),     # SDXL masked 64^2, S = 4
+    (160, 324, 1348, 64, 1),    # SDXL masked 32^2, S = 4
+    (64, 196, 452, 160, 1),     # SD masked 16^2, S = 4: 4 blocks x 64
+    (1, 64, 300, 160, 10),      # one block: every 32-key tile its split
+    (2, 100, 77, 256, 5),       # 2 blocks: 5 tiles of 16 keys
 ])
 def test_num_splits_at_the_measured_shapes(G, N, M, D, want):
     assert tflash._num_splits(G, N, M, D, H100_SMS) == want
@@ -108,21 +120,25 @@ def test_num_splits_never_exceeds_the_tiles_and_fills_the_card(rng):
         N, M = (int(x) for x in rng.integers(1, 2000, size=2))
         D = 4 * int(rng.integers(1, 129))
         s = tflash._num_splits(G, N, M, D, H100_SMS)
-        tiles = -(-M // tflash.BLOCK_K)
+        tiles = -(-M // tflash.block_k(D))
         blocks = -(-N // tflash.block_q(D)) * G
         assert 1 <= s <= tiles
         assert blocks * s >= H100_SMS or s == tiles
-        bounds = tflash._split_bounds(M, s)
+        bounds = tflash._split_bounds(M, D, s)
         assert bounds[0][0] == 0 and bounds[-1][1] == M
         assert all(kb < ke for kb, ke in bounds)
         assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        assert all(kb % tflash.block_k(D) == 0 for kb, _ in bounds)
 
 
-def test_split_bounds_reject_more_splits_than_tiles():
+@pytest.mark.parametrize("D,too_many", [(40, 4), (512, 4), (256, 6)])
+def test_split_bounds_reject_more_splits_than_tiles(D, too_many):
+    # M = 77: 3 tiles of 32 keys, 5 of 16 (the tensor-core kernel at D > 160)
+    assert len(tflash._split_bounds(77, D, too_many - 1)) == too_many - 1
     with pytest.raises(ValueError):
-        tflash._split_bounds(77, 4)
+        tflash._split_bounds(77, D, too_many)
     with pytest.raises(ValueError):
-        tflash._split_bounds(77, 0)
+        tflash._split_bounds(77, D, 0)
 
 
 def test_flash_mha_rejects_unsupported_devices():

@@ -28,30 +28,77 @@ def _pytorch_defaults():
     return ("tf32", "ieee", False, 10)
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _held_to_fp64(got, q, k, v, bias):
+    """The attention kernel's output ``got`` against the plain version in
+    fp64: max |got - fp64| / max |fp64| at most 1e-5, and the plain
+    version with one TF32 product per inner product (every operand of
+    both products rounded to TF32; cuBLAS's own TF32 path skips small
+    shapes) at least 10x further off, so the kernel's accuracy is not
+    TF32's; returns the error."""
+    scale = q.shape[-1] ** -0.5
+    want = flash.flash_mha_plain(q.double(), k.double(), v.double(), scale,
+                                 None if bias is None else bias.double())
+    den = want.abs().max()
+    err = ((got.double() - want).abs().max() / den).item()
+    with fp32_scope():
+        s = torch.einsum("bnhd,bmhd->bhnm", _tf32(q), _tf32(k)) * scale
+        p = torch.softmax(flash._add_bias(s, bias), dim=-1)
+        tf32 = torch.einsum("bhnm,bmhd->bnhd", _tf32(p), _tf32(v))
+    assert err <= 1e-5
+    assert ((tf32.double() - want).abs().max() / den).item() >= 10 * err
+    return err
+
+
+def _qkv_bias(gen, B, N, M, H, D, rows, p=0.3):
+    """Random q, k, v and a 0 / -1e9 key bias of ``rows`` rows ([M] for
+    1, none for 0) on the card."""
+    q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda")
+               for n in (N, M, M))
+    if not rows:
+        return q, k, v, None
+    bias = torch.where(torch.rand(rows, M, generator=gen, device="cuda") < p,
+                       -1e9, 0.0)
+    return q, k, v, bias[0] if rows == 1 else bias
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N,M,H,D,with_bias", [
-    (1, 256, 256, 1, 512, False),   # DDPM 16 px
-    (1, 64, 64, 1, 512, False),     # DDPM 8 px mid block
-    (2, 100, 77, 2, 80, True),      # ragged N and M, key bias
-    (1, 130, 300, 3, 40, True),
+@pytest.mark.parametrize("B,N,M,H,D,rows", [
+    (1, 256, 256, 1, 512, 0),    # DDPM 16 px (SIMT kernel)
+    (1, 64, 64, 1, 512, 0),      # DDPM 8 px mid block (SIMT kernel)
+    (2, 100, 77, 2, 80, 1),      # ragged N and M, key bias
+    (1, 130, 300, 3, 40, 1),
+    (8, 1024, 1024, 20, 64, 0),  # SDXL dense middle, 32^2
+    (8, 900, 4996, 10, 64, 4),   # SDXL masked 64^2, S = 4
+    (8, 324, 1348, 20, 64, 4),   # SDXL masked 32^2, S = 4
+    (8, 900, 77, 10, 64, 0),     # SDXL cross-attention
+    (2, 4096, 4096, 8, 40, 0),   # (c) SD 64^2 self-attention
+    (8, 324, 1348, 8, 80, 4),    # SD stacked S = 4, masked 32^2
+    (8, 196, 452, 8, 160, 4),    # SD stacked S = 4, masked 16^2
+    (3, 77, 61, 1, 8, 0),        # the narrowest tensor-core head
+    (2, 130, 301, 2, 256, 1),    # the widest
+    (2, 60, 90, 2, 36, 1),       # not a multiple of 8: SIMT kernel
 ])
-def test_kernel_matches_plain_twin_on_card(B, N, M, H, D, with_bias):
+def test_kernel_matches_plain_twin_on_card(B, N, M, H, D, rows):
+    """The attention kernel D takes against the plain version in fp64
+    (:func:`_held_to_fp64`); the tensor-core counter moves for every D
+    that is a multiple of 8 up to 256 and for no other."""
     if not torch.cuda.is_available():
         pytest.skip("the flash kernel runs only on a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda")
-               for n in (N, M, M))
-    bias = None
-    if with_bias:
-        bias = torch.where(torch.rand(M, generator=gen, device="cuda") < 0.3,
-                           -1e9, 0.0)
-    before = flash.flash_mha.launches
+    q, k, v, bias = _qkv_bias(gen, B, N, M, H, D, rows)
+    before = flash.flash_mha.launches, flash.flash_mha.tc_launches
     got = flash.flash_mha(q, k, v, D ** -0.5, bias)
     torch.cuda.synchronize()
-    assert flash.flash_mha.launches == before + 1
-    with fp32_scope():
-        want = flash.flash_mha_plain(q, k, v, D ** -0.5, bias)
-    assert (got - want).abs().max().item() <= 1e-4
+    assert flash.flash_mha.launches == before[0] + 1
+    tc = D % 8 == 0 and D <= 256
+    assert flash.flash_mha.tc_launches == before[1] + tc
+    _held_to_fp64(got, q, k, v, bias)
 
 
 @pytest.mark.gpu
@@ -60,25 +107,29 @@ def test_kernel_matches_plain_twin_on_card(B, N, M, H, D, with_bias):
     (1, 64, 300, 1, 512),    # ragged M: the last split's tile holds 12 keys
     (2, 100, 256, 2, 40),
     (1, 70, 77, 3, 40),      # 3 tiles, the last one of 13 keys
+    (2, 130, 301, 2, 64),    # N past a 128-row block, M past a 32-key tile
+    (1, 70, 77, 3, 160),     # 3 tiles, the last one of 13 keys
+    (1, 70, 77, 2, 256),     # 5 tiles of 16 keys, the last one of 13
+    (2, 65, 200, 1, 80),     # N one past a 64-row block
 ])
 @pytest.mark.parametrize("which", ["one", "two", "max"])
 @pytest.mark.parametrize("dead_split", [False, True])
 def test_forced_splits_match_plain_twin_on_card(B, N, M, H, D, which,
                                                 dead_split):
-    """The attention kernel with S = 1, 2 or ceil(M/32) key ranges (the
-    combine kernel merging S > 1), against the plain version; with
-    ``dead_split`` every key of split 1 (of S = 2 or max) carries -1e9."""
+    """The attention kernel with S = 1, 2 or every key tile its own key
+    range (the combine kernel merging S > 1), against the plain version
+    in fp64; with ``dead_split`` every key of split 1 (of S = 2 or max)
+    carries -1e9."""
     if not torch.cuda.is_available():
         pytest.skip("the flash kernels run only on a CUDA device")
-    tiles = -(-M // flash.BLOCK_K)
+    tiles = -(-M // flash.block_k(D))
     splits = {"one": 1, "two": 2, "max": tiles}[which]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda")
-               for n in (N, M, M))
+    q, k, v, _ = _qkv_bias(gen, B, N, M, H, D, 0)
     bias = None
     if dead_split:
         bias = torch.zeros(M, device="cuda")
-        kb, ke = flash._split_bounds(M, max(splits, 2))[1]
+        kb, ke = flash._split_bounds(M, D, max(splits, 2))[1]
         bias[kb:ke] = -1e9
     launches = flash.flash_mha.launches
     combines = flash.flash_mha.combine_launches
@@ -86,9 +137,7 @@ def test_forced_splits_match_plain_twin_on_card(B, N, M, H, D, which,
     torch.cuda.synchronize()
     assert flash.flash_mha.launches == launches + 1
     assert flash.flash_mha.combine_launches == combines + (splits > 1)
-    with fp32_scope():
-        want = flash.flash_mha_plain(q, k, v, D ** -0.5, bias)
-    assert (got - want).abs().max().item() <= 1e-4
+    _held_to_fp64(got, q, k, v, bias)
 
 
 @pytest.mark.gpu
@@ -98,12 +147,15 @@ def test_forced_splits_match_plain_twin_on_card(B, N, M, H, D, which,
     (6, 48, 304, 5, 80, 3),     # ragged M, 3 sessions
     (2, 64, 1088, 1, 512, 2),   # SD decoder's mid attention, 1 a session
     (3, 100, 77, 2, 80, 3),
+    (8, 196, 452, 8, 160, 4),   # SD U-Net masked 16^2, 4 sessions
+    (8, 324, 1348, 20, 64, 4),  # SDXL masked 32^2, 4 sessions
 ])
 @pytest.mark.parametrize("which", ["auto", "one", "max"])
 def test_session_bias_rows_match_plain_twin_on_card(B, N, M, H, D, S, which):
     """A key bias of one row per session ([S, M], batch row b reading row
     b // (B / S)) through the attention kernel, split by the wrapper's
-    rule, not split, or split into every tile, against the plain version;
+    rule, not split, or split into every tile, against the plain version
+    in fp64;
     every session's row kills other keys, so a row read for the wrong
     session shows."""
     if not torch.cuda.is_available():
@@ -113,19 +165,18 @@ def test_session_bias_rows_match_plain_twin_on_card(B, N, M, H, D, S, which):
                for n in (N, M, M))
     bias = torch.where(torch.rand(S, M, generator=gen, device="cuda") < 0.4,
                        -1e9, 0.0)
-    splits = {"auto": None, "one": 1, "max": -(-M // flash.BLOCK_K)}[which]
+    splits = {"auto": None, "one": 1, "max": -(-M // flash.block_k(D))}[which]
     launches = flash.flash_mha.launches
     got = flash._launch(q, k, v, D ** -0.5, bias, splits)
     torch.cuda.synchronize()
     assert flash.flash_mha.launches == launches + 1
-    with fp32_scope():
-        want = flash.flash_mha_plain(q, k, v, D ** -0.5, bias)
-    assert (got - want).abs().max().item() <= 1e-4
+    _held_to_fp64(got, q, k, v, bias)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,N,M,H,D", [(2, 100, 77, 2, 80),
-                                       (1, 64, 1088, 1, 512)])
+                                       (1, 64, 1088, 1, 512),
+                                       (2, 900, 77, 4, 64)])
 def test_shared_bias_row_forms_agree_bit_for_bit_on_card(B, N, M, H, D):
     """One shared key bias given as [M] or as [1, M] launches the same
     kernel on the same bytes: the outputs are equal bit for bit; a bias
@@ -151,7 +202,7 @@ def test_shared_bias_row_forms_agree_bit_for_bit_on_card(B, N, M, H, D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [40, 512])
+@pytest.mark.parametrize("D", [40, 64, 160, 512])
 def test_split_path_matches_plain_split_on_card(D):
     """The attention kernel's partials merged by the combine kernel,
     against the plain split path (partials per key range, then the plain

@@ -124,7 +124,7 @@ def test_sources_import_no_jax(path):
 
 @pytest.mark.parametrize("phase", ["checkpoints", "sd_text",
                                    "engine_options", "quality", "twin",
-                                   "sessions"])
+                                   "sessions", "flash"])
 def test_chip_smoke_phase_exits_without_a_card(phase, monkeypatch, capsys):
     """``chip_smoke.py --phase <phase>`` selects one phase, and like the
     whole run exits non-zero, having run nothing, where there is no CUDA

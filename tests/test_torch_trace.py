@@ -182,6 +182,7 @@ def test_snapshot_holds_the_launch_counters():
 
     snap = trace.snapshot()
     assert snap["flash_launches"] == flash_mha.launches
+    assert snap["flash_tc_launches"] == flash_mha.tc_launches
     assert snap["flash_combine_launches"] == flash_mha.combine_launches
     assert snap["crop_launches"] == crop_sessions.launches
     assert snap["paste_scalar_launches"] == paste_sessions.scalar_launches
