@@ -332,6 +332,17 @@ plan's one copy to the card alone (``upload_plan``) and
 native library and with the numpy paths (``SIGE_TPU_NO_NATIVE=1``);
 the native and numpy plans must be equal key by key, bit for bit.
 
+Phases 5-21 run with the session kernels recorded, one record for the
+whole run (:func:`session_ops_recorded`; the rank processes of phases 20
+and 21 keep their own): every crop and paste a path launches, the
+runners', the CLIs', the servers' and the single-plan engines' at S = 1
+alike, is keyed by op, dtypes, shapes, origin form, masks and epilogue,
+and each new key is held against the plain version on the call's own
+inputs (crop and paste exact, the fused epilogue within 1e-6). The
+record's ``session_ops`` gives the keys held, the launches and the
+largest error. Keying a launch costs host time, which the phases'
+timings include.
+
 The paths (phases 4-7, 9 and 11-17) run under PyTorch's default precision flags,
 which run cuDNN convs in TF32: the engine holds fp32 and benchmark mode
 for its own forwards, and the script checks that the flags are the
@@ -343,7 +354,9 @@ device JSON.
 
 import contextlib
 import copy
+import functools
 import gc
+import inspect
 import json
 import os
 import subprocess
@@ -353,8 +366,9 @@ import time
 import numpy as np
 import torch
 
-from sige_torch.nn.engine import (fp32_scope, plan_leaves, precision_flags,
+from sige_torch.nn.engine import (fp32_scope, precision_flags,
                                   set_precision_flags)
+from sige_torch.nn.planner import plan_leaves, plan_rows, stack_plans
 from sige_torch.runners.common import storage_mb
 
 # H100 SXM published peaks: dense TF32 on the tensor cores, HBM3 bandwidth;
@@ -3594,7 +3608,8 @@ def options_pins(flash):
                                                              "pinned")
         first, again = new_edit(model, x1, masks)
         rec[kind].append(first - again)
-        if kind == "pinned" and plan_pins(model.plan_host) != pins:
+        if kind == "pinned" and plan_pins(plan_rows(model.plan_host,
+                                                    0)) != pins:
             raise AssertionError("pins: a smaller edit changed the shapes")
         print(f"  [pins] {kind} new edit {i}: {first:.3f} s, repeat "
               f"{again:.3f} s, extra {first - again:.3f} s", flush=True)
@@ -4289,10 +4304,12 @@ def session_ops_recorded(seen, calls):
     def shape(t):
         return None if t is None else tuple(t.shape)
 
+    @functools.wraps(real_crop)
     def crop(x, org, EH, EW, edge, scale, shift, act, af, clamp):
         out = real_crop(x, org, EH, EW, edge, scale, shift, act, af, clamp)
         key = ("crop", str(x.dtype).split(".")[-1], tuple(x.shape), EH, EW,
-               shape(org) if ss.is_sessions(org) else "host", shape(edge),
+               shape(org) if isinstance(org, torch.Tensor) else "host",
+               shape(edge),
                shape(scale), shape(shift), act, af, clamp)
         calls[key] = calls.get(key, 0) + 1
         if key not in seen:
@@ -4304,16 +4321,17 @@ def session_ops_recorded(seen, calls):
                     SESSION_EPILOGUE_TOL if epi else 0.0):
                 raise AssertionError(f"crop_sessions_f32 at {key}: max err "
                                      f"{err:.3e} against the plain version")
-            seen[key] = {"err": err, "org": org.clone() if ss.is_sessions(
-                org) else tuple(org), "edge": None if edge is None
-                else edge.clone()}
+            seen[key] = {"err": err, "org": org.clone() if isinstance(
+                org, torch.Tensor) else tuple(org),
+                "edge": None if edge is None else edge.clone()}
         return out
 
+    @functools.wraps(real_paste)
     def paste(base, win, org, cov, clamp):
         out = real_paste(base, win, org, cov, clamp)
         key = ("paste", str(base.dtype).split(".")[-1],
                str(win.dtype).split(".")[-1], tuple(base.shape),
-               tuple(win.shape), shape(org) if ss.is_sessions(org)
+               tuple(win.shape), shape(org) if isinstance(org, torch.Tensor)
                else "host", shape(cov), clamp)
         calls[key] = calls.get(key, 0) + 1
         if key not in seen:
@@ -4322,8 +4340,8 @@ def session_ops_recorded(seen, calls):
                 err = (out.float() - want.float()).abs().max().item()
                 raise AssertionError(f"paste_sessions_f32 at {key}: max err "
                                      f"{err:.3e} against the plain version")
-            seen[key] = {"err": 0.0, "org": org.clone() if ss.is_sessions(
-                org) else tuple(org), "cov": None if cov is None
+            seen[key] = {"err": 0.0, "org": org.clone() if isinstance(
+                org, torch.Tensor) else tuple(org), "cov": None if cov is None
                 else cov.clone()}
         return out
 
@@ -4332,6 +4350,25 @@ def session_ops_recorded(seen, calls):
         yield
     finally:
         ss._crop_cuda, ss._paste_cuda = real_crop, real_paste
+
+
+def flash_keys(rows) -> set:
+    """The (B, N, M, H, D, masked) keys of the flash rows so far."""
+    return {(r["B"], r["N"], r["M"], r["H"], r["D"], r["bias"]) for r in rows}
+
+
+def run_recorded(seen, calls, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with the session kernels recorded
+    (:func:`session_ops_recorded` into ``seen`` and ``calls``)."""
+    with session_ops_recorded(seen, calls):
+        return fn(*args, **kwargs)
+
+
+def session_ops_record(seen, calls) -> dict:
+    """What :func:`session_ops_recorded` held: the distinct keys checked
+    against the plain versions, the launches and the largest error."""
+    return {"keys": len(seen), "launches": sum(calls.values()),
+            "max_err": max((r["err"] for r in seen.values()), default=0.0)}
 
 
 @contextlib.contextmanager
@@ -4359,7 +4396,7 @@ def window_in_image(org, S: int, H: int, W: int, EH: int, EW: int,
     H x W image."""
     from sige_torch.ops import sessions as ss
 
-    if ss.is_sessions(org):
+    if isinstance(org, torch.Tensor):
         v = ss.virtual_origin(org.cpu().to(torch.int64))
         r, c = v[:, 0], v[:, 1]
     else:
@@ -4435,13 +4472,14 @@ def session_kernel_row(key, rec, calls_per_step):
         sc, sh = (None if p is None else torch.randn(
             p, generator=gen, device="cuda") for p in (scale, shift))
         args = (x, rec["org"], EH, EW, rec["edge"], sc, sh, act, af, clamp)
-        kernel, plain = ss._crop_cuda, ss.crop_sessions_plain
+        kernel, plain = inspect.unwrap(ss._crop_cuda), ss.crop_sessions_plain
     else:
         _, db, dw, bs, ws, _, _, clamp = key
         base = torch.randn(bs, generator=gen, device="cuda").to(dt[db])
         win = torch.randn(ws, generator=gen, device="cuda").to(dt[dw])
         args = (base, win, rec["org"], rec["cov"], clamp)
-        kernel, plain = ss._paste_cuda, ss.paste_sessions_plain
+        kernel = inspect.unwrap(ss._paste_cuda)
+        plain = ss.paste_sessions_plain
     row["ms"] = time_ms(lambda: kernel(*args), warmup=2, iters=10)
     row["plain_ms"] = time_ms(lambda: plain(*args), warmup=2, iters=10)
     row["device_ms"] = device_ms(lambda: kernel(*args), iters=5, tries=1,
@@ -4465,7 +4503,6 @@ def row_install_ms(server, masks, n: int = 10):
     ``PlanStack``: the server's plan and pins stay as they were."""
     from sige_torch.nn.engine import upload_plan
     from sige_torch.parallel import ResidentPlan
-    from sige_torch.parallel.serving import _stack_trees
     from sige_torch.utils import trace
 
     stack, dev = copy.deepcopy(server._stack), server.model.device
@@ -4477,15 +4514,15 @@ def row_install_ms(server, masks, n: int = 10):
                              axis=(0, 1)) for res, m in masks[i].items()}
 
     plan.update(stack)
-    host1 = _stack_trees(stack.plans)
+    host1 = stack_plans(stack.plans)
     stack.set(0, moved(0, 8))
     plan.update(stack)  # any re-pin happens here
-    host2 = _stack_trees(stack.plans)
+    host2 = stack_plans(stack.plans)
     a, b = dict(plan_leaves(host1)), dict(plan_leaves(host2))
     changed = sum(1 for k, v in b.items() if k not in a
                   or a[k].shape != v.shape or not np.array_equal(a[k], v))
     whole = float(np.median([host_ms(lambda: upload_plan(
-        _stack_trees(stack.plans), dev))[1] for _ in range(n)]))
+        stack_plans(stack.plans), dev))[1] for _ in range(n)]))
     rows = []
     for _ in range(n):
         stack.set(0, moved(0, 8))
@@ -5275,8 +5312,11 @@ def dp_rank_main(rank: int, world: int, workdir: str) -> int:
             init = SIGEModel(SIGEFusedUNet(job["cfg"]), device=mesh.device)
             init.init(0)
             params = init.module.state_dict()
-        outs, recs = dp_servers(flash, job["cfg"], to["twin"], to["sessions"],
-                                params, job["plan"], mesh=mesh)
+        ops = {}, {}
+        outs, recs = run_recorded(*ops, dp_servers, flash, job["cfg"],
+                                  to["twin"], to["sessions"], params,
+                                  job["plan"], mesh=mesh)
+        recs["session_ops"] = session_ops_record(*ops)
         recs["mesh"] = {"dp": mesh.dp, "tp": mesh.tp, "rank": rank,
                         "device": str(mesh.device)}
         with open(f"{workdir}/rank{rank}.json", "w") as f:
@@ -5596,7 +5636,10 @@ def sp_rank_main(rank: int, world: int, workdir: str) -> int:
         del caches, y
         gc.collect()
         if rank == 0:
-            rec.update(sp_adopt(flash, cfg, dec, whole, meta, job, z0, z1))
+            ops = {}, {}
+            rec.update(run_recorded(*ops, sp_adopt, flash, cfg, dec, whole,
+                                    meta, job, z0, z1))
+            rec["session_ops"] = session_ops_record(*ops)
             out["sparse"] = rec.pop("sparse_out")
             flash_calls.update(rec.pop("flash_calls"))
             torch.save({"out": {k: v.cpu() for k, v in out.items()},
@@ -5874,7 +5917,9 @@ def main(argv=None) -> int:
               f"{torch.version.cuda}", flush=True)
         build_kernels()
         build_native()
-        result = one_phase(flash, args.phase)
+        ops = {}, {}
+        result = run_recorded(*ops, one_phase, flash, args.phase)
+        result["session_ops"] = session_ops_record(*ops)
         print(f"elapsed: {time.perf_counter() - t0:.1f} s", flush=True)
         print(json.dumps(result, default=str), flush=True)
         return 0
@@ -5911,80 +5956,82 @@ def main(argv=None) -> int:
                              sample_steps=STEPS, noise_level=500)
     print("retime (cuDNN benchmark mode per new edit, DDPM main path):",
           flush=True)
-    retime = phase_retime(flash, ddim)
+    ops = {}, {}  # the session kernels' record (session_ops_recorded)
+    retime = run_recorded(*ops, phase_retime, flash, ddim)
     print("paths (church256, full width):", flush=True)
     paths = {
-        "main": phase_path(flash, "main", None, "window", ddim, 100),
-        "tiles": phase_path(flash, "tiles", "tiles", "tiles", ddim, 100),
-        "dpm_solver": phase_path(flash, "dpm_solver", None, "window", dpm, 0),
+        "main": run_recorded(*ops, phase_path, flash, "main", None,
+                             "window", ddim, 100),
+        "tiles": run_recorded(*ops, phase_path, flash, "tiles", "tiles",
+                              "tiles", ddim, 100),
+        "dpm_solver": run_recorded(*ops, phase_path, flash, "dpm_solver",
+                                   None, "window", dpm, 0),
     }
     print("sd (SD v1 U-Net, VAE at 512^2, full width):", flush=True)
-    sd, recorded = phase_sd(flash)
+    sd, sd_recorded = run_recorded(*ops, phase_sd, flash)
     print("kernels at the SD path's shapes:", flush=True)
     with fp32_scope():
-        rows += phase_sd_kernels(flash, recorded)
+        rows += phase_sd_kernels(flash, sd_recorded)
     print("pd (church pd256, full width):", flush=True)
-    pd, pd_recorded = phase_pd(flash)
+    pd, pd_recorded = run_recorded(*ops, phase_pd, flash)
     print("kernels at the PD path's shapes:", flush=True)
     with fp32_scope():
         rows += phase_pd_kernels(flash, pd_recorded,
                                        chr(ord("a") + len(rows)))
     print("gaugan (Cityscapes SPADE generator at 512x256, full width):",
           flush=True)
-    gaugan = phase_gaugan(flash)
+    gaugan = run_recorded(*ops, phase_gaugan, flash)
     print("demo (church256 at full width: per-step cache slots, sessions, "
           "the HTTP server):", flush=True)
-    demo = phase_demo(flash)
+    demo = run_recorded(*ops, phase_demo, flash)
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="sige-ckpt-") as tmp:
         print("checkpoints and command lines (reference layouts at full "
               "width, cli.diffusion, cli.gaugan, cli.sd):", flush=True)
-        ckpt = phase_checkpoints(flash, tmp)
+        ckpt = run_recorded(*ops, phase_checkpoints, flash, tmp)
         print("sd text path and options (CLIP and the safety checker at "
               "their published widths, cli.sd --prompt --safety_model, the "
               "U-Net's K/V caches, the decoder's tile chain):", flush=True)
-        sd_text, text_rows = phase_sd_text(
-            flash, tmp, set(recorded) | set(pd_recorded), len(rows))
+        sd_text, text_rows = run_recorded(
+            *ops, phase_sd_text, flash, tmp,
+            set(sd_recorded) | set(pd_recorded), len(rows))
     rows += text_rows
     print("engine options (cache_dtype on the demo's 25 slots, slots and "
           "sparse_update on PD, SD and GauGAN, pin_capacities and "
           "merge_pins, full width):", flush=True)
-    options, option_rows = phase_engine_options(
-        flash, {(r["B"], r["N"], r["M"], r["H"], r["D"], r["bias"])
-                for r in rows}, len(rows))
+    options, option_rows = run_recorded(
+        *ops, phase_engine_options, flash, flash_keys(rows), len(rows))
     rows += option_rows
     print("quality path (LPIPS, FID and mIoU backbones at their published "
           "widths, cli.get_metric, cli.golden --family ddpm at church256):",
           flush=True)
-    quality = phase_quality(flash)
+    quality = run_recorded(*ops, phase_quality, flash)
     print("twin (TwinStepServer: the church256 DDPM at full width, B "
           "requests sharing one plan, B in "
           f"{', '.join(map(str, TWIN_BATCHES))}):", flush=True)
-    twin, twin_rows = phase_twin(
-        flash, {(r["B"], r["N"], r["M"], r["H"], r["D"], r["bias"])
-                for r in rows}, len(rows))
+    twin, twin_rows = run_recorded(
+        *ops, phase_twin, flash, flash_keys(rows), len(rows))
     rows += twin_rows
     print("sessions (SessionServer: the church256 DDPM at full width, S "
           "sessions with their own edits in one stacked forward, S in "
           f"{', '.join(map(str, SESSION_COUNTS))}, window and tiles; the "
           "per-session loop beside it):", flush=True)
-    sessions, session_rows = phase_sessions(
-        flash, {(r["B"], r["N"], r["M"], r["H"], r["D"], r["bias"])
-                for r in rows}, len(rows))
+    sessions, session_rows = run_recorded(
+        *ops, phase_sessions, flash, flash_keys(rows), len(rows))
     rows += session_rows
     print("adopt (SIGEModel.adopt_full: the SD decoder at 512^2, full "
           "width, caches from another model's full pass in host memory):",
           flush=True)
-    adopt = phase_adopt(flash)
+    adopt = run_recorded(*ops, phase_adopt, flash)
     print(f"dp (TwinStepServer and SessionServer on a mesh of {DP_WORLD} "
           f"ranks sharing the card under gloo: church256 at full width):",
           flush=True)
-    dp = phase_dp(flash)
+    dp = run_recorded(*ops, phase_dp, flash)
     print(f"sp (spatial_apply and spatial_full_apply: the SD VAE at full "
           f"width, a {SP_CANVAS}^2 canvas, the rows of one request over "
           f"{SP_WORLD} ranks sharing the card under gloo):", flush=True)
-    sp, sp_rows = phase_sp(flash)
+    sp, sp_rows = run_recorded(*ops, phase_sp, flash)
     rows += sp_rows
     if precision_flags() != defaults:
         raise AssertionError(f"precision flags {precision_flags()} after the "
@@ -6079,7 +6126,7 @@ def main(argv=None) -> int:
                       "sd_text": sd_text, "options": options,
                       "quality": quality, "twin": twin,
                       "sessions": sessions, "adopt": adopt, "dp": dp,
-                      "sp": sp,
+                      "sp": sp, "session_ops": session_ops_record(*ops),
                       "native": native_rec,
                       "card": card}),
           flush=True)

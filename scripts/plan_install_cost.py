@@ -41,14 +41,15 @@ def upload_changed(device, prev_host: Optional[Mapping],
     packed copy."""
     import torch
 
-    from sige_torch.nn.engine import _get_path, plan_leaves, upload_leaves
+    from sige_torch.nn.engine import upload_leaves
+    from sige_torch.nn.planner import get_path, plan_leaves
 
     leaves = plan_leaves(host)
     reuse = [None] * len(leaves)
     if prev_host is not None and prev_dev is not None:
         prev = plan_leaves(prev_host)
         if [p for p, _ in prev] == [p for p, _ in leaves]:
-            reuse = [_get_path(prev_dev, path)
+            reuse = [get_path(prev_dev, path)
                      if (a.shape == b.shape and a.dtype == b.dtype
                          and np.array_equal(a, b)) else None
                      for (path, a), (_, b) in zip(leaves, prev)]
@@ -75,9 +76,9 @@ def upload_changed(device, prev_host: Optional[Mapping],
 def measure(server, traffic, prep, sync) -> Dict:
     """The plan's sizes and each pool edit's install, both ways (see the
     module's docstring), on a primed ``server``."""
-    from sige_torch.nn.engine import pack_offsets, plan_leaves
+    from sige_torch.nn.engine import pack_offsets
+    from sige_torch.nn.planner import plan_leaves, stack_plans
     from sige_torch.parallel import ResidentPlan
-    from sige_torch.parallel.serving import _stack_trees
     from sige_torch.utils import trace
 
     S, stack = traffic.sessions, server._stack
@@ -98,7 +99,7 @@ def measure(server, traffic, prep, sync) -> Dict:
             path = ("full" if trace.counters["plan_full_installs"] > full
                     else "row")
             t0 = time.perf_counter()
-            host = _stack_trees(stack.plans)
+            host = stack_plans(stack.plans)
             dev = upload_changed(server.model.device, prev_host, prev_dev,
                                  host)
             parent_ms = 1e3 * (time.perf_counter() - t0)

@@ -22,10 +22,9 @@ from ..nn.module import (Gather, Scatter, ScatterGather,
                          SIGEModule, TileState, WindowState, chain_rel)
 from ..nn.norm import group_norm_with_affine
 from ..ops.sessions import cov_where
-from ..ops.window import (is_fast_meta, scale_origin, sub_origin,
-                          window_chain_extend, window_chain_extend_up2,
-                          window_epilogue, window_extent, window_gather,
-                          window_slice)
+from ..ops.window import (is_fast_meta, window_chain_extend,
+                          window_chain_extend_up2, window_epilogue,
+                          window_extent, window_gather, window_slice)
 from ..utils import trace
 
 RESAMPLES = (None, "down", "up")
@@ -197,7 +196,7 @@ class ResBlock(SIGEModule):
         """Whether the window chain crosses this block's resample: an
         upsample needs a carried window and the planner's up2 marker, a
         downsample the pre-pool products."""
-        plan = self.main_gather.plan_host
+        plan = self.main_gather.plan
         if self.resample == "up":
             return isinstance(x, WindowState) and "wup_ok" in plan
         if self.resample == "down":
@@ -298,7 +297,7 @@ class ResBlock(SIGEModule):
             # then doubled: the planner's nesting makes it cover the
             # extraction window (no cache read)
             st = parts[0]
-            org2 = scale_origin(st.org, 2)
+            org2 = 2 * st.org
             ext = window_chain_extend_up2(up2(swish(affine(st.win, s1, b1))),
                                           org2, meta, edge)
         elif self.resample == "down":
@@ -330,7 +329,7 @@ class ResBlock(SIGEModule):
         if self.resample == "up":
             # the shortcut is the nearest-2x of the input: the doubled
             # carried window at the output window's origin
-            xs = window_slice(up2(st.win), sub_origin(org, org2), (WH, WW))
+            xs = window_slice(up2(st.win), org - org2, (WH, WW))
         elif self.resample == "down":
             # the shortcut is the avg-pool of the input: the doubled window
             # starts at 2 * (org - 1), so the output window's pre-pool
@@ -381,7 +380,7 @@ class SIGEDownsample(SIGEModule):
     def forward(self, x, ctx: SIGECtx):
         conv = getattr(self, self.conv_name)
         if (self.sparse_ok and ctx.mode == "sparse" and not ctx.sparse_update
-                and self.g.planned_window() and "wdn_ok" in self.g.plan_host):
+                and self.g.planned_window() and "wdn_ok" in self.g.plan):
             # window-resident across the downsample: the stride-2
             # extraction window spans ~2x the coarse canonical window,
             # which the planner's nesting makes cover the carried fine
@@ -424,13 +423,13 @@ class SIGEUpsample(SIGEModule):
     def forward(self, x, ctx: SIGECtx):
         if (isinstance(x, WindowState) and self.sparse_ok
                 and not ctx.sparse_update and self.g.planned_window()
-                and "wup_ok" in self.g.plan_host):
+                and "wup_ok" in self.g.plan):
             # window-resident across the resample: the doubled carried
             # window covers the extraction window
             with trace.span("sige.op.chain"):
                 meta, edge = self.g.read_window()
                 ext = window_chain_extend_up2(
-                    up2(x.win), scale_origin(x.org, 2), meta, edge)
+                    up2(x.win), 2 * x.org, meta, edge)
                 h = self.conv(ext, ctx)
                 cache = self.s.cache["original"]
                 org = self.g.window_origin()

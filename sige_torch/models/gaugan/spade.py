@@ -47,9 +47,8 @@ from ...nn.module import (Gather, Scatter, ScatterGather,
                           share)
 from ...nn.norm import batch_norm_affine
 from ...ops.sessions import cov_where
-from ...ops.window import (scale_origin, sub_origin, window_extent,
-                           window_chain_extend, window_chain_extend_up2,
-                           window_gather, window_slice)
+from ...ops.window import (window_chain_extend, window_chain_extend_up2,
+                           window_extent, window_gather, window_slice)
 from ..blocks import up2
 
 
@@ -116,10 +115,10 @@ class _Up2State:
     (:func:`~sige_torch.ops.window.window_chain_extend_up2`) — the
     upsample never touches the full canvas."""
 
-    def __init__(self, win2: torch.Tensor, org2: Tuple[int, int],
+    def __init__(self, win2: torch.Tensor, org2: torch.Tensor,
                  parent: WindowState):
         self.win2 = win2      # [B, 2*WH, 2*WW, C]
-        self.org2 = org2      # parent origin doubled, host ints
+        self.org2 = org2      # parent origin doubled, [S, 2]
         self.parent = parent  # for the materialize fallback
 
     def to_map(self) -> torch.Tensor:
@@ -129,7 +128,7 @@ class _Up2State:
 def _chain_up2(x):
     """Chain-aware nearest-2x upsample between SPADE blocks."""
     if isinstance(x, WindowState):
-        return _Up2State(up2(x.win), scale_origin(x.org, 2), x)
+        return _Up2State(up2(x.win), 2 * x.org, x)
     return up2(x)
 
 
@@ -283,7 +282,7 @@ class SIGEFusedSPADEResnetBlock(SIGEModule):
         """Canonical window of the block INPUT (the residual)."""
         if isinstance(x, _Up2State):
             # the nesting makes the doubled carried window cover it
-            return window_slice(x.win2, sub_origin(org, x.org2), shape)
+            return window_slice(x.win2, org - x.org2, shape)
         if isinstance(x, WindowState):
             return x.win  # the same canonical window at the same resolution
         return window_slice(x, org, shape)
@@ -329,7 +328,7 @@ class SIGEFusedSPADEResnetBlock(SIGEModule):
                 and self.main_gather.planned_window()
                 and (not self.learned_shortcut or self.shortcut_sparse)
                 and (not isinstance(x, _Up2State)
-                     or "wup_ok" in self.main_gather.plan_host)):
+                     or "wup_ok" in self.main_gather.plan)):
             return self._chain_window(x, seg, ctx)
         x = _to_map(x)
         sparse = ctx.mode == "sparse"

@@ -133,7 +133,7 @@ class SIGEVAEResnetBlock(ResBlock):
         h = self.sg(h, ctx, scale=s2, shift=b2)
         h = self.conv2(h, ctx)
         T2 = scatter_gather_residual_tiles(h, y0, T, sg_src, sg_flat, geom)
-        return TileState(T2, y0, pix_box, pix_org, geom)
+        return TileState(T2, y0, pix_box, pix_org)
 
 
 class SIGEVAEAttnBlock(SIGEModule):

@@ -37,7 +37,9 @@ from torch import nn
 
 from ..utils import trace
 from .module import Gather, SIGECtx, SIGEModule
-from .planner import build_plan, choose_layout, plan_pins, plan_stats
+from .planner import (build_plan, choose_layout, get_path, plan_leaves,
+                      plan_pins, plan_rows, plan_stats, set_path,
+                      stack_plans)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -122,44 +124,6 @@ def fp32_scope():
         set_precision_flags(saved)
 
 
-def _set_path(tree: Dict, path: Tuple[str, ...], value) -> None:
-    for p in path[:-1]:
-        tree = tree.setdefault(p, {})
-    tree[path[-1]] = value
-
-
-def _get_path(tree: Mapping, path: Tuple[str, ...]):
-    for p in path:
-        tree = tree[p]
-    return tree
-
-
-def plan_leaves(plan: Mapping, _path: Tuple[str, ...] = ()
-                ) -> List[Tuple[Tuple[str, ...], np.ndarray]]:
-    """(path, array) of every leaf of a host plan tree, in tree order."""
-    out = []
-    for k, v in plan.items():
-        if isinstance(v, Mapping):
-            out += plan_leaves(v, _path + (k,))
-        else:
-            out.append((_path + (k,), np.asarray(v)))
-    return out
-
-
-def plan_sessions(plan: Mapping) -> Optional[int]:
-    """S of a plan stacked over S sessions (its ``indices`` leaves lead
-    with S), else None."""
-    def indices(node):
-        for k, v in node.items():
-            if isinstance(v, Mapping):
-                yield from indices(v)
-            elif k == "indices":
-                yield v
-
-    a = next(indices(plan), None)
-    return int(np.shape(a)[0]) if np.ndim(a) == 3 else None
-
-
 def pack_offsets(arrays: List[np.ndarray]) -> Tuple[List[int], int]:
     """Each array's byte offset in the packing of :func:`upload_leaves`
     (int arrays as int64, bool arrays, the window coverage and edge
@@ -205,7 +169,7 @@ def upload_plan(plan: Mapping, device: torch.device) -> Dict:
     out: Dict = {}
     for (path, _), t in zip(leaves, upload_leaves([a for _, a in leaves],
                                                   device)):
-        _set_path(out, path, t)
+        set_path(out, path, t)
     return out
 
 
@@ -217,7 +181,12 @@ class EngineState:
     the session's shape pins (:meth:`SIGEModel.pin_capacities`: kept per
     session, so one session's pins never shape another's plan).
     :meth:`SIGEModel.use` switches the model to a state by reference: no
-    cache tensor is copied."""
+    cache tensor is copied.
+
+    The installed plan, on the host and on the device, always leads with
+    S >= 1: every leaf of ``plan`` and ``plan_host`` has a leading session
+    axis (:func:`~.planner.stack_plans`; one session's plan is a stack of
+    one), and a forward at batch S*B runs sample s*B + b under row s."""
 
     caches: Dict[str, List[Dict[str, torch.Tensor]]]
     active_layout: str
@@ -304,15 +273,11 @@ class SIGEModel:
     def use(self, state: EngineState) -> None:
         """Run the following calls on ``state`` (held by reference): bind
         every SIGE layer's ``cache`` to its slot-0 dict there and hand
-        every Gather its entry of the state's plan."""
+        every Gather its entry of the state's device plan."""
         self.state = state
         self._bind(0)
         for path, g in self._gathers:
-            if state.plan_host is None:
-                g.plan, g.plan_host = {}, {}
-            else:
-                g.plan_host = _get_path(state.plan_host, path)
-                g.plan = _get_path(state.plan, path)
+            g.plan = get_path(state.plan, path) if state.plan else {}
 
     def _bind(self, slot: int) -> None:
         """Every SIGE layer's ``cache``: its dict of ``slot`` in the
@@ -358,7 +323,7 @@ class SIGEModel:
         meta: Dict = {}
         for path, g in self._gathers:
             if g.meta is not None:
-                _set_path(meta, path, g.meta)
+                set_path(meta, path, g.meta)
         return meta
 
     def _run(self, args, kwargs, ctx: SIGECtx):
@@ -420,7 +385,7 @@ class SIGEModel:
         state.plan, state.plan_host, state.pins = {}, None, {}
         for path, g in self._gathers:
             try:
-                entry = _get_path(meta, path)
+                entry = get_path(meta, path)
             except KeyError:
                 entry = None
             g.meta = None if entry is None else {
@@ -447,29 +412,29 @@ class SIGEModel:
 
     def set_plan(self, plan: Mapping, layout: str,
                  device_plan: Optional[Mapping] = None) -> None:
-        """Install a host plan (built in ``layout``) in the current state:
-        its leaves go to the device in one copy (or ``device_plan``, the
-        plan already there) and every Gather gets its entry. A plan
-        stacked over S sessions (every leaf leads with S,
-        :class:`~sige_torch.parallel.PlanStack`) makes the forwards run S
-        sessions of B samples as one batch of S*B, sample s*B + b under
-        session s's plan."""
+        """Install a plan (built in ``layout``) in the current state and
+        hand every Gather its entry. ``plan`` is the installed form, a
+        stack of S sessions (:func:`~.planner.stack_plans`); the forwards
+        then run S sessions of B samples as one batch of S*B, sample
+        s*B + b under session s's plan. ``device_plan``: the plan already
+        on the device (:class:`~sige_torch.parallel.PlanStack`); without
+        it the leaves move in one copy."""
         state = self.state
         state.active_layout = layout
-        state.plan_host = plan
-        state.plan = (upload_plan(plan, self.device) if device_plan is None
-                      else device_plan)
+        if device_plan is None:
+            device_plan = upload_plan(plan, self.device)
+        state.plan_host, state.plan = plan, device_plan
         self.use(state)
 
     def set_masks(self, masks: Mapping, capacities: Optional[Dict] = None):
         """Host-side planning: mask pyramid -> indices/source maps or
-        windows (:meth:`plan_masks`), moved to the device and handed to
-        every Gather (:meth:`set_plan`). ``capacities`` pins buffer and
+        windows (:meth:`plan_masks`), installed as a stack of one
+        (:meth:`set_plan`). ``capacities`` pins buffer and
         box shapes (see :func:`~.planner.plan_pins` and
         :func:`~.planner.merge_pins`); without it, the session's own pins
-        (:meth:`pin_capacities`). Returns the host plan."""
+        (:meth:`pin_capacities`). Returns the session's host plan."""
         plan, layout = self.plan_masks(masks, capacities)
-        self.set_plan(plan, layout)
+        self.set_plan(stack_plans([plan]), layout)
         return plan
 
     def pin_capacities(self) -> Dict:
@@ -483,7 +448,7 @@ class SIGEModel:
         drops the pins."""
         if self.plan_host is None:
             raise RuntimeError("call set_masks() before pin_capacities()")
-        self.state.pins.update(plan_pins(self.plan_host))
+        self.state.pins.update(plan_pins(plan_rows(self.plan_host, 0)))
         return dict(self.state.pins)
 
     @torch.inference_mode()
@@ -497,8 +462,11 @@ class SIGEModel:
         if not self.plan:
             raise RuntimeError("call set_masks() before sparse()")
         with trace.span("sige.engine.sparse"):
-            S = plan_sessions(self.plan_host)
-            if S and args[0].shape[0] % S:
+            leaf = self.plan
+            while isinstance(leaf, Mapping):  # S leads every leaf
+                leaf = next(iter(leaf.values()))
+            S = leaf.shape[0]
+            if args[0].shape[0] % S:
                 raise ValueError(f"batch {args[0].shape[0]} is not a "
                                  f"multiple of the plan's {S} sessions")
             return self._run(args, kwargs, SIGECtx(
@@ -523,4 +491,4 @@ class SIGEModel:
         """Per-gather sparsity statistics for the current plan."""
         if self.meta is None or self.plan_host is None:
             return {}
-        return plan_stats(self.meta, self.plan_host)
+        return plan_stats(self.meta, plan_rows(self.plan_host, 0))

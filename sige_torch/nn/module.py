@@ -40,8 +40,8 @@ import torch
 from torch import nn
 
 from ..core.geometry import BlockGeometry
-from ..ops import (conv2d_nhwc, gather_tiles, materialize_tiles_box,
-                   scatter_gather_tiles, scatter_tiles_box,
+from ..ops import (conv2d_nhwc, gather_tiles, scatter_gather_tiles,
+                   scatter_tiles_box,
                    scatter_with_block_residual_box,
                    window_gather, window_scatter,
                    window_scatter_block_residual, window_scatter_gather,
@@ -150,19 +150,18 @@ class SIGEModule(nn.Module):
 class WindowState:
     """Carried state of a window-resident chain: the canonical window of
     the current layer's output, the cache that supplies the rest of the
-    map, and the window's origin as host integers (per session: a [S, 2]
-    device tensor). The triple is the
-    exact full map (inside the window the carried values, outside the
-    cache — they agree on the uncovered interior), so consumers rebuild
-    any extraction window from a window-sized cache slice plus one
-    overlay, and full maps materialize only at chain breaks (see the
-    chain ops of :mod:`sige_torch.ops.window`)."""
+    map, and the window's origin (an int64 [S, 2] device tensor). The
+    triple is the exact full map (inside the window the carried values,
+    outside the cache — they agree on the uncovered interior), so
+    consumers rebuild any extraction window from a window-sized cache
+    slice plus one overlay, and full maps materialize only at chain
+    breaks (see the chain ops of :mod:`sige_torch.ops.window`)."""
 
     def __init__(self, win: torch.Tensor, cache: torch.Tensor,
-                 org: Tuple[int, int]):
+                 org: torch.Tensor):
         self.win = win          # [B, WH, WW, C]
         self.cache = cache      # [B, H, W, C]
-        self.org = org          # (r0, c0)
+        self.org = org          # [S, 2] (r0, c0)
 
     def to_map(self) -> torch.Tensor:
         return window_state_materialize(self.cache, self.win, self.org)
@@ -173,19 +172,18 @@ class TileState:
     tile layout): the raw block output evaluated at the shared gather
     positions ([B * K, bh, bw, C]), plus what a consumer needs to
     materialize the full map: the join's cache and the bbox-cropped
-    pixel -> gather-position map with its origin (host ints)."""
+    pixel -> gather-position map with its origin ([S, BH, BW], [S, 2])."""
 
     def __init__(self, tiles: torch.Tensor, y0: torch.Tensor, pix_box,
-                 pix_org, geom: BlockGeometry):
+                 pix_org):
         self.tiles = tiles
         self.y0 = y0
         self.pix_box = pix_box
         self.pix_org = pix_org
-        self.geom = geom
 
     def to_map(self) -> torch.Tensor:
-        return materialize_tiles_box(self.tiles, self.y0, self.pix_box,
-                                     self.pix_org, self.geom)
+        return scatter_tiles_box(self.tiles, self.y0, self.pix_box,
+                                 self.pix_org)
 
 
 def chain_rel(gather: "Gather"):
@@ -196,24 +194,16 @@ def chain_rel(gather: "Gather"):
     return g.offset if g.conv_stride == (1, 1) else None
 
 
-def _host_ints(a) -> Tuple[int, ...]:
-    return tuple(int(v) for v in np.asarray(a).reshape(-1))
-
-
 class Gather(SIGEModule):
     """Records geometry/resolution in full mode; extracts the active tile
     batch (with optional fused norm epilogue) in sparse mode
     (reference: sige/nn/gather.py).
 
-    Also the anchor for planning products: the engine sets ``plan`` (the
-    device tensors of this Gather's plan entry) and ``plan_host`` (the
-    numpy entry; bbox origins, window metas and window origins are read
-    from it as host integers). Under a plan stacked over S sessions
-    (every leaf leads with S; ``sige_torch.parallel.PlanStack``) the
-    accessors return origins and metas as the int64 device tensors
-    ``[S, k]`` uploaded with the plan, beside the stacked masks and maps
-    ``[S, ...]``; their shapes (the pinned extents and the meta form) are
-    the same for every session.
+    Also the anchor for planning products: the engine sets ``plan``, the
+    device tensors of this Gather's entry of the installed plan. Every
+    leaf leads with the plan's S >= 1 sessions: origins and window metas
+    are int64 ``[S, k]``, masks and maps ``[S, ...]``; their shapes (the
+    pinned extents and the meta form) are the same for every session.
 
     ``prepool_chain`` asks the planner for the pre-pool chain products
     (``wdnp_in`` / ``wdnp_edge``): the extraction window doubled to 2x the
@@ -232,7 +222,6 @@ class Gather(SIGEModule):
         self.prepool_chain = prepool_chain
         self.meta: Optional[Dict[str, Tuple[np.ndarray, ...]]] = None
         self.plan: Dict[str, torch.Tensor] = {}
-        self.plan_host: Dict[str, np.ndarray] = {}
 
     def forward(self, x, ctx: SIGECtx, scale=None, shift=None):
         if ctx.mode == "dense":
@@ -262,17 +251,6 @@ class Gather(SIGEModule):
         raise ValueError(f"unknown mode {ctx.mode}")
 
     # --- services for paired scatters --------------------------------------
-    def stacked(self) -> bool:
-        """Whether the plan entry is stacked over sessions."""
-        return np.ndim(self.plan_host.get("indices", ())) == 3
-
-    def _ints(self, key: str):
-        """A plan origin or window meta: host integers, or under a stacked
-        plan its [S, k] device tensor."""
-        if self.stacked():
-            return self.plan[key]
-        return _host_ints(self.plan_host[key])
-
     def _request(self, key: str, res) -> None:
         self.meta[key] = self.meta.get(key, ()) + (
             np.array(tuple(res), np.int32),)
@@ -287,51 +265,48 @@ class Gather(SIGEModule):
         self._request("pixsrc_res", res)
 
     def read_src_map(self, res):
-        """(box, origin): the bbox-cropped source map on the device and its
-        origin as host integers (see planner; stacked: [S, 2] on the
-        device)."""
-        key = f"srcorg_{res[0]}x{res[1]}"
-        return (self.plan[f"srcbox_{res[0]}x{res[1]}"],
-                self.plan[key] if self.stacked() else self.plan_host[key])
+        """(box [S, BH, BW], origin [S, 2]): the bbox-cropped source map
+        and its origin (see planner)."""
+        key = f"{res[0]}x{res[1]}"
+        return self.plan[f"srcbox_{key}"], self.plan[f"srcorg_{key}"]
 
     def read_sg(self, res):
         key = f"{res[0]}x{res[1]}"
         return self.plan[f"sgsrc_{key}"], self.plan[f"sgflat_{key}"]
 
     def read_pixsrc(self, res):
-        """(box, origin): the bbox-cropped pixel -> gather-position map of a
-        tile-resident chain on the device and its origin as host integers
-        (see planner; stacked: [S, 2] on the device)."""
-        key = f"pixorg_{res[0]}x{res[1]}"
-        return (self.plan[f"pixbox_{res[0]}x{res[1]}"],
-                self.plan[key] if self.stacked() else self.plan_host[key])
+        """(box [S, BH, BW], origin [S, 2]): the bbox-cropped pixel ->
+        gather-position map of a tile-resident chain and its origin (see
+        planner)."""
+        key = f"{res[0]}x{res[1]}"
+        return self.plan[f"pixbox_{key}"], self.plan[f"pixorg_{key}"]
 
     # --- window layout (ops/window.py; planner layout="window") ----------
     def planned_window(self) -> bool:
-        return "win_in" in self.plan_host
+        return "win_in" in self.plan
 
     def read_window(self):
-        """(meta as host ints, edge mask on the device) of the conv input
+        """(meta [S, 2 or 4], edge mask [S, EH, EW]) of the conv input
         window."""
-        return self._ints("win_in"), self.plan["win_edge"]
+        return self.plan["win_in"], self.plan["win_edge"]
 
     def read_prepool(self):
-        """(meta as host ints, edge mask on the device) of the extraction
-        window doubled to 2x the input resolution (``prepool_chain``)."""
-        return self._ints("wdnp_in"), self.plan["wdnp_edge"]
+        """(meta, edge mask) of the extraction window doubled to 2x the
+        input resolution (``prepool_chain``)."""
+        return self.plan["wdnp_in"], self.plan["wdnp_edge"]
 
     def window_origin(self):
-        return self._ints("win_org")
+        return self.plan["win_org"]
 
     def read_wsc(self, res):
-        """(origin as host ints, coverage mask on the device) of the
-        canonical window at output resolution ``res``."""
+        """(origin [S, 2], coverage mask [S, WH, WW]) of the canonical
+        window at output resolution ``res``."""
         key = f"{res[0]}x{res[1]}"
-        return self._ints(f"wsc_org_{key}"), self.plan[f"wsc_cov_{key}"]
+        return self.plan[f"wsc_org_{key}"], self.plan[f"wsc_cov_{key}"]
 
     def read_wsg(self, res):
         key = f"{res[0]}x{res[1]}"
-        return (self._ints(f"wsg_in_{key}"), self.plan[f"wsg_edge_{key}"],
+        return (self.plan[f"wsg_in_{key}"], self.plan[f"wsg_edge_{key}"],
                 self.plan[f"wsg_cov_{key}"])
 
 
@@ -359,8 +334,7 @@ class Scatter(SIGEModule):
                     out = window_scatter(x, y, org, cov, residual)
                 else:
                     box, org = self.gather.read_src_map(y.shape[1:3])
-                    out = scatter_tiles_box(x, y, box, org, self.gather.geom,
-                                            residual)
+                    out = scatter_tiles_box(x, y, box, org, residual)
                 if ctx.sparse_update:
                     self.store("original", out, ctx)
                 return out
@@ -406,8 +380,8 @@ class ScatterGather(SIGEModule):
                     self.activation)
                 if ctx.sparse_update:
                     box, org = self.gather.read_src_map(res)
-                    self.store("original", scatter_tiles_box(
-                        x, y, box, org, self.gather.geom), ctx)
+                    self.store("original",
+                               scatter_tiles_box(x, y, box, org), ctx)
                 return out
         raise ValueError(f"unknown mode {ctx.mode}")
 
@@ -450,14 +424,11 @@ class ScatterWithBlockResidual(SIGEModule):
                 m_box, m_org = self.main_gather.read_src_map(res)
                 s_box, s_org = self.shortcut_gather.read_src_map(res)
                 out = scatter_with_block_residual_box(
-                    x, y0, residual, y1,
-                    m_box, m_org, self.main_gather.geom,
-                    s_box, s_org, self.shortcut_gather.geom)
+                    x, y0, residual, y1, m_box, m_org, s_box, s_org)
                 if ctx.sparse_update:
                     self.store("original", out, ctx)
                     self.store("residual", scatter_tiles_box(
-                        residual, y1, s_box, s_org, self.shortcut_gather.geom),
-                        ctx)
+                        residual, y1, s_box, s_org), ctx)
                 return out
         raise ValueError(f"unknown mode {ctx.mode}")
 

@@ -9,6 +9,11 @@ input resolution, and the output resolutions its paired scatters need
 source maps for. :func:`build_plan` mirrors that tree into a plan tree of
 numpy arrays, which the engine moves to the device in one pass.
 
+The planner also owns the format of a plan tree: :func:`plan_leaves`,
+:func:`get_path` / :func:`set_path` walk it, :func:`stack_plans` stacks
+the plans of S sessions on a leading session axis (the form the engine
+installs, S >= 1) and :func:`plan_rows` cuts sessions back out of it.
+
 A numpy-only copy of the tile and window paths of ``sige_tpu.nn.planner``:
 for the same meta and masks the two produce equal plans key by key. The
 mod-16 window lattice and ``max_cover`` are copied as they are, so that
@@ -20,7 +25,7 @@ avg-pool, PD's down-resampling resblock).
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 
@@ -30,6 +35,59 @@ from ..core.scatter_map import (bbox_of_map, build_sg_sources,
                                 build_src_map, gather_position_geom)
 
 IntPair = Tuple[int, int]
+
+
+def get_path(tree: Mapping, path: Tuple[str, ...]):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def set_path(tree: Dict, path: Tuple[str, ...], value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def plan_leaves(plan: Mapping, _path: Tuple[str, ...] = ()
+                ) -> List[Tuple[Tuple[str, ...], np.ndarray]]:
+    """(path, array) of every leaf of a host plan tree, in tree order."""
+    out = []
+    for k, v in plan.items():
+        if isinstance(v, Mapping):
+            out += plan_leaves(v, _path + (k,))
+        else:
+            out.append((_path + (k,), np.asarray(v)))
+    return out
+
+
+def stack_plans(plans: List[Mapping]) -> Dict:
+    """The plans of S sessions as one tree whose every leaf leads with S:
+    ``np.stack`` over the leaves, as ``jax.tree.map(lambda *ls:
+    np.stack(ls), *plans)``; ValueError when the structures or a leaf's
+    shapes differ. The engine installs every plan in this form, one
+    session's as a stack of one."""
+    first = plans[0]
+    if any(not isinstance(t, Mapping) or set(t) != set(first)
+           for t in plans[1:]):
+        raise ValueError("plan trees differ in structure")
+    out = {}
+    for k in sorted(first):
+        vals = [t[k] for t in plans]
+        if isinstance(vals[0], Mapping):
+            out[k] = stack_plans(vals)
+        elif any(isinstance(v, Mapping) for v in vals):
+            raise ValueError(f"plan trees differ in structure at {k!r}")
+        else:
+            out[k] = np.stack([np.asarray(v) for v in vals])
+    return out
+
+
+def plan_rows(tree: Mapping, rows: Union[int, slice]) -> Dict:
+    """Sessions of a stacked plan tree (views of its leaves): one
+    session's own plan for an int, a stack of the sessions in a slice."""
+    return {k: plan_rows(v, rows) if isinstance(v, Mapping) else v[rows]
+            for k, v in tree.items()}
 
 
 def _unpack_geom(arr) -> BlockGeometry:

@@ -1,10 +1,12 @@
 """Execution ops for tiling-based sparse convolution, in PyTorch.
 
 All ops take NHWC tensors, fixed-capacity padded index buffers and a
-static :class:`~sige_torch.core.geometry.BlockGeometry`. The tile ops are
-index_select/where compositions and the window ops slices and selects
-(the same formulations as ``sige_tpu.ops``); attention runs through the
-hand-written flash kernel on CUDA tensors (:mod:`sige_torch.ops.flash`).
+static :class:`~sige_torch.core.geometry.BlockGeometry`. Plan products
+lead with the installed plan's S >= 1 sessions. The tile ops are
+gather/where compositions and the window ops crops and pastes at each
+session's origin (:mod:`sige_torch.ops.sessions`, a hand-written kernel
+each on CUDA tensors); attention runs through the hand-written flash
+kernel on CUDA tensors (:mod:`sige_torch.ops.flash`).
 """
 
 from .attention import masked_mha, mha
@@ -14,7 +16,6 @@ from .gather import apply_epilogue, gather_tiles
 from .scatter import (
     calibrate_residual,
     materialize_tiles,
-    materialize_tiles_box,
     scatter_gather_residual_tiles,
     scatter_gather_tiles,
     scatter_tiles,
@@ -47,7 +48,6 @@ __all__ = [
     "scatter_gather_tiles",
     "scatter_with_block_residual_box",
     "materialize_tiles",
-    "materialize_tiles_box",
     "scatter_gather_residual_tiles",
     "calibrate_residual",
     "window_gather",

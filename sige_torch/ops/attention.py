@@ -9,8 +9,8 @@ back before attending). Two shapes recur:
 * ``masked_mha(q, ks, vs, kf, vf, bias_s, bias_f)`` — queries attend
   over [stale K/V map ++ fresh window] with additive 0/-1e9 biases
   keeping exactly one live token per spatial position (the masked
-  stale-K/V chain form of the SD U-Net and VAE; under a plan stacked
-  over sessions the biases hold one row per session).
+  stale-K/V chain form of the SD U-Net and VAE; the biases hold one row
+  per session of the installed plan).
 
 Both go through :func:`sige_torch.ops.flash.flash_mha`, which dispatches
 on the tensor's device: on a CUDA tensor every call launches the
@@ -25,7 +25,7 @@ import torch
 
 from ..utils import trace
 from .flash import flash_mha
-from .sessions import _clamp, _per_session, _rows, is_sessions
+from .sessions import _clamp, _rows
 from .window import window_extent
 
 NEG_INF = -1e9
@@ -47,36 +47,21 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
         return out.reshape(B, N, heads * dim_head)
 
 
-def stale_fresh_biases(cov: torch.Tensor, org, res):
+def stale_fresh_biases(cov: torch.Tensor, org: torch.Tensor, res):
     """The additive biases of :func:`masked_mha` for a window at origin
     ``org`` with coverage ``cov`` on a map of ``res``: fresh window tokens
     live where covered, stale map tokens live everywhere else, so exactly
     one copy of every position is live.
 
-    A single plan gives a host origin and ``cov`` bool [WH, WW], and one
-    bias pair serves every sample of the call: (bias_s [H*W], bias_f
-    [WH*WW]). A plan stacked over S sessions gives the origins as a device
-    tensor [S, 2] (or [S, 4] window metas) and ``cov`` [S, WH, WW] or
-    [WH, WW]: (bias_s [S, H*W], bias_f [S, WH*WW]), one row per session,
+    The origins are a device tensor [S, 2] (or [S, 4] window metas), one
+    per session of the installed plan, and ``cov`` [S, WH, WW]:
+    (bias_s [S, H*W], bias_f [S, WH*WW]), one row per session,
     built on the device from the origins without reading them on the host
     (each clamped so the window fits, as the window crop of the same call
     clamps it). float32 on ``cov``'s device."""
-    if is_sessions(org):
-        return _stale_fresh_sessions(cov, org, res)
-    WH, WW = cov.shape
-    zero = torch.zeros((), dtype=torch.float32, device=cov.device)
-    neg = torch.full((), NEG_INF, dtype=torch.float32, device=cov.device)
-    bias_s = torch.zeros(tuple(res), dtype=torch.float32, device=cov.device)
-    bias_s[org[0]:org[0] + WH, org[1]:org[1] + WW] = torch.where(
-        cov, neg, zero)
-    return bias_s.reshape(-1), torch.where(cov.reshape(-1), zero, neg)
-
-
-def _stale_fresh_sessions(cov: torch.Tensor, org: torch.Tensor, res):
     H, W = res
     S = int(org.shape[0])
     WH, WW = window_extent(cov)
-    cov = _per_session(cov, S)
     dev = cov.device
     r0, c0 = _rows(org, S, dev)
     r0, c0 = _clamp(r0, WH, H), _clamp(c0, WW, W)

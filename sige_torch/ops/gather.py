@@ -12,11 +12,11 @@ Semantics (matching the reference kernel and ``sige_tpu.ops.gather``):
     to them (the reference writes 0 and continues);
   * padded index-buffer slots (>= ``count``) produce all-zero tiles.
 
-Implementation: one flat ``index_select`` at clamped coordinates, the
-epilogue, and a validity select. Under a stacked plan (S sessions of B
-samples as one batch, ``sige_torch.parallel.SessionServer``) the indices
-are ``[S, K, 2]`` and the counts ``[S]``, and each session's samples
-gather at its own positions (one ``torch.gather``).
+Implementation: one ``torch.gather`` at clamped coordinates, the
+epilogue, and a validity select. The indices lead with the installed
+plan's S >= 1 sessions (S sessions of B samples run as one batch of S*B;
+one session's plan is a stack of one): ``[S, K, 2]`` and counts ``[S]``,
+and each session's samples gather at its own positions.
 """
 
 from __future__ import annotations
@@ -76,25 +76,6 @@ def broadcast_param(p: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     raise ValueError(f"epilogue param rank {p.ndim} unsupported")
 
 
-def tile_pixel_index(indices: torch.Tensor, count, geom: BlockGeometry,
-                     H: int, W: int):
-    """Flat clamped pixel index [K*bh*bw] and validity mask [K, bh, bw] of
-    every tile pixel (in bounds and in a live slot)."""
-    K = indices.shape[0]
-    bh, bw = geom.block_size
-    idx = indices.to(torch.int64)
-    ar_h = torch.arange(bh, device=idx.device)
-    ar_w = torch.arange(bw, device=idx.device)
-    rows = (idx[:, 0:1] + ar_h[None, :])[:, :, None]   # [K, bh, 1]
-    cols = (idx[:, 1:2] + ar_w[None, :])[:, None, :]   # [K, 1, bw]
-    live = torch.arange(K, device=idx.device) < torch.as_tensor(
-        count, device=idx.device)
-    valid = ((rows >= 0) & (rows < H) & (cols >= 0) & (cols < W)
-             & live[:, None, None])
-    flat = (rows.clamp(0, H - 1) * W + cols.clamp(0, W - 1)).reshape(-1)
-    return flat, valid
-
-
 def gather_tiles(
     x: torch.Tensor,
     indices: torch.Tensor,
@@ -108,11 +89,10 @@ def gather_tiles(
     """Gather active tiles from a feature map.
 
     Args:
-      x: [B, H, W, C] feature map.
-      indices: [K, 2] integer padded tile top-lefts (input coordinates),
-        or [S, K, 2] per session (B = S * samples per session).
-      count: number of live tiles (int or scalar tensor; [S] per
-        session).
+      x: [B, H, W, C] feature map (B = S * samples per session).
+      indices: [S, K, 2] integer padded tile top-lefts (input
+        coordinates), per session.
+      count: [S] numbers of live tiles.
       geom: block geometry.
       scale / shift: folded-norm epilogue params, [C], [B, C] or NHWC
         broadcastable. Spatially-varying params are gathered alongside x.
@@ -121,36 +101,7 @@ def gather_tiles(
     Returns:
       [B * K, bh, bw, C] tile batch; dead pixels/tiles are exactly zero.
     """
-    if indices.ndim == 3:
-        return _gather_tiles_sessions(x, indices, count, geom, scale, shift,
-                                      activation, activation_first)
-    B, H, W, C = x.shape
-    K = indices.shape[0]
-    bh, bw = geom.block_size
-    flat, valid = tile_pixel_index(indices, count, geom, H, W)
-    tiles = x.reshape(B, H * W, C).index_select(1, flat)
-    tiles = tiles.reshape(B, K, bh, bw, C)
-
-    def gather_param(p):
-        p = broadcast_param(p)
-        if p is None:
-            return None
-        if p.shape[1] == 1 and p.shape[2] == 1:
-            return p[:, None]  # [B', 1, 1, 1, C'] broadcasts over tiles
-        return p.reshape(p.shape[0], -1, p.shape[3]).index_select(
-            1, flat).reshape(p.shape[0], K, bh, bw, p.shape[3])
-
-    tiles = apply_epilogue(tiles, gather_param(scale), gather_param(shift),
-                           activation, activation_first)
-    tiles = torch.where(valid[None, :, :, :, None], tiles,
-                        torch.zeros((), dtype=tiles.dtype, device=tiles.device))
-    return tiles.reshape(B * K, bh, bw, C)
-
-
-def session_pixel_index(indices: torch.Tensor, count, geom: BlockGeometry,
-                        H: int, W: int):
-    """Per-session :func:`tile_pixel_index`: indices [S, K, 2] and counts
-    [S] -> flat [S, K*bh*bw] and valid [S, K, bh, bw]."""
+    N, H, W, C = x.shape
     S, K = indices.shape[:2]
     bh, bw = geom.block_size
     idx = indices.to(torch.int64)
@@ -160,26 +111,8 @@ def session_pixel_index(indices: torch.Tensor, count, geom: BlockGeometry,
     live = torch.arange(K, device=dev)[None, :] < torch.as_tensor(
         count, device=dev).reshape(S, 1)
     valid = ((rows >= 0) & (rows < H) & (cols >= 0) & (cols < W)
-             & live[:, :, None, None])
+             & live[:, :, None, None])                     # [S, K, bh, bw]
     flat = (rows.clamp(0, H - 1) * W + cols.clamp(0, W - 1)).reshape(S, -1)
-    return flat, valid
-
-
-def take_sessions(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """``t[n, index[s]]`` over the middle axis of [S*B, P, C] for every
-    sample n = s*B + b: [S*B, M, C] (index [S, M], clamped at 0)."""
-    S, M = index.shape
-    N, _, C = t.shape
-    src = index.clamp_min(0)[:, None, :, None].expand(S, N // S, M, C)
-    return torch.gather(t.unflatten(0, (S, -1)), 2, src).flatten(0, 1)
-
-
-def _gather_tiles_sessions(x, indices, count, geom, scale, shift,
-                           activation, activation_first):
-    N, H, W, C = x.shape
-    S, K = indices.shape[:2]
-    bh, bw = geom.block_size
-    flat, valid = session_pixel_index(indices, count, geom, H, W)
 
     def take(p):
         return take_sessions(p.reshape(p.shape[0], -1, p.shape[3]), flat
@@ -190,7 +123,7 @@ def _gather_tiles_sessions(x, indices, count, geom, scale, shift,
         if p is None:
             return None
         if p.shape[1] == 1 and p.shape[2] == 1:
-            return p[:, None]
+            return p[:, None]  # [B', 1, 1, 1, C'] broadcasts over tiles
         return take(p)
 
     tiles = apply_epilogue(take(x), gather_param(scale), gather_param(shift),
@@ -199,3 +132,12 @@ def _gather_tiles_sessions(x, indices, count, geom, scale, shift,
                         tiles.unflatten(0, (S, -1)),
                         torch.zeros((), dtype=tiles.dtype, device=x.device))
     return tiles.reshape(N * K, bh, bw, C)
+
+
+def take_sessions(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``t[n, index[s]]`` over the middle axis of [S*B, P, C] for every
+    sample n = s*B + b: [S*B, M, C] (index [S, M], clamped at 0)."""
+    S, M = index.shape
+    N, _, C = t.shape
+    src = index.clamp_min(0)[:, None, :, None].expand(S, N // S, M, C)
+    return torch.gather(t.unflatten(0, (S, -1)), 2, src).flatten(0, 1)

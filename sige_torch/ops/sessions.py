@@ -8,7 +8,8 @@ window origins, which arrive as device data: an int64 tensor ``[S, 2]``
 of (row, col), or the planner's 4-form window meta ``[S, 4]``
 ``(clamped_r, clamped_c, roll_r, roll_c)`` whose virtual origin is
 ``clamped - roll`` (:mod:`sige_torch.ops.window`). A host pair instead
-gives one origin to every session. Coverage and edge masks are
+gives one constant origin to every session (an offset that is not plan
+data, such as a conv's padding). Coverage and edge masks are
 ``[S, h, w]`` (one per session) or ``[h, w]`` (shared).
 
 * :func:`crop_sessions` — ``[S*B, EH, EW, C]`` windows, each sample read
@@ -68,12 +69,6 @@ _ACTS = {"identity": 0, "swish": 1, "relu": 2, "leaky": 3, "sigmoid": 4,
          "tanh": 5}
 
 
-def is_sessions(org) -> bool:
-    """A tensor origin (or meta) selects the per-session form of an op; a
-    host tuple keeps the single-plan form."""
-    return isinstance(org, torch.Tensor)
-
-
 def virtual_origin(meta: torch.Tensor) -> torch.Tensor:
     """[S, 2] virtual origins of [S, 2] origins or [S, 4] 4-form metas."""
     return meta if meta.shape[-1] == 2 else meta[:, :2] - meta[:, 2:4]
@@ -81,7 +76,7 @@ def virtual_origin(meta: torch.Tensor) -> torch.Tensor:
 
 def _count(org, *masks) -> int:
     """S: the leading size of a tensor origin or of a per-session mask."""
-    if is_sessions(org):
+    if isinstance(org, torch.Tensor):
         return int(org.shape[0])
     for m in masks:
         if m is not None and m.ndim == 3:
@@ -91,7 +86,7 @@ def _count(org, *masks) -> int:
 
 def _rows(org, S: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rows, cols) int64 [S] of the virtual origins."""
-    if is_sessions(org):
+    if isinstance(org, torch.Tensor):
         v = virtual_origin(org.to(device=device, dtype=torch.int64))
         return v[:, 0], v[:, 1]
     r, c = (torch.full((S,), int(o), dtype=torch.int64, device=device)
@@ -263,7 +258,7 @@ def row_chunks(rows: int, row_vectors: int) -> int:
 
 def _origin_args(org, device):
     """(origin tensor or None, k, host row, host col) for the kernels."""
-    if is_sessions(org):
+    if isinstance(org, torch.Tensor):
         o = org.to(device=device, dtype=torch.int64).contiguous()
         return o, int(o.shape[1]), 0, 0
     return None, 2, int(org[0]), int(org[1])
@@ -438,10 +433,8 @@ paste_sessions.launches = paste_sessions.scalar_launches = 0
 
 def cov_where(cov: torch.Tensor, a: torch.Tensor, b: torch.Tensor
               ) -> torch.Tensor:
-    """``torch.where`` over NHWC ``a`` / ``b`` with a coverage mask that is
-    [h, w] (one plan) or [S, h, w] (S sessions, samples ``s*B + b``)."""
-    if cov.ndim == 2:
-        return torch.where(cov[None, :, :, None], a, b)
+    """``torch.where`` over NHWC ``a`` / ``b`` with a coverage mask
+    [S, h, w] (S sessions, samples ``s*B + b``)."""
     S = cov.shape[0]
 
     def split(t):

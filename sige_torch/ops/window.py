@@ -7,27 +7,22 @@ conv's halo), run the dense conv on it, and overlay the result on the
 cache. Coverage masks planned on the host keep the tile engine's
 fresh-vs-cached semantics exactly on the original input.
 
-Plan products arrive in two forms. Window metas and origins are host
-integers read from the host plan (as the tile joins read their bbox
-origins), so an in-image window is a slice of the map — a view, with no
-device-to-host copy. Coverage and edge masks are bool tensors on the
-device.
+Plan products lead with the installed plan's S >= 1 sessions (S sessions
+of B samples run as one batch of S*B, sample ``s*B + b`` under session
+s; one session's plan is a stack of one): window metas and origins are
+int64 device tensors ``[S, k]``, coverage and edge masks bool ``[S, h,
+w]``. Every op builds on :func:`~sige_torch.ops.sessions.crop_sessions`
+and :func:`~sige_torch.ops.sessions.paste_sessions` (a hand-written
+kernel each on the card), which read each sample's window at its
+session's origin.
 
 Border windows: ``sige_tpu`` slices at a clamped start, rolls the window
 back into alignment and zeroes the out-of-image ring with the planned
-edge mask. Here the in-image part is sliced and zero-padded to the
-window's extent, which gives the same values, also for an extent wider
-than the canvas. A meta is the planner's 2-form ``(r, c)`` (the window is
-fully in image) or 4-form ``(clamped_r, clamped_c, roll_r, roll_c)``; the
-window's virtual origin is ``clamped - roll``.
-
-Per-session form: under a stacked plan (S sessions of B samples run as
-one batch of S*B, ``sige_torch.parallel.SessionServer``) metas and
-origins arrive as int64 device tensors ``[S, k]`` and masks as
-``[S, h, w]``; a tensor origin selects that form, whose body builds on
-:func:`~sige_torch.ops.sessions.crop_sessions` and
-:func:`~sige_torch.ops.sessions.paste_sessions` (a hand-written kernel
-each on the card). A host tuple keeps the single-plan form.
+edge mask. Here the crop reads zero outside the image, which gives the
+same values, also for an extent wider than the canvas. A meta is the
+planner's 2-form ``(r, c)`` (the window is fully in image, so the edge
+mask is skipped) or 4-form ``(clamped_r, clamped_c, roll_r, roll_c)``;
+the window's virtual origin is ``clamped - roll``.
 
 No op writes into its inputs: caches hold the full pass's activations
 themselves, so every overlay writes into a copy. A cache may be stored
@@ -39,97 +34,31 @@ rounded to the cache's dtype.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from .gather import apply_epilogue, broadcast_param
-from .scatter import clamp_origin
-from .sessions import (cov_where, crop_sessions, is_sessions,
-                       paste_sessions, virtual_origin)
+from .sessions import (cov_where, crop_sessions, paste_sessions,
+                       virtual_origin)
 
 IntPair = Tuple[int, int]
 
 
-def is_fast_meta(meta) -> bool:
-    """The 2-form meta: a window fully inside the image (host ints, or a
-    [S, 2] tensor of per-session metas)."""
-    return (meta.shape[-1] if is_sessions(meta) else len(meta)) == 2
+def is_fast_meta(meta: torch.Tensor) -> bool:
+    """The 2-form meta: every session's window fully inside the image."""
+    return meta.shape[-1] == 2
 
 
 def window_extent(mask: torch.Tensor) -> IntPair:
-    """(h, w) of a coverage or edge mask, [h, w] or [S, h, w]."""
+    """(h, w) of a coverage or edge mask [S, h, w]."""
     return tuple(mask.shape[-2:])
 
 
-def scale_origin(org, k: int):
-    """``k * org`` for a host origin or a [S, 2] tensor of them."""
-    if is_sessions(org):
-        return k * org
-    return tuple(k * int(o) for o in org)
-
-
-def sub_origin(a, b):
-    """``a - b`` for host origins or [S, 2] tensors of them."""
-    if is_sessions(a) or is_sessions(b):
-        return a - b
-    return tuple(int(x) - int(y) for x, y in zip(a, b))
-
-
-def _origin(meta: Sequence[int]) -> IntPair:
-    """The window's virtual (possibly negative) origin."""
-    if is_fast_meta(meta):
-        return int(meta[0]), int(meta[1])
-    return int(meta[0]) - int(meta[2]), int(meta[1]) - int(meta[3])
-
-
-def _crop(x: torch.Tensor, r: int, c: int, eh: int, ew: int) -> torch.Tensor:
-    """[B, eh, ew, C] window of ``x`` at (r, c): the part inside ``x``
-    sliced (a view when that is all of it), the rest zero."""
-    _, H, W, _ = x.shape
-    r0, r1 = max(r, 0), min(r + eh, H)
-    c0, c1 = max(c, 0), min(c + ew, W)
-    w = x[:, r0:r1, c0:c1]
-    pads = (0, 0, c0 - c, c + ew - c1, r0 - r, r + eh - r1)
-    return F.pad(w, pads) if any(pads) else w
-
-
-def _extract_window(x: torch.Tensor, meta: Sequence[int],
-                    edge: torch.Tensor) -> torch.Tensor:
-    """[B, EH, EW, C] window of ``x`` at the planned origin; ``edge``
-    (bool [EH, EW]) gives the extent."""
-    EH, EW = edge.shape
-    return _crop(x, *_origin(meta), EH, EW)
-
-
-def _paste(base: torch.Tensor, win: torch.Tensor, r: int, c: int,
-           cov: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """A copy of ``base`` in ``win``'s dtype with ``win`` written at
-    (r, c) — where ``cov`` is set, when given."""
-    out = base.to(win.dtype, copy=True)
-    h, w = win.shape[1:3]
-    dst = out[:, r:r + h, c:c + w]
-    dst.copy_(win if cov is None
-              else torch.where(cov[None, :, :, None], win, dst))
-    return out
-
-
 def _epilogue(z, edge, scale, shift, activation, activation_first):
-    """Fused scale/shift/activation; ``edge=None`` skips re-zeroing the
-    out-of-image ring (fast windows are fully in image)."""
-    z = apply_epilogue(z, broadcast_param(scale), broadcast_param(shift),
-                       activation, activation_first)
-    if edge is None:
-        return z
-    return torch.where(edge[None, :, :, None], z,
-                       torch.zeros((), dtype=z.dtype, device=z.device))
-
-
-def _epilogue_sessions(z, edge, scale, shift, activation,
-                       activation_first):
-    """Per-session :func:`_epilogue`: the epilogue and the [S, EH, EW]
-    edge in one pass over the window (a crop at its own origin)."""
+    """The fused norm epilogue on windows ``z`` and the out-of-image ring
+    re-zeroed where ``edge`` ([S, EH, EW]; None for in-image windows) is
+    False, in one pass (a crop at the window's own origin)."""
     if edge is None and scale is None and shift is None \
             and activation == "identity":
         return z
@@ -143,17 +72,24 @@ def window_epilogue(z, edge, scale=None, shift=None,
                     activation_first: bool = False):
     """Epilogue for callers that extend several windows and concatenate
     them before the fused norm (the U-Net's skip joins): ``scale*x+shift``
-    and the activation, then the out-of-image ring re-zeroed (``edge``;
-    None for an in-image window; [S, EH, EW] per session)."""
-    if edge is not None and edge.ndim == 3:
-        return _epilogue_sessions(z, edge, scale, shift, activation,
-                                  activation_first)
+    and the activation, then the out-of-image ring re-zeroed (``edge``
+    [S, EH, EW]; None for in-image windows, whose epilogue runs as
+    PyTorch ops)."""
+    if edge is None:
+        return apply_epilogue(z, broadcast_param(scale),
+                              broadcast_param(shift), activation,
+                              activation_first)
     return _epilogue(z, edge, scale, shift, activation, activation_first)
+
+
+def _ring(meta: torch.Tensor, edge: torch.Tensor):
+    """The edge mask a window at ``meta`` needs: None in image."""
+    return None if is_fast_meta(meta) else edge
 
 
 def window_gather(
     x: torch.Tensor,
-    meta: Sequence[int],
+    meta: torch.Tensor,
     edge: torch.Tensor,
     scale: Optional[torch.Tensor] = None,
     shift: Optional[torch.Tensor] = None,
@@ -163,20 +99,15 @@ def window_gather(
     """Window analogue of :func:`~sige_torch.ops.gather.gather_tiles`:
     the conv input window (with halo) of ``x``, the folded-norm epilogue
     fused, the out-of-image ring zero."""
-    if is_sessions(meta):
-        EH, EW = window_extent(edge)
-        return crop_sessions(x, meta, EH, EW,
-                             None if is_fast_meta(meta) else edge, scale,
-                             shift, activation, activation_first)
-    w = _extract_window(x, meta, edge)
-    return _epilogue(w, None if is_fast_meta(meta) else edge, scale, shift,
-                     activation, activation_first)
+    EH, EW = window_extent(edge)
+    return crop_sessions(x, meta, EH, EW, _ring(meta, edge), scale, shift,
+                         activation, activation_first)
 
 
 def window_scatter_gather(
     h_win: torch.Tensor,
     cache: torch.Tensor,
-    meta: Sequence[int],
+    meta: torch.Tensor,
     edge: torch.Tensor,
     cov: torch.Tensor,
     pad: IntPair,
@@ -190,33 +121,24 @@ def window_scatter_gather(
     the uncovered pixels, the fresh conv1 window ``h_win`` the covered
     interior. ``pad`` (the conv's padding) is the fresh window's offset
     inside the ring window."""
-    if is_sessions(meta):
-        EH, EW = window_extent(edge)
-        z = paste_sessions(crop_sessions(cache, meta, EH, EW), h_win, pad,
-                           cov)
-        return _epilogue_sessions(z, None if is_fast_meta(meta) else edge,
-                                  scale, shift, activation, activation_first)
-    base = _extract_window(cache, meta, edge)
-    z = _paste(base, h_win, pad[0], pad[1], cov)
-    return _epilogue(z, None if is_fast_meta(meta) else edge, scale, shift,
-                     activation, activation_first)
+    EH, EW = window_extent(edge)
+    z = paste_sessions(crop_sessions(cache, meta, EH, EW), h_win, pad, cov)
+    return _epilogue(z, _ring(meta, edge), scale, shift, activation,
+                     activation_first)
 
 
-def window_slice(x: torch.Tensor, org: Sequence[int],
-                 shape: Sequence[int]) -> torch.Tensor:
-    """[B, WH, WW, C] in-image window of ``x`` at host origin ``org`` (a
-    view; canonical windows are always in image). Per session: a copy."""
-    if is_sessions(org):
-        return crop_sessions(x, org, shape[0], shape[1], clamp=True)
-    _, H, W, _ = x.shape
-    r0, c0 = clamp_origin(org, tuple(shape), (H, W))
-    return x[:, r0:r0 + shape[0], c0:c0 + shape[1]]
+def window_slice(x: torch.Tensor, org: torch.Tensor,
+                 shape: IntPair) -> torch.Tensor:
+    """[S*B, WH, WW, C] in-image window of ``x`` at the origins ``org``
+    (clamped so the window fits; canonical windows are always in
+    image)."""
+    return crop_sessions(x, org, shape[0], shape[1], clamp=True)
 
 
 def window_scatter(
     h_win: torch.Tensor,
     cache: torch.Tensor,
-    org: Sequence[int],
+    org: torch.Tensor,
     cov: torch.Tensor,
     residual: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -224,25 +146,6 @@ def window_scatter(
     the fresh window over a copy of the cache at ``org`` (covered pixels
     only). ``residual`` may be a full map (sliced), a window aligned with
     ``h_win``, or [B, C]-broadcastable."""
-    if is_sessions(org):
-        return _window_scatter_sessions(h_win, cache, org, cov, residual)
-    _, H, W, _ = cache.shape
-    WH, WW = cov.shape
-    r0, c0 = clamp_origin(org, (WH, WW), (H, W))
-    fresh = h_win
-    if residual is not None:
-        if residual.ndim == 4 and tuple(residual.shape[1:3]) == (WH, WW) \
-                and (H, W) != (WH, WW):
-            r = residual  # already a window
-        else:
-            r = broadcast_param(residual)
-            if r.shape[1] == H and r.shape[2] == W:
-                r = r[:, r0:r0 + WH, c0:c0 + WW]
-        fresh = fresh + r
-    return _paste(cache, fresh, r0, c0, cov)
-
-
-def _window_scatter_sessions(h_win, cache, org, cov, residual):
     _, H, W, _ = cache.shape
     WH, WW = window_extent(cov)
     fresh = h_win
@@ -253,7 +156,7 @@ def _window_scatter_sessions(h_win, cache, org, cov, residual):
         else:
             r = broadcast_param(residual)
             if r.shape[1] == H and r.shape[2] == W:
-                r = crop_sessions(r, org, WH, WW, clamp=True)
+                r = window_slice(r, org, (WH, WW))
         fresh = fresh + r
     return paste_sessions(cache, fresh, org, cov, clamp=True)
 
@@ -272,9 +175,9 @@ def _window_scatter_sessions(h_win, cache, org, cov, residual):
 
 def window_chain_extend(
     win: torch.Tensor,
-    org: Sequence[int],
+    org: torch.Tensor,
     cache: torch.Tensor,
-    meta: Sequence[int],
+    meta: torch.Tensor,
     edge: torch.Tensor,
     scale: Optional[torch.Tensor] = None,
     shift: Optional[torch.Tensor] = None,
@@ -291,28 +194,19 @@ def window_chain_extend(
     is used for an in-image window. Otherwise the offset is ``org`` minus
     the window's origin. Either is clamped into the window, as
     ``sige_tpu``'s dynamic_update_slice clamps."""
-    if is_sessions(meta):
-        EH, EW = window_extent(edge)
-        ext = crop_sessions(cache, meta, EH, EW)
-        if rel is None or not is_fast_meta(meta):
-            rel = org - virtual_origin(meta)
-        ext = paste_sessions(ext, win, rel, clamp=True)
-        return _epilogue_sessions(ext, None if is_fast_meta(meta) else edge,
-                                  scale, shift, activation, activation_first)
-    ext = _extract_window(cache, meta, edge)
+    EH, EW = window_extent(edge)
+    ext = crop_sessions(cache, meta, EH, EW)
     if rel is None or not is_fast_meta(meta):
-        v = _origin(meta)
-        rel = (int(org[0]) - v[0], int(org[1]) - v[1])
-    pr, pc = clamp_origin(rel, tuple(win.shape[1:3]), tuple(ext.shape[1:3]))
-    ext = _paste(ext, win, pr, pc)
-    return _epilogue(ext, None if is_fast_meta(meta) else edge, scale, shift,
-                     activation, activation_first)
+        rel = org - virtual_origin(meta)
+    ext = paste_sessions(ext, win, rel, clamp=True)
+    return _epilogue(ext, _ring(meta, edge), scale, shift, activation,
+                     activation_first)
 
 
 def window_chain_extend_up2(
     win2: torch.Tensor,
-    org2: Sequence[int],
-    meta: Sequence[int],
+    org2: torch.Tensor,
+    meta: torch.Tensor,
     edge: torch.Tensor,
     scale: Optional[torch.Tensor] = None,
     shift: Optional[torch.Tensor] = None,
@@ -322,30 +216,20 @@ def window_chain_extend_up2(
     """Chain step across a nearest-2x upsample: the planner's nesting
     makes the DOUBLED carried window (``win2`` at ``org2``, both already
     x2) cover the in-image part of the extraction window, so the step is
-    one slice of the carried window — no cache read, no full map. Where
+    one crop of the carried window — no cache read, no full map. Where
     the extraction window pokes past the image (the conv halo) it is
     zero."""
-    if is_sessions(meta):
-        EH, EW = window_extent(edge)
-        return crop_sessions(win2, virtual_origin(meta) - org2, EH, EW,
-                             None if is_fast_meta(meta) else edge, scale,
-                             shift, activation, activation_first)
-    EH, EW = edge.shape
-    v_r, v_c = _origin(meta)
-    ext = _crop(win2, v_r - int(org2[0]), v_c - int(org2[1]), EH, EW)
-    return _epilogue(ext, None if is_fast_meta(meta) else edge, scale, shift,
-                     activation, activation_first)
+    EH, EW = window_extent(edge)
+    return crop_sessions(win2, virtual_origin(meta) - org2, EH, EW,
+                         _ring(meta, edge), scale, shift, activation,
+                         activation_first)
 
 
 def window_state_materialize(cache: torch.Tensor, win: torch.Tensor,
-                             org: Sequence[int]) -> torch.Tensor:
+                             org: torch.Tensor) -> torch.Tensor:
     """Chain break: the carried window over a copy of the full cached map
     (the one full-canvas copy a chain pays, at its end)."""
-    if is_sessions(org):
-        return paste_sessions(cache, win, org, clamp=True)
-    _, H, W, _ = cache.shape
-    r0, c0 = clamp_origin(org, tuple(win.shape[1:3]), (H, W))
-    return _paste(cache, win, r0, c0)
+    return paste_sessions(cache, win, org, clamp=True)
 
 
 def window_scatter_block_residual(
@@ -353,7 +237,7 @@ def window_scatter_block_residual(
     cache_out: torch.Tensor,
     shortcut_win: torch.Tensor,
     cache_residual: torch.Tensor,
-    org: Sequence[int],
+    org: torch.Tensor,
     cov_main: torch.Tensor,
     cov_shortcut: torch.Tensor,
 ) -> torch.Tensor:
@@ -363,19 +247,10 @@ def window_scatter_block_residual(
 
         out = where(m, fresh_m + y1, y0) + where(s, fresh_s - y1, 0)
     """
-    if is_sessions(org):
-        WH, WW = window_extent(cov_main)
-        y0 = crop_sessions(cache_out, org, WH, WW, clamp=True)
-        y1 = crop_sessions(cache_residual, org, WH, WW, clamp=True)
-        zero = torch.zeros((), dtype=main_win.dtype, device=y0.device)
-        new = (cov_where(cov_main, main_win + y1, y0)
-               + cov_where(cov_shortcut, shortcut_win - y1, zero))
-        return paste_sessions(cache_out, new, org, clamp=True)
-    out = cache_out.to(main_win.dtype, copy=True)
-    sl0 = window_slice(out, org, cov_main.shape)  # the copy's: no cast
-    sl1 = window_slice(cache_residual, org, cov_main.shape)
-    zero = torch.zeros((), dtype=out.dtype, device=out.device)
-    sl0.copy_(torch.where(cov_main[None, :, :, None], main_win + sl1, sl0)
-              + torch.where(cov_shortcut[None, :, :, None],
-                            shortcut_win - sl1, zero))
-    return out
+    shape = window_extent(cov_main)
+    y0 = window_slice(cache_out, org, shape)
+    y1 = window_slice(cache_residual, org, shape)
+    zero = torch.zeros((), dtype=main_win.dtype, device=y0.device)
+    new = (cov_where(cov_main, main_win + y1, y0)
+           + cov_where(cov_shortcut, shortcut_win - y1, zero))
+    return paste_sessions(cache_out, new, org, clamp=True)

@@ -22,11 +22,13 @@ samples run as one forward at batch S*B, sample ``s*B + b`` under
 session s's plan. The per-session plans stack on a leading session axis
 because their leaf shapes are pinned to be equal (``PlanStack``); the
 window origins, box origins and masks that differ between sessions are
-device data that the ops read per sample (``sige_torch/ops/sessions.py``
-and the per-session forms of ``ops/window.py``, ``ops/gather.py`` and
-``ops/scatter.py``). The stacked plan stays resident (``ResidentPlan``):
-after an edit only that session's row is written, on the host and in a
-pinned staging buffer, and the whole plan moves to the card in one copy.
+device data that the ops read per sample (``sige_torch/ops/sessions.py``,
+on which every op of ``ops/window.py``, ``ops/gather.py`` and
+``ops/scatter.py`` is built: the engine installs every plan with a
+leading session axis, one session's as a stack of one). The stacked
+plan stays resident (``ResidentPlan``): after an edit only that
+session's row is written, on the host and in a pinned staging buffer,
+and the whole plan moves to the card in one copy.
 """
 
 from __future__ import annotations
@@ -38,9 +40,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.engine import (SIGEModel, _get_path, _set_path, pack_offsets,
-                         packed_view, plan_leaves)
-from ..nn.planner import build_plan, merge_pins, plan_layout, plan_pins
+from ..nn.engine import SIGEModel, pack_offsets, packed_view
+from ..nn.planner import (build_plan, get_path, merge_pins, plan_layout,
+                          plan_leaves, plan_pins, plan_rows, set_path,
+                          stack_plans)
 from ..utils import trace
 from .mesh import Mesh, make_mesh, replicate, shard_batch
 
@@ -99,7 +102,7 @@ class TwinStepServer:
         after it: a new input shape makes ``full`` drop the state's plan."""
         y = self.model.full(x, *args)
         if not self.model.plan:
-            self.model.set_plan(self.plan, self.layout)
+            self.model.set_plan(stack_plans([self.plan]), self.layout)
         return y
 
     def _rows(self, *xs):
@@ -124,26 +127,6 @@ class TwinStepServer:
         x0, x1, *args = self._rows(x_orig, x_edit, *args)
         y0 = self._full(x0, args)
         return y0, self.model.sparse(x1, *args)
-
-
-def _stack_trees(trees: List[Mapping]) -> Dict:
-    """``np.stack`` over the leaves of plan trees of one structure, as
-    ``jax.tree.map(lambda *ls: np.stack(ls), *trees)``: ValueError when
-    the structures or a leaf's shapes differ."""
-    first = trees[0]
-    if any(not isinstance(t, Mapping) or set(t) != set(first)
-           for t in trees[1:]):
-        raise ValueError("plan trees differ in structure")
-    out = {}
-    for k in sorted(first):
-        vals = [t[k] for t in trees]
-        if isinstance(vals[0], Mapping):
-            out[k] = _stack_trees(vals)
-        elif any(isinstance(v, Mapping) for v in vals):
-            raise ValueError(f"plan trees differ in structure at {k!r}")
-        else:
-            out[k] = np.stack([np.asarray(v) for v in vals])
-    return out
 
 
 class PlanStack:
@@ -173,7 +156,7 @@ class PlanStack:
     rebuilds every plan in the 4-form.
 
     ``stacked()`` returns the resident stacked tree, whose values always
-    equal ``_stack_trees(self.plans)``. When every session set since the
+    equal ``stack_plans(self.plans)``. When every session set since the
     last call has a plan of the tree's layout (its leaf paths, and each
     leaf's per-session shape and dtype), only those sessions' rows are
     written, in place, and ``row_versions[i]`` counts each write of row
@@ -308,7 +291,7 @@ class PlanStack:
             # are canvas-capped, so this terminates — 2 rounds in practice.
             for _ in range(16):
                 try:
-                    self._stacked = _stack_trees(self.plans)
+                    self._stacked = stack_plans(self.plans)
                     self._dirty.clear()
                     return self._stacked
                 except ValueError:
@@ -378,7 +361,7 @@ class ResidentPlan:
             self._copied.record(torch.cuda.current_stream(self.device))
 
     def _build(self, stacked: Mapping) -> None:
-        self.host = _session_rows(stacked, self.rows)
+        self.host = plan_rows(stacked, self.rows)
         leaves = plan_leaves(self.host)
         offsets, size = pack_offsets([a for _, a in leaves])
         self._staging = torch.zeros(size, dtype=torch.uint8,
@@ -387,12 +370,12 @@ class ResidentPlan:
         for (path, a), o in zip(leaves, offsets):
             view = packed_view(staging, a, o)
             view[...] = a
-            self._staged.append((view, _get_path(stacked, path)))
+            self._staged.append((view, get_path(stacked, path)))
         self.buf = torch.empty(size, dtype=torch.uint8, device=self.device)
         self._copy()
         self.tree = {}
         for (path, a), o in zip(leaves, offsets):
-            _set_path(self.tree, path, packed_view(self.buf, a, o))
+            set_path(self.tree, path, packed_view(self.buf, a, o))
         self._source = stacked
 
     def update(self, stack: PlanStack) -> bool:
@@ -428,13 +411,6 @@ class ResidentPlan:
 def _flat(t):
     """[S, B, ...] -> [S*B, ...]: the sessions side by side in one batch."""
     return t.flatten(0, 1)
-
-
-def _session_rows(tree: Mapping, rows: slice) -> Dict:
-    """A stacked plan tree with every leaf's leading session axis cut to
-    ``rows``: views of its leaves."""
-    return {k: _session_rows(v, rows) if isinstance(v, Mapping)
-            else v[rows] for k, v in tree.items()}
 
 
 class SessionServer:

@@ -43,6 +43,7 @@ from sige_tpu.nn.planner import merge_pins as j_merge_pins
 from sige_tpu.nn.planner import plan_pins as j_plan_pins
 from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
 from sige_torch.nn import SIGEModel, merge_pins, plan_pins
+from sige_torch.nn.planner import plan_leaves, plan_stats
 from sige_torch.utils.from_jax import state_dict_from_flax, torch_path
 from test_torch_sd_unet import (ATOL, box_mask, flax_params,  # noqa: F401
                                 one_torch_thread)
@@ -155,6 +156,29 @@ def test_pin_capacities_equals_sige_tpu_and_keeps_the_shapes():
     # an explicit map wins over the session's pins
     assert plan_pins(tm.set_masks(_masks(SMALL),
                                   capacities=unpinned_small)) == unpinned_small
+
+
+@pytest.mark.parametrize("layout", ["tiles", "window"])
+def test_set_masks_installs_a_one_session_stack(layout):
+    """One session's plan is installed as a stack of one: every leaf of
+    the plan on the device and on the host leads with 1, and row 0 is the
+    plan ``set_masks`` returns. What reads one session's shapes reads that
+    row: ``pin_capacities`` gives the pins of the unstacked plan, and
+    ``stats`` its statistics."""
+    x0, t, edits, _ = _inputs()
+    tm = _model(layout)
+    tm.full(_t(x0), _t(t))
+    plan = tm.set_masks(_masks(BIG))
+    device, host = plan_leaves(tm.plan), dict(plan_leaves(tm.plan_host))
+    assert device and all(a.shape[0] == 1 for _, a in device)
+    assert {p for p, _ in device} == set(host) == {
+        p for p, _ in plan_leaves(plan)}
+    for p, a in plan_leaves(plan):
+        assert host[p].shape == (1, *a.shape)
+        np.testing.assert_array_equal(host[p][0], a)
+    assert tm.pin_capacities() == plan_pins(plan)
+    assert tm.stats() == plan_stats(tm.meta, plan)
+    assert tm.sparse(_t(edits[BIG]), _t(t)).shape == x0.shape
 
 
 def test_pins_belong_to_the_session():

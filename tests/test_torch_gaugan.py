@@ -428,8 +428,10 @@ def test_nearest_resize_and_seg_window_match_sige_tpu():
                        for k in flat if k.startswith(base + "/wsc_org_"))
             want = jax.jit(jspade._seg_window, static_argnums=1)(
                 jnp.asarray(seg), res, jnp.asarray(meta), jnp.asarray(edge))
+            # as a one-session plan holds them: [1, k] and [1, EH, EW]
             got = spade._seg_window(_t(seg), res,
-                                    tuple(int(v) for v in meta), _t(edge))
+                                    _t(meta).to(torch.int64)[None],
+                                    _t(edge)[None])
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
             forms.add(len(meta))
     assert forms == {2, 4}

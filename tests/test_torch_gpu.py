@@ -229,7 +229,8 @@ def test_split_path_matches_plain_split_on_card(D):
                                        ])
 def test_window_ops_card_match_cpu(v_org, ext):
     """Each window op on CUDA tensors against the same op on the CPU
-    (which the CPU tests hold against sige_tpu)."""
+    (which the CPU tests hold against sige_tpu), on a one-session plan's
+    products ([1, k] metas and origins, [1, h, w] masks)."""
     if not torch.cuda.is_available():
         pytest.skip("card-vs-CPU comparison needs a CUDA device")
     from sige_torch.nn.planner import _window_meta
@@ -250,21 +251,24 @@ def test_window_ops_card_match_cpu(v_org, ext):
 
     def run(dev):
         d = lambda t: t.to(dev)  # noqa: E731
-        ring = d(edge)
+        one = lambda t: d(t)[None]  # noqa: E731  (a stack of one session)
+        m = one(torch.from_numpy(meta.astype(np.int64)))
+        o = one(torch.tensor(org))
+        ring, c, c_s = one(edge), one(cov), one(cov_s)
         outs = [
-            w.window_gather(d(x), meta, ring, d(scale), d(shift), "swish"),
-            w.window_chain_extend(d(win), org, d(cache), meta, ring,
+            w.window_gather(d(x), m, ring, d(scale), d(shift), "swish"),
+            w.window_chain_extend(d(win), o, d(cache), m, ring,
                                   d(scale), d(shift), "swish"),
-            w.window_scatter(d(win), d(cache), org, d(cov), d(x)),
-            w.window_state_materialize(d(cache), d(win), org),
+            w.window_scatter(d(win), d(cache), o, c, d(x)),
+            w.window_state_materialize(d(cache), d(win), o),
             w.window_scatter_block_residual(d(win), d(cache), d(short),
-                                            d(y1), org, d(cov), d(cov_s)),
+                                            d(y1), o, c, c_s),
         ]
         if (WH, WW) == (ext[0] - 2, ext[1] - 2):
             outs.append(w.window_scatter_gather(
-                d(win), d(cache), meta, ring, d(cov), (1, 1), d(scale),
+                d(win), d(cache), m, ring, c, (1, 1), d(scale),
                 d(shift), "swish"))
-        return [o.cpu() for o in outs]
+        return [o_.cpu() for o_ in outs]
 
     for got, want in zip(run("cuda"), run("cpu")):
         assert got.shape == want.shape
@@ -1258,16 +1262,15 @@ def test_row_installs_without_a_sync_on_card():
     if not torch.cuda.is_available():
         pytest.skip("the pinned staging buffer's event needs a CUDA device")
     from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
-    from sige_torch.nn.planner import plan_layout
+    from sige_torch.nn.planner import plan_layout, plan_rows, stack_plans
     from sige_torch.parallel import SessionServer
-    from sige_torch.parallel.serving import _session_rows, _stack_trees
     from sige_torch.utils import trace
 
     class FullInstall(SessionServer):
         def _install(self):
             self._stack.stacked()
-            host = _session_rows(_stack_trees(self._stack.plans),
-                                 self.mesh.rows(self.num_sessions))
+            host = plan_rows(stack_plans(self._stack.plans),
+                             self.mesh.rows(self.num_sessions))
             self.model.set_plan(host, plan_layout(host))
 
     cfg = DDPMUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,

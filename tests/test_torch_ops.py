@@ -3,7 +3,10 @@ counterparts, on random inputs and on plans from the planner.
 
 The two packages do the same fp32 arithmetic in the same order (gathers,
 selects, one multiply-add epilogue), so they agree to atol 1e-6; the
-planning primitives are integer and must be equal.
+planning primitives are integer and must be equal. The port's tile ops
+take plan products as a one-session plan does (``[1, K, 2]`` indices,
+``[1]`` counts, ``[1, BH, BW]`` boxes, ``[1, 2]`` origins, ``[1, N]``
+lookups).
 """
 
 import jax
@@ -35,6 +38,12 @@ ATOL = 1e-6
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+def _one(a):
+    """A host plan product as the engine installs it for one session: an
+    int64 tensor with a leading session axis of 1."""
+    return torch.from_numpy(np.asarray(a, np.int64))[None]
 
 
 def _close(got, want, atol=ATOL, err_msg=""):
@@ -96,7 +105,7 @@ def _moved_side(got, want, x, idx, count, geom, scale, shift, activation,
     process state a worker could have changed: a failure records where to
     look."""
     exact = tgather.gather_tiles(
-        _t(x).double(), _t(idx), count, geom, _t(scale).double(),
+        _t(x).double(), _one(idx), _one(count), geom, _t(scale).double(),
         _t(shift).double(), activation, activation_first).numpy()
     port, ref = np.abs(got - exact), np.abs(want - exact)
     return (f"against float64: sige_torch max {port.max():.3e} "
@@ -119,8 +128,9 @@ def test_gather_tiles(rng, activation, activation_first):
     x = rng.standard_normal((2, H, W, C)).astype(np.float32)
     scale = rng.standard_normal((2, C)).astype(np.float32)
     shift = rng.standard_normal((2, 1, 1, C)).astype(np.float32)
-    got = tgather.gather_tiles(_t(x), _t(idx), count, geom, _t(scale),
-                               _t(shift), activation, activation_first)
+    got = tgather.gather_tiles(_t(x), _one(idx), _one(count), geom,
+                               _t(scale), _t(shift), activation,
+                               activation_first)
     want = jgather.gather_tiles(jnp.asarray(x), jnp.asarray(idx),
                                 jnp.int32(count), jgeom, jnp.asarray(scale),
                                 jnp.asarray(shift), activation,
@@ -141,8 +151,8 @@ def test_gather_tiles_spatial_params(rng):
     x = rng.standard_normal((1, H, W, C)).astype(np.float32)
     scale = rng.standard_normal((1, H, W, C)).astype(np.float32)
     shift = np.ones((1, H, W, C), np.float32)
-    got = tgather.gather_tiles(_t(x), _t(idx), count, geom, _t(scale),
-                               _t(shift), "identity")
+    got = tgather.gather_tiles(_t(x), _one(idx), _one(count), geom,
+                               _t(scale), _t(shift), "identity")
     want = jgather.gather_tiles(jnp.asarray(x), jnp.asarray(idx),
                                 jnp.int32(count), jgeom, jnp.asarray(scale),
                                 jnp.asarray(shift))
@@ -172,7 +182,7 @@ def test_scatter_tiles_box(rng, origin):
     resid = rng.standard_normal((1, H, W, C)).astype(np.float32)
     for r in (None, resid):
         got = tscatter.scatter_tiles_box(
-            _t(tiles), _t(cache), _t(box), org, geom,
+            _t(tiles), _t(cache), _one(box), _one(org),
             None if r is None else _t(r))
         want = jscatter.scatter_tiles_box(
             jnp.asarray(tiles), jnp.asarray(cache), jnp.asarray(box),
@@ -206,7 +216,7 @@ def test_scatter_gather_tiles(rng):
     scale = rng.standard_normal((1, C)).astype(np.float32)
     shift = rng.standard_normal((1, C)).astype(np.float32)
     got = tscatter.scatter_gather_tiles(
-        _t(tiles), _t(cache), _t(sg_src), _t(sg_flat), geom, _t(scale),
+        _t(tiles), _t(cache), _one(sg_src), _one(sg_flat), geom, _t(scale),
         _t(shift), "swish")
     want = jscatter.scatter_gather_tiles(
         jnp.asarray(tiles), jnp.asarray(cache), jnp.asarray(sg_src),
@@ -230,7 +240,8 @@ def test_scatter_with_block_residual_box(rng):
     y0 = rng.standard_normal((1, H, W, C)).astype(np.float32)
     y1 = rng.standard_normal((1, H, W, C)).astype(np.float32)
     got = tscatter.scatter_with_block_residual_box(
-        _t(main), _t(y0), _t(short), _t(y1), _t(bm), om, gm, _t(bs), os_, gs)
+        _t(main), _t(y0), _t(short), _t(y1), _one(bm), _one(om), _one(bs),
+        _one(os_))
     want = jscatter.scatter_with_block_residual_box(
         jnp.asarray(main), jnp.asarray(y0), jnp.asarray(short),
         jnp.asarray(y1), jnp.asarray(bm), jnp.asarray(om), jgm,
@@ -281,8 +292,8 @@ def test_materialize_tiles_box(rng, origin):
     state = rng.standard_normal(
         (2 * idx.shape[0], *geom.block_size, C)).astype(np.float32)
     cache = rng.standard_normal((2, H, W, C)).astype(np.float32)
-    got = tscatter.materialize_tiles_box(_t(state), _t(cache), _t(box), org,
-                                         geom)
+    got = tscatter.scatter_tiles_box(_t(state), _t(cache), _one(box),
+                                     _one(org))
     want = jscatter.materialize_tiles_box(
         jnp.asarray(state), jnp.asarray(cache), jnp.asarray(box),
         jnp.asarray(org), jgeom)
@@ -308,7 +319,8 @@ def test_scatter_gather_residual_tiles(rng, epilogue):
         jkw = dict(scale=jnp.asarray(scale), shift=jnp.asarray(shift),
                    activation=epilogue)
     got = tscatter.scatter_gather_residual_tiles(
-        _t(tiles), _t(cache), _t(res), _t(sg_src), _t(sg_flat), geom, **kw)
+        _t(tiles), _t(cache), _t(res), _one(sg_src), _one(sg_flat), geom,
+        **kw)
     want = jscatter.scatter_gather_residual_tiles(
         jnp.asarray(tiles), jnp.asarray(cache), jnp.asarray(res),
         jnp.asarray(sg_src), jnp.asarray(sg_flat), jgeom, **jkw)

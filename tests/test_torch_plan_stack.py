@@ -19,9 +19,9 @@ import torch
 from sige_torch.core.masks import dilate_mask, downsample_mask
 from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
 from sige_torch.nn import SIGEModel
-from sige_torch.nn.engine import plan_leaves, upload_plan
+from sige_torch.nn.engine import upload_plan
+from sige_torch.nn.planner import plan_leaves, plan_rows, stack_plans
 from sige_torch.parallel import PlanStack, ResidentPlan
-from sige_torch.parallel.serving import _session_rows, _stack_trees
 from sige_torch.utils import trace
 from sige_tpu.parallel import PlanStack as JPlanStack
 from test_torch_demo import TINY
@@ -116,7 +116,7 @@ def _assert_installed(plan: ResidentPlan, stack: PlanStack, note):
     """The resident trees equal a fresh restack and its ``upload_plan``:
     the host tree leaf for leaf, the device buffer byte for byte (padding
     included) and every device leaf in dtype, shape and value."""
-    host = _session_rows(_stack_trees(stack.plans), plan.rows)
+    host = plan_rows(stack_plans(stack.plans), plan.rows)
     got, want = dict(plan_leaves(plan.host)), dict(plan_leaves(host))
     assert got.keys() == want.keys(), note
     for k in want:
@@ -201,7 +201,7 @@ def test_installs_count_their_path(meta):
 
 def test_stacked_follows_edits_in_place(meta):
     """``stacked()`` is one tree across conforming edits, its rows
-    rewritten in place to equal ``_stack_trees(plans)``; only the edited
+    rewritten in place to equal ``stack_plans(plans)``; only the edited
     session's row version moves."""
     stack = PlanStack(meta, S, bucket_min=1, layout="window")
     for i, box in enumerate(COMPACT):
@@ -212,7 +212,7 @@ def test_stacked_follows_edits_in_place(meta):
     stack.set(2, _masks((9, 14, 15, 20)))
     assert stack.stacked() is first
     assert stack.row_versions == [0, 0, 1]
-    want = dict(plan_leaves(_stack_trees(stack.plans)))
+    want = dict(plan_leaves(stack_plans(stack.plans)))
     assert held.keys() == want.keys()
     changed = 0
     for k, a in dict(plan_leaves(first)).items():

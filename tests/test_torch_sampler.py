@@ -27,6 +27,7 @@ from sige_tpu.samplers import DiffusionSchedule as JSchedule
 from sige_tpu.samplers import diffusion as jdiff
 from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
 from sige_torch.nn import SIGEModel
+from sige_torch.nn.planner import plan_rows
 from sige_torch.ops import flash
 from sige_torch.runners import DiffusionRunConfig, DiffusionRunner
 from sige_torch.samplers import DDIMSampler, DDPMSampler, DiffusionSchedule
@@ -183,7 +184,7 @@ def test_runner_preprocess_matches(runners):
                 out[torch_path(path) + (k,)] = np.asarray(v)
 
     flat(jax.device_get(jr.model.plan), jplan)
-    flat(tr.model.plan_host, tplan)
+    flat(plan_rows(tr.model.plan_host, 0), tplan)
     assert jplan.keys() == tplan.keys()
     for k in jplan:
         np.testing.assert_array_equal(tplan[k], jplan[k])

@@ -15,8 +15,8 @@ needs, on the tiny configurations of ``tests/test_sd.py``.
   * the bias rule: ``flash_mha_plain`` and ``flash_partials_plain`` with
     an [S, M] bias equal S separate calls with each session's [M] row,
     exactly; an [M] bias computes what it did before the rule, bit for
-    bit; ``stale_fresh_biases`` under a stacked plan equals the per-session
-    single-plan biases, exactly.
+    bit; ``stale_fresh_biases`` under a stacked plan equals, row by row,
+    a one-session call on each session's window, exactly.
 """
 
 import functools
@@ -261,16 +261,16 @@ def test_bias_shape_checks():
 @pytest.mark.parametrize("shared_cov", [False, True])
 def test_stacked_stale_fresh_biases_are_per_session_rows(shared_cov):
     """``stale_fresh_biases`` with [S, 2] device origins (and [S, 4]
-    window metas) gives, row by row, the single-plan biases of each
-    session's origin and coverage; origins past the map are clamped as
-    the window crop clamps them."""
+    window metas) gives, row by row, the biases of a one-session call on
+    each session's origin and coverage; origins past the map are clamped
+    as the window crop clamps them."""
     rng = np.random.default_rng(0)
     res, (WH, WW) = (12, 10), (4, 6)
     orgs = np.array([[0, 0], [3, 2], [8, 4], [10, 7]])  # the last clamps
     covs = rng.random((len(orgs), WH, WW)) < 0.6
-    if shared_cov:
+    if shared_cov:  # one coverage in every session's row
         covs[:] = covs[0]
-    cov = torch.from_numpy(covs[0] if shared_cov else covs)
+    cov = torch.from_numpy(covs)
     got_s, got_f = stale_fresh_biases(cov, torch.from_numpy(orgs), res)
     meta = np.concatenate([orgs + 1, np.ones_like(orgs)], axis=1)
     for form in (stale_fresh_biases(cov, torch.from_numpy(meta), res),):
@@ -279,7 +279,7 @@ def test_stacked_stale_fresh_biases_are_per_session_rows(shared_cov):
     assert got_f.shape == (len(orgs), WH * WW)
     for s, (r, c) in enumerate(orgs):
         r, c = min(r, res[0] - WH), min(c, res[1] - WW)
-        want_s, want_f = stale_fresh_biases(torch.from_numpy(covs[s]),
-                                            (r, c), res)
-        assert torch.equal(got_s[s], want_s)
-        assert torch.equal(got_f[s], want_f)
+        want_s, want_f = stale_fresh_biases(
+            torch.from_numpy(covs[s:s + 1]), torch.tensor([[r, c]]), res)
+        assert torch.equal(got_s[s], want_s[0])
+        assert torch.equal(got_f[s], want_f[0])

@@ -30,6 +30,7 @@ from sige_torch.models.sd import SDVAEConfig, SIGEDecoder, SIGEEncoder
 from sige_torch.models.sd import vae as sd_vae
 from sige_torch.nn import SIGEModel
 from sige_torch.nn.module import SIGECtx, WindowState
+from sige_torch.nn.planner import plan_rows
 from sige_torch.utils.from_jax import state_dict_from_flax
 from test_torch_sd_unet import (ATOL, TINY_VAE, box_mask, flax_params,
                                 gather_plans, one_torch_thread)
@@ -177,12 +178,13 @@ def test_border_edit_through_the_stride2_downsample(layout):
     gather with padding 0 (tiles)."""
     p = _pair("encoder", True, BORDER, layout)
     tm, full = p.primed()
-    down = tm.module.downsamples[0].g.plan_host
+    down = tm.module.downsamples[0].g.plan
+    plan = plan_rows(tm.plan_host, 0)
     if layout == "window":
         assert "wdn_ok" in down
-        assert any(len(g["win_in"]) == 4 for g in gather_plans(tm.plan_host))
+        assert any(len(g["win_in"]) == 4 for g in gather_plans(plan))
     else:
-        assert not any("win_in" in g for g in gather_plans(tm.plan_host))
+        assert not any("win_in" in g for g in gather_plans(plan))
     np.testing.assert_allclose(full, p.j_full, atol=ATOL, rtol=0)
     np.testing.assert_allclose(tm.sparse(_t(p.x1)).numpy(), p.j_sparse,
                                atol=ATOL, rtol=0)

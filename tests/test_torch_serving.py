@@ -282,7 +282,7 @@ def test_window_layout_survives_the_merge():
     """Compact edits at four origins keep real windows on the shared
     pins: ``win_pins`` is not empty and the stacked plan holds ``win_in``
     leaves, one meta row per session."""
-    from sige_torch.nn.engine import plan_leaves, plan_sessions
+    from sige_torch.nn.planner import plan_leaves
 
     server, _, (_, x1, _, tb), _, _ = _port_server("window")
     stacked = server._stack.stacked()
@@ -291,7 +291,8 @@ def test_window_layout_survives_the_merge():
     assert metas and all(a.shape[0] == S for a in metas)
     server.step(x1, tb)
     assert server.model.active_layout == "window"
-    assert plan_sessions(server.model.plan_host) == S
+    assert all(a.shape[0] == S
+               for _, a in plan_leaves(server.model.plan_host))
 
 
 @pytest.mark.parametrize("layout", ["window", "tiles"])
@@ -414,12 +415,11 @@ class _FullInstallServer(SessionServer):
     fresh restack of the sessions' plans moved by ``upload_plan``."""
 
     def _install(self):
-        from sige_torch.nn.planner import plan_layout
-        from sige_torch.parallel.serving import _session_rows, _stack_trees
+        from sige_torch.nn.planner import plan_layout, plan_rows, stack_plans
 
         self._stack.stacked()  # re-pins and re-forms as the server does
-        host = _session_rows(_stack_trees(self._stack.plans),
-                             self.mesh.rows(self.num_sessions))
+        host = plan_rows(stack_plans(self._stack.plans),
+                         self.mesh.rows(self.num_sessions))
         self.model.set_plan(host, plan_layout(host))
 
 

@@ -1,25 +1,31 @@
-"""The per-session forms of the port's window and tile ops against S calls
-of their single-plan forms, on the CPU, exactly: fp32 throughout, and
-fp32 fresh values over bf16 caches (``SIGEModel(cache_dtype=)``).
+"""The port's window and tile ops at S sessions against S calls of the
+same op at S = 1 on each session's rows, on the CPU, exactly: fp32
+throughout, and fp32 fresh values over bf16 caches
+(``SIGEModel(cache_dtype=)``).
 
 S sessions of B samples run as one batch of S*B (``SessionServer``);
 session s's origins, metas, masks and lookups are row s of the stacked
-plan, and the single-plan form runs on samples s*B .. s*B + B - 1 with
-row s as host integers. Covered: ``crop_sessions`` and ``paste_sessions``
-(in-image and border origins, an extent wider than the canvas, negative
-virtual origins, with and without ``cov`` and ``edge``, every activation
-in both orders), every window op of ``ops/window.py`` and the tile ops of
+plan, and the oracle runs the op on samples s*B .. s*B + B - 1 with row s
+alone (a one-session stack: how the engine installs one session's plan),
+compared bitwise except after transcendental activations (``_same``).
+The two primitives, ``crop_sessions`` and ``paste_sessions``, are held to
+plain slices of each session's samples instead (in-image and border
+origins, an extent wider than the canvas, negative virtual origins, with
+and without ``cov`` and ``edge``, every activation in both orders). The
+ops covered: every window op of ``ops/window.py`` and the tile ops of
 ``ops/gather.py`` / ``ops/scatter.py`` on lookups a ``PlanStack`` built.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sige_torch.core.geometry import BlockGeometry
 from sige_torch.core.masks import dilate_mask, downsample_mask
 from sige_torch.nn.planner import _window_meta
 from sige_torch.ops import gather as g
+from sige_torch.ops.gather import apply_epilogue, broadcast_param
 from sige_torch.ops import scatter as sc
 from sige_torch.ops import sessions as ss
 from sige_torch.ops import window as w
@@ -42,27 +48,52 @@ def _rand(gen, *shape, dtype=torch.float32):
 
 
 def _metas(kind):
-    """(stacked [S, k] metas, edges [S, EH, EW], per-session host metas
-    and edges, the canonical windows' origins [S, 2] and extent)."""
+    """(stacked [S, k] metas, edges [S, EH, EW], per-session host virtual
+    origins, the canonical windows' origins [S, 2] and extent)."""
     origins, ext = WINDOWS[kind]
     fast = kind == "inside"
     pairs = [_window_meta(o, ext, (H, W), fast) for o in origins]
     metas = torch.from_numpy(np.stack([m for m, _ in pairs]).astype(np.int64))
     edges = torch.from_numpy(np.stack([e for _, e in pairs]))
-    host = [(tuple(int(v) for v in m), torch.from_numpy(e)) for m, e in pairs]
     # a stride-1 3x3 consumer: the canonical window sits at v + 1, clamped
     WH, WW = min(ext[0] - 2, H), min(ext[1] - 2, W)
     orgs = [(max(0, min(o[0] + 1, H - WH)), max(0, min(o[1] + 1, W - WW)))
             for o in origins]
-    return metas, edges, host, torch.tensor(orgs), (WH, WW)
+    return metas, edges, origins, torch.tensor(orgs), (WH, WW)
+
+
+def _crop(x, r, c, eh, ew):
+    """[B, eh, ew, C] window of ``x`` at (r, c): the part inside ``x``
+    sliced, the rest zero."""
+    _, H_, W_, _ = x.shape
+    r0, r1 = max(r, 0), min(r + eh, H_)
+    c0, c1 = max(c, 0), min(c + ew, W_)
+    return F.pad(x[:, r0:r1, c0:c1],
+                 (0, 0, c0 - c, c + ew - c1, r0 - r, r + eh - r1))
+
+
+def _paste(base, win, r, c, cov=None):
+    """A copy of ``base`` in ``win``'s dtype with ``win`` written at
+    (r, c), where ``cov`` is set when given."""
+    out = base.to(win.dtype, copy=True)
+    h, w_ = win.shape[1:3]
+    dst = out[:, r:r + h, c:c + w_]
+    dst.copy_(win if cov is None
+              else torch.where(cov[None, :, :, None], win, dst))
+    return out
 
 
 def _rows(t, s):
     return t[s * B:(s + 1) * B]
 
 
+def _one(t, s):
+    """Row s of a per-session plan product, as a stack of one."""
+    return t[s:s + 1]
+
+
 def _per_session(fn):
-    """The single-plan form on every session's samples, concatenated."""
+    """The oracle on every session's samples, concatenated."""
     return torch.cat([fn(s) for s in range(S)])
 
 
@@ -91,15 +122,20 @@ def test_crop_sessions_matches_host_crops(kind, edge, activation, first):
     gen = torch.Generator().manual_seed(0)
     x = _rand(gen, S * B, H, W, C)
     scale, shift = _rand(gen, S * B, C), _rand(gen, C)
-    metas, edges, host, _, _ = _metas(kind)
+    metas, edges, origins, _, _ = _metas(kind)
     EH, EW = edges.shape[1:]
     got = ss.crop_sessions(x, metas, EH, EW, edges if edge else None, scale,
                            shift, activation, first)
-    want = _per_session(lambda s: w._epilogue(
-        w._extract_window(_rows(x, s), host[s][0], host[s][1]),
-        host[s][1] if edge else None, _rows(scale, s), shift, activation,
-        first))
-    _same(got, want, activation)
+
+    def want(s):
+        z = apply_epilogue(_crop(_rows(x, s), *origins[s], EH, EW),
+                           broadcast_param(_rows(scale, s)),
+                           broadcast_param(shift), activation, first)
+        if edge:
+            z = torch.where(edges[s][None, :, :, None], z, torch.zeros(()))
+        return z
+
+    _same(got, _per_session(want), activation)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -116,7 +152,7 @@ def test_paste_sessions_matches_host_pastes(dtype, cov, origin):
              "sessions": torch.rand(S, WH, WW, generator=gen) < 0.5}
     m = masks[cov]
     got = ss.paste_sessions(base, win, org, m)
-    want = _per_session(lambda s: w._paste(
+    want = _per_session(lambda s: _paste(
         _rows(base, s), _rows(win, s),
         *(rows[s] if origin == "rows" else org),
         None if m is None else (m[s] if m.ndim == 3 else m)))
@@ -130,10 +166,14 @@ def test_cov_where_and_clamp_origin_sessions():
     _same(ss.cov_where(cov, a, b), _per_session(
         lambda s: torch.where(cov[s][None, :, :, None], _rows(a, s),
                               _rows(b, s))))
+    # a clamped crop reads at the origin clamped so the window fits
     org = torch.tensor([[-3, 2], [9, 20], [4, 4]])
-    got = sc.clamp_origin(org, (5, 6), (H, W))
-    want = [sc.clamp_origin(tuple(o.tolist()), (5, 6), (H, W)) for o in org]
-    assert got.tolist() == [list(o) for o in want]
+    x = _rand(gen, S * B, H, W, C)
+    got = ss.crop_sessions(x, org, 5, 6, clamp=True)
+    want = _per_session(lambda s: _crop(
+        _rows(x, s), *(max(0, min(int(o), m - e))
+                       for o, e, m in zip(org[s], (5, 6), (H, W))), 5, 6))
+    _same(got, want)
 
 
 # --- the window ops ----------------------------------------------------------
@@ -146,10 +186,10 @@ def test_window_gather_sessions(kind, activation, first):
     gen = torch.Generator().manual_seed(3)
     x = _rand(gen, S * B, H, W, C)
     scale, shift = _rand(gen, S * B, C), _rand(gen, S * B, C)
-    metas, edges, host, _, _ = _metas(kind)
+    metas, edges, _, _, _ = _metas(kind)
     got = w.window_gather(x, metas, edges, scale, shift, activation, first)
     want = _per_session(lambda s: w.window_gather(
-        _rows(x, s), host[s][0], host[s][1], _rows(scale, s),
+        _rows(x, s), _one(metas, s), _one(edges, s), _rows(scale, s),
         _rows(shift, s), activation, first))
     _same(got, want, activation)
 
@@ -158,7 +198,7 @@ def test_window_gather_sessions(kind, activation, first):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_window_scatter_gather_sessions(kind, dtype):
     gen = torch.Generator().manual_seed(4)
-    metas, edges, host, _, _ = _metas(kind)
+    metas, edges, _, _, _ = _metas(kind)
     EH, EW = edges.shape[1:]
     cache = _rand(gen, S * B, H, W, C, dtype=dtype)
     h_win = _rand(gen, S * B, EH - 2, EW - 2, C)
@@ -167,8 +207,8 @@ def test_window_scatter_gather_sessions(kind, dtype):
     got = w.window_scatter_gather(h_win, cache, metas, edges, cov, (1, 1),
                                   scale, shift, "swish")
     want = _per_session(lambda s: w.window_scatter_gather(
-        _rows(h_win, s), _rows(cache, s), host[s][0], host[s][1], cov[s],
-        (1, 1), _rows(scale, s), _rows(shift, s), "swish"))
+        _rows(h_win, s), _rows(cache, s), _one(metas, s), _one(edges, s),
+        _one(cov, s), (1, 1), _rows(scale, s), _rows(shift, s), "swish"))
     _same(got, want, "swish")
 
 
@@ -184,16 +224,15 @@ def test_window_slice_scatter_materialize_sessions(kind, dtype, residual):
     res = {None: None, "map": _rand(gen, S * B, H, W, C),
            "window": _rand(gen, S * B, WH, WW, C),
            "channels": _rand(gen, S * B, C)}[residual]
-    host = [tuple(o.tolist()) for o in orgs]
     _same(w.window_slice(cache, orgs, (WH, WW)), _per_session(
-        lambda s: w.window_slice(_rows(cache, s), host[s], (WH, WW))))
+        lambda s: w.window_slice(_rows(cache, s), _one(orgs, s), (WH, WW))))
     _same(w.window_scatter(win, cache, orgs, cov, res), _per_session(
-        lambda s: w.window_scatter(_rows(win, s), _rows(cache, s), host[s],
-                                   cov[s], None if res is None
-                                   else _rows(res, s))))
+        lambda s: w.window_scatter(_rows(win, s), _rows(cache, s),
+                                   _one(orgs, s), _one(cov, s),
+                                   None if res is None else _rows(res, s))))
     _same(w.window_state_materialize(cache, win, orgs), _per_session(
         lambda s: w.window_state_materialize(_rows(cache, s), _rows(win, s),
-                                             host[s])))
+                                             _one(orgs, s))))
 
 
 @pytest.mark.parametrize("kind", list(WINDOWS))
@@ -201,15 +240,15 @@ def test_window_slice_scatter_materialize_sessions(kind, dtype, residual):
 @pytest.mark.parametrize("rel", [None, (1, 1)])
 def test_window_chain_extend_sessions(kind, dtype, rel):
     gen = torch.Generator().manual_seed(6)
-    metas, edges, host, orgs, (WH, WW) = _metas(kind)
+    metas, edges, _, orgs, (WH, WW) = _metas(kind)
     cache = _rand(gen, S * B, H, W, C, dtype=dtype)
     win = _rand(gen, S * B, WH, WW, C)
     scale, shift = _rand(gen, S * B, C), _rand(gen, S * B, C)
-    hosto = [tuple(o.tolist()) for o in orgs]
     got = w.window_chain_extend(win, orgs, cache, metas, edges, scale, shift,
                                 "swish", rel=rel)
     want = _per_session(lambda s: w.window_chain_extend(
-        _rows(win, s), hosto[s], _rows(cache, s), host[s][0], host[s][1],
+        _rows(win, s), _one(orgs, s), _rows(cache, s), _one(metas, s),
+        _one(edges, s),
         _rows(scale, s), _rows(shift, s), "swish", rel=rel))
     _same(got, want, "swish")
 
@@ -217,7 +256,7 @@ def test_window_chain_extend_sessions(kind, dtype, rel):
 @pytest.mark.parametrize("kind", list(WINDOWS))
 def test_window_chain_extend_up2_and_epilogue_sessions(kind):
     gen = torch.Generator().manual_seed(7)
-    metas, edges, host, _, _ = _metas(kind)
+    metas, edges, _, _, _ = _metas(kind)
     EH, EW = edges.shape[1:]
     # the doubled carried window of the coarser resolution, at 2 * its
     # origin: it covers the in-image part of the extraction window
@@ -228,13 +267,14 @@ def test_window_chain_extend_up2_and_epilogue_sessions(kind):
     got = w.window_chain_extend_up2(win2, org2, metas, edges, scale, shift,
                                     "swish", True)
     want = _per_session(lambda s: w.window_chain_extend_up2(
-        _rows(win2, s), tuple(org2[s].tolist()), host[s][0], host[s][1],
+        _rows(win2, s), _one(org2, s), _one(metas, s), _one(edges, s),
         _rows(scale, s), _rows(shift, s), "swish", True))
     _same(got, want, "swish")
     z = _rand(gen, S * B, EH, EW, C)
     _same(w.window_epilogue(z, edges, scale, shift, "swish"), _per_session(
-        lambda s: w.window_epilogue(_rows(z, s), host[s][1], _rows(scale, s),
-                                    _rows(shift, s), "swish")), "swish")
+        lambda s: w.window_epilogue(_rows(z, s), _one(edges, s),
+                                    _rows(scale, s), _rows(shift, s),
+                                    "swish")), "swish")
 
 
 @pytest.mark.parametrize("kind", list(WINDOWS))
@@ -245,11 +285,10 @@ def test_window_scatter_block_residual_sessions(kind, dtype):
     y0, y1 = (_rand(gen, S * B, H, W, C, dtype=dtype) for _ in range(2))
     main, short = (_rand(gen, S * B, WH, WW, C) for _ in range(2))
     cm, cs = (torch.rand(S, WH, WW, generator=gen) < p for p in (0.6, 0.4))
-    host = [tuple(o.tolist()) for o in orgs]
     got = w.window_scatter_block_residual(main, y0, short, y1, orgs, cm, cs)
     want = _per_session(lambda s: w.window_scatter_block_residual(
-        _rows(main, s), _rows(y0, s), _rows(short, s), _rows(y1, s), host[s],
-        cm[s], cs[s]))
+        _rows(main, s), _rows(y0, s), _rows(short, s), _rows(y1, s),
+        _one(orgs, s), _one(cm, s), _one(cs, s)))
     _same(got, want)
 
 
@@ -291,13 +330,9 @@ def tile_plans():
     return stacked, dev
 
 
-def _entry(stacked, name, s):
-    return {k: np.asarray(v)[s] for k, v in stacked[name].items()}
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_tile_ops_sessions(tile_plans, dtype):
-    stacked, dev = tile_plans
+    _, dev = tile_plans
     gen = torch.Generator().manual_seed(9)
     key = f"{TH}x{TW}"
     m, s_ = dev["m"], dev["s"]
@@ -313,9 +348,8 @@ def test_tile_ops_sessions(tile_plans, dtype):
     state = _rand(gen, S * B * K, bh, bw, C)
     resid = _rand(gen, S * B, TH, TW, C)
 
-    def host(name, s, k):
-        return torch.from_numpy(np.asarray(
-            _entry(stacked, name, s)[k]).astype(np.int64))
+    def one(name, s, k):
+        return _one(dev[name][k], s)
 
     def tiles_of(t, s, k):
         return t[s * B * k:(s + 1) * B * k]
@@ -324,37 +358,35 @@ def test_tile_ops_sessions(tile_plans, dtype):
     got = g.gather_tiles(x, m["indices"], m["count"], MAIN, scale, shift,
                          "swish")
     want = torch.cat([g.gather_tiles(
-        _rows(x, s), host("m", s, "indices"), host("m", s, "count"), MAIN,
+        _rows(x, s), one("m", s, "indices"), one("m", s, "count"), MAIN,
         _rows(scale, s), _rows(shift, s), "swish") for s in range(S)])
     _same(got, want, "swish")
     # scatter_tiles_box, with and without a full-map residual
     for r in (None, resid):
         got = sc.scatter_tiles_box(tiles, cache, m[f"srcbox_{key}"],
-                                   m[f"srcorg_{key}"], MAIN, r)
+                                   m[f"srcorg_{key}"], r)
         want = _per_session(lambda s: sc.scatter_tiles_box(
             tiles_of(tiles, s, K), _rows(cache, s),
-            host("m", s, f"srcbox_{key}"),
-            _entry(stacked, "m", s)[f"srcorg_{key}"], MAIN,
+            one("m", s, f"srcbox_{key}"), one("m", s, f"srcorg_{key}"),
             None if r is None else _rows(r, s)))
         _same(got, want)
     # scatter_with_block_residual_box
     got = sc.scatter_with_block_residual_box(
         tiles, cache, stiles, cres, m[f"srcbox_{key}"], m[f"srcorg_{key}"],
-        MAIN, s_[f"srcbox_{key}"], s_[f"srcorg_{key}"], SHORT)
+        s_[f"srcbox_{key}"], s_[f"srcorg_{key}"])
     want = _per_session(lambda s: sc.scatter_with_block_residual_box(
         tiles_of(tiles, s, K), _rows(cache, s), tiles_of(stiles, s, Ks),
-        _rows(cres, s), host("m", s, f"srcbox_{key}"),
-        _entry(stacked, "m", s)[f"srcorg_{key}"], MAIN,
-        host("s", s, f"srcbox_{key}"),
-        _entry(stacked, "s", s)[f"srcorg_{key}"], SHORT))
+        _rows(cres, s), one("m", s, f"srcbox_{key}"),
+        one("m", s, f"srcorg_{key}"), one("s", s, f"srcbox_{key}"),
+        one("s", s, f"srcorg_{key}")))
     _same(got, want)
     # scatter_gather_tiles and the tile chain's residual form
     got = sc.scatter_gather_tiles(tiles, cache, m[f"sgsrc_{key}"],
                                   m[f"sgflat_{key}"], MAIN, scale, shift,
                                   "swish")
     want = torch.cat([sc.scatter_gather_tiles(
-        tiles_of(tiles, s, K), _rows(cache, s), host("m", s, f"sgsrc_{key}"),
-        host("m", s, f"sgflat_{key}"), MAIN, _rows(scale, s),
+        tiles_of(tiles, s, K), _rows(cache, s), one("m", s, f"sgsrc_{key}"),
+        one("m", s, f"sgflat_{key}"), MAIN, _rows(scale, s),
         _rows(shift, s), "swish") for s in range(S)])
     _same(got, want)
     got = sc.scatter_gather_residual_tiles(
@@ -362,31 +394,33 @@ def test_tile_ops_sessions(tile_plans, dtype):
         scale, shift, "swish")
     want = torch.cat([sc.scatter_gather_residual_tiles(
         tiles_of(tiles, s, K), _rows(cache, s), tiles_of(state, s, K),
-        host("m", s, f"sgsrc_{key}"), host("m", s, f"sgflat_{key}"), MAIN,
+        one("m", s, f"sgsrc_{key}"), one("m", s, f"sgflat_{key}"), MAIN,
         _rows(scale, s), _rows(shift, s), "swish") for s in range(S)])
     _same(got, want, "swish")
-    # materialize_tiles_box
-    got = sc.materialize_tiles_box(state, cache, m[f"pixbox_{key}"],
-                                   m[f"pixorg_{key}"], MAIN)
-    want = _per_session(lambda s: sc.materialize_tiles_box(
-        tiles_of(state, s, K), _rows(cache, s), host("m", s, f"pixbox_{key}"),
-        _entry(stacked, "m", s)[f"pixorg_{key}"], MAIN))
+    # scatter_tiles_box as the tile state's materialize
+    got = sc.scatter_tiles_box(state, cache, m[f"pixbox_{key}"],
+                               m[f"pixorg_{key}"])
+    want = _per_session(lambda s: sc.scatter_tiles_box(
+        tiles_of(state, s, K), _rows(cache, s), one("m", s, f"pixbox_{key}"),
+        one("m", s, f"pixorg_{key}")))
     _same(got, want)
 
 
 def test_masked_attention_refuses_stacked_plans():
     """The SD models' masked stale/fresh attention never biases S sessions
-    with their own windows alike: a per-session origin gives one key bias
-    row per session (each the single-plan bias of that session's window),
-    where a host origin gives the one shared row."""
+    with their own windows alike: per-session origins give one key bias
+    row per session, each the bias of a one-session call on that
+    session's window."""
     from sige_torch.ops.attention import stale_fresh_biases
 
-    cov = torch.ones(4, 4, dtype=torch.bool)
-    bias_s, bias_f = stale_fresh_biases(cov, (2, 3), (8, 8))
-    assert bias_s.shape == (64,) and bias_f.shape == (16,)
-    rows_s, rows_f = stale_fresh_biases(cov, torch.tensor([[2, 3], [0, 0]]),
-                                        (8, 8))
+    cov = torch.ones(2, 4, 4, dtype=torch.bool)
+    org = torch.tensor([[2, 3], [0, 0]])
+    rows_s, rows_f = stale_fresh_biases(cov, org, (8, 8))
     assert rows_s.shape == (2, 64) and rows_f.shape == (2, 16)
-    assert torch.equal(rows_s[0], bias_s) and torch.equal(rows_f[0], bias_f)
-    assert torch.equal(rows_s[1], stale_fresh_biases(cov, (0, 0), (8, 8))[0])
+    for s in range(2):
+        bias_s, bias_f = stale_fresh_biases(_one(cov, s), _one(org, s),
+                                            (8, 8))
+        assert bias_s.shape == (1, 64) and bias_f.shape == (1, 16)
+        assert torch.equal(rows_s[s], bias_s[0])
+        assert torch.equal(rows_f[s], bias_f[0])
     assert not torch.equal(rows_s[0], rows_s[1])

@@ -28,6 +28,7 @@ from sige_tpu.parallel import make_mesh
 from sige_torch.core.masks import dilate_mask, downsample_mask
 from sige_torch.models.ddpm import DDPMUNetConfig, SIGEFusedUNet
 from sige_torch.nn import SIGEModel
+from sige_torch.nn.planner import plan_leaves, plan_rows
 from sige_torch.parallel import TwinStepServer
 from sige_torch.utils.from_jax import state_dict_from_flax
 from test_torch_sd_unet import one_torch_thread  # noqa: F401 (autouse)
@@ -106,6 +107,15 @@ def test_twin_step_matches_sige_tpu_and_single_requests(layout):
                                    err_msg=f"sparse, request {b}")
 
 
+def _installs(server, plan) -> bool:
+    """Whether the server's model holds ``plan`` as installed: a stack of
+    one session whose row is ``plan``, leaf for leaf."""
+    got = dict(plan_leaves(plan_rows(server.model.plan_host, 0)))
+    want = dict(plan_leaves(plan))
+    return got.keys() == want.keys() and all(
+        np.array_equal(got[k], want[k]) for k in want)
+
+
 def test_prime_keeps_the_shared_plan():
     p = _pair("tiles")
     _, plan = _port_plan(p, "tiles")
@@ -115,11 +125,11 @@ def test_prime_keeps_the_shared_plan():
     with pytest.raises(RuntimeError, match="prime"):
         server.step(t(p.x0), t(p.x1), t(p.t))
     server.prime(t(p.x0), t(p.t))
-    assert server.model.plan_host is plan
+    assert _installs(server, plan)
     assert server.model.active_layout == "tiles"
     # a step at another batch size keeps it too, and its rows are the
     # first rows of the batch-4 step
     y0, y1 = server.step(t(p.x0[:2]), t(p.x1[:2]), t(p.t[:2]))
-    assert server.model.plan_host is plan
+    assert _installs(server, plan)
     np.testing.assert_allclose(y1.numpy(), p.y1[:2], atol=ATOL, rtol=0)
     np.testing.assert_allclose(y0.numpy(), p.y0[:2], atol=ATOL, rtol=0)

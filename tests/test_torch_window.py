@@ -2,10 +2,11 @@
 
 Ops: each window op of ``sige_torch.ops.window`` against
 ``sige_tpu.ops.window`` on the same numpy-seeded inputs, at atol 1e-6
-(the same arithmetic in fp32). The port takes metas and origins as host
-integers and extracts a border window by zero-padding where sige_tpu
-clamps, rolls and masks; the cases cover the 2-form (in-image) and 4-form
-(border) metas and an extent wider than the canvas.
+(the same arithmetic in fp32). The port takes metas, origins and masks as
+a one-session plan does (``[1, k]`` int64 tensors, ``[1, h, w]`` masks)
+and extracts a border window by reading zero outside the image where
+sige_tpu clamps, rolls and masks; the cases cover the 2-form (in-image)
+and 4-form (border) metas and an extent wider than the canvas.
 
 Planner: ``build_plan(layout="window")`` of both packages on the same
 meta and masks, equal key by key with dtype and shape, for an interior,
@@ -45,6 +46,14 @@ def _meta(v_org, ext):
     return meta, edge
 
 
+def _s1(a):
+    """A host plan leaf as the engine installs it for one session: a
+    tensor with a leading session axis of 1 (ints as int64)."""
+    a = np.asarray(a)
+    return torch.from_numpy(a.astype(np.int64) if a.dtype != np.bool_
+                            else a)[None]
+
+
 def _rand(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
@@ -73,7 +82,8 @@ def test_window_gather(rng, name, v_org, ext, epilogue):
         scale = shift = None
     t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
     j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
-    got = tw.window_gather(t(x), meta, t(edge), t(scale), t(shift), **kw)
+    got = tw.window_gather(t(x), _s1(meta), _s1(edge), t(scale), t(shift),
+                           **kw)
     want = jw.window_gather(j(x), j(meta), j(edge), j(scale), j(shift), **kw)
     _close(got, want)
 
@@ -90,8 +100,8 @@ def test_window_scatter_gather(rng, name, v_org, ext):
     meta, edge = _meta(v_org, ext)
     cache_t = torch.from_numpy(cache.copy())
     got = tw.window_scatter_gather(
-        torch.from_numpy(h_win), cache_t, meta,
-        torch.from_numpy(edge), torch.from_numpy(cov), (1, 1),
+        torch.from_numpy(h_win), cache_t, _s1(meta), _s1(edge), _s1(cov),
+        (1, 1),
         torch.from_numpy(scale), torch.from_numpy(shift), "swish")
     want = jw.window_scatter_gather(
         jnp.asarray(h_win), jnp.asarray(cache), jnp.asarray(meta),
@@ -110,8 +120,8 @@ def test_window_scatter(rng, residual):
            "window": _rand(rng, 2, WH, WW, C),
            "channels": _rand(rng, 2, C)}[residual]
     cache_t = torch.from_numpy(cache.copy())
-    got = tw.window_scatter(torch.from_numpy(h_win), cache_t, org,
-                            torch.from_numpy(cov),
+    got = tw.window_scatter(torch.from_numpy(h_win), cache_t, _s1(org),
+                            _s1(cov),
                             None if res is None else torch.from_numpy(res))
     want = jw.window_scatter(jnp.asarray(h_win), jnp.asarray(cache),
                              jnp.asarray(org, jnp.int32), jnp.asarray(cov),
@@ -136,7 +146,7 @@ def test_window_chain_extend(rng, form):
     rel = (1, 1) if form == "rel_given" else None
     cache_t = torch.from_numpy(cache.copy())
     got = tw.window_chain_extend(
-        torch.from_numpy(win), org, cache_t, meta, torch.from_numpy(edge),
+        torch.from_numpy(win), _s1(org), cache_t, _s1(meta), _s1(edge),
         torch.from_numpy(scale), torch.from_numpy(shift), "swish", rel=rel)
     want = jw.window_chain_extend(
         jnp.asarray(win), jnp.asarray(org, jnp.int32),
@@ -159,7 +169,7 @@ def test_window_chain_extend_up2(rng, where):
     win2 = _rand(rng, 1, WH2, WW2, C)
     scale, shift = _rand(rng, 1, C), _rand(rng, 1, C)
     got = tw.window_chain_extend_up2(
-        torch.from_numpy(win2), org2, meta, torch.from_numpy(edge),
+        torch.from_numpy(win2), _s1(org2), _s1(meta), _s1(edge),
         torch.from_numpy(scale), torch.from_numpy(shift), "swish")
     want = jw.window_chain_extend_up2(
         jnp.asarray(win2), jnp.asarray(org2, jnp.int32), jnp.asarray(meta),
@@ -170,7 +180,8 @@ def test_window_chain_extend_up2(rng, where):
 def test_window_state_materialize_and_epilogue(rng):
     win, cache = _rand(rng, 1, 5, 6, C), _rand(rng, 1, H, W, C)
     cache_t = torch.from_numpy(cache.copy())
-    got = tw.window_state_materialize(cache_t, torch.from_numpy(win), (3, 7))
+    got = tw.window_state_materialize(cache_t, torch.from_numpy(win),
+                                      _s1((3, 7)))
     want = jw.window_state_materialize(jnp.asarray(cache)[None], 0,
                                        jnp.asarray(win),
                                        jnp.asarray((3, 7), jnp.int32))
@@ -180,7 +191,7 @@ def test_window_state_materialize_and_epilogue(rng):
     z = _rand(rng, 1, 8, 9, C)
     _, edge = _meta((-2, 8), (8, 9))
     scale, shift = _rand(rng, 1, C), _rand(rng, 1, C)
-    got = tw.window_epilogue(torch.from_numpy(z), torch.from_numpy(edge),
+    got = tw.window_epilogue(torch.from_numpy(z), _s1(edge),
                              torch.from_numpy(scale), torch.from_numpy(shift),
                              "swish")
     want = jw.window_epilogue(jnp.asarray(z), jnp.asarray(edge),
@@ -197,8 +208,7 @@ def test_window_scatter_block_residual(rng):
     y0_t = torch.from_numpy(y0.copy())
     got = tw.window_scatter_block_residual(
         torch.from_numpy(main), y0_t, torch.from_numpy(short),
-        torch.from_numpy(y1), org, torch.from_numpy(cov_m),
-        torch.from_numpy(cov_s))
+        torch.from_numpy(y1), _s1(org), _s1(cov_m), _s1(cov_s))
     want = jw.window_scatter_block_residual(
         jnp.asarray(main), jnp.asarray(y0), jnp.asarray(short),
         jnp.asarray(y1), jnp.asarray(org, jnp.int32), jnp.asarray(cov_m),

@@ -41,7 +41,7 @@ from sige_torch.models.pd import PDUNetConfig, SIGEPDUNet
 from sige_torch.models.sd import (SDUNetConfig, SDVAEConfig, SIGEDecoder,
                                   SIGEEncoder, SIGESDUNet)
 from sige_torch.nn import SIGECtx, SIGEModel
-from sige_torch.nn.engine import plan_sessions
+from sige_torch.nn.planner import plan_leaves
 from sige_torch.parallel import (RowBand, SessionServer, TwinStepServer,
                                  gather_batch, gather_caches, gather_rows,
                                  make_mesh, make_spatial_mesh, replicate,
@@ -87,7 +87,9 @@ def sessions(task, rank):
     y_upd = server.step(x1, t, sparse_update=True)
     return {"rows": _np(y), "y": _np(gather_batch(mesh, y)),
             "y_upd": _np(gather_batch(mesh, y_upd)),
-            "plan_sessions": plan_sessions(server.model.plan_host),
+            # S leads every leaf of the installed plan
+            "plan_sessions": int(plan_leaves(server.model.plan_host)[0][1]
+                                 .shape[0]),
             "dp": mesh.dp, "tp": mesh.tp}
 
 
